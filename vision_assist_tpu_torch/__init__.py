@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of vision_assist_tpu for NVIDIA Hopper.
+
+The JAX package ``vision_assist_tpu`` is the reference; this package keeps
+its module layout so that each counterpart is easy to find, imports nothing
+from it, and runs its entry points on ``device="cuda"`` unless the caller
+asks for the CPU.
+"""

@@ -1,0 +1,158 @@
+"""Detection decode: DFL box regression, fixed-shape NMS, mask assembly.
+
+Everything is static-shape: candidate counts, kept detections and masks are
+padded with validity flags, so a frame costs the same launches whatever the
+model saw.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from vision_assist_tpu_torch.models.yolo import YoloSegOutputs
+
+NEG = -1.0e30
+
+
+def make_anchors(hw_per_level: list[tuple[int, int]],
+                 strides: tuple[int, ...], offset: float = 0.5,
+                 device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Anchor centre points (A, 2) in input-image pixels and per-anchor stride
+    (A, 1) — ultralytics make_anchors semantics."""
+    pts, sts = [], []
+    for (h, w), s in zip(hw_per_level, strides):
+        xs = torch.arange(w, dtype=torch.float32, device=device) + offset
+        ys = torch.arange(h, dtype=torch.float32, device=device) + offset
+        yv, xv = torch.meshgrid(ys, xs, indexing="ij")
+        pts.append(torch.stack([xv.reshape(-1), yv.reshape(-1)], dim=-1) * s)
+        sts.append(torch.full((h * w, 1), float(s), device=device))
+    return torch.cat(pts), torch.cat(sts)
+
+
+def dfl_expectation(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """Distribution-focal decode: softmax over reg_max bins -> expected value.
+    box_logits (..., 4*reg_max) -> distances (..., 4) in stride units (ltrb)."""
+    shape = box_logits.shape[:-1] + (4, reg_max)
+    probs = torch.softmax(box_logits.reshape(shape), dim=-1)
+    bins = torch.arange(reg_max, dtype=torch.float32, device=box_logits.device)
+    return torch.sum(probs * bins, dim=-1)
+
+
+def _flat(xs: list[torch.Tensor]) -> torch.Tensor:
+    """Per-level NCHW maps -> (B, sum H*W, C), row-major over (H, W)."""
+    return torch.cat([x.flatten(2).transpose(1, 2) for x in xs], dim=1)
+
+
+def decode_boxes(outputs: YoloSegOutputs, reg_max: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flatten levels and decode to xyxy boxes in letterboxed-image pixels.
+
+    Returns (boxes (B, A, 4) xyxy, cls_logits (B, A, nc), coeffs (B, A, nm)).
+    """
+    hw = [tuple(b.shape[2:4]) for b in outputs.box_logits]
+    anchors, strides = make_anchors(hw, outputs.strides,
+                                    device=outputs.protos.device)
+    box = dfl_expectation(_flat(outputs.box_logits), reg_max)   # (B, A, 4)
+    lt, rb = box[..., :2], box[..., 2:]
+    x1y1 = anchors[None] - lt * strides[None]
+    x2y2 = anchors[None] + rb * strides[None]
+    boxes = torch.cat([x1y1, x2y2], dim=-1)
+    return boxes, _flat(outputs.cls_logits), _flat(outputs.coeffs)
+
+
+def _box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of xyxy boxes a (N,4) x b (M,4) -> (N,M)."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+@dataclasses.dataclass
+class Detections:
+    """Padded, fixed-size detection set for one image."""
+
+    boxes: torch.Tensor    # (D, 4) xyxy, letterboxed-image pixels
+    scores: torch.Tensor   # (D,)
+    classes: torch.Tensor  # (D,) int32
+    coeffs: torch.Tensor   # (D, nm)
+    valid: torch.Tensor    # (D,) bool
+
+
+def nms(boxes: torch.Tensor, cls_logits: torch.Tensor, coeffs: torch.Tensor,
+        conf_threshold: float = 0.5, iou_threshold: float = 0.7,
+        max_candidates: int = 256, max_det: int = 32) -> Detections:
+    """Greedy class-aware NMS with static shapes (torchvision.ops.nms
+    semantics as ultralytics uses them, best-class-only path).
+
+    boxes (A, 4), cls_logits (A, nc), coeffs (A, nm) for ONE image.
+    Candidates are the top max_candidates by best-class confidence; equal
+    scores keep index order (a stable sort), as the reference's top_k does.
+    """
+    dev = boxes.device
+    scores_all = torch.sigmoid(cls_logits)
+    best, cls = torch.max(scores_all, dim=-1)
+    cls = cls.to(torch.int32)
+
+    cand = torch.where(best > conf_threshold, best, NEG)
+    k = min(max_candidates, cand.shape[0])
+    top_scores, idx = torch.sort(cand, descending=True, stable=True)
+    top_scores, idx = top_scores[:k], idx[:k]
+    if k < max_candidates:
+        top_scores = torch.cat([top_scores, torch.full(
+            (max_candidates - k,), NEG, device=dev)])
+        idx = torch.cat([idx, torch.zeros(max_candidates - k, dtype=idx.dtype,
+                                          device=dev)])
+    cand_valid = top_scores > conf_threshold
+    cand_boxes = boxes[idx]
+    cand_cls = cls[idx]
+
+    # Class-aware: offset boxes per class (the max_wh trick).
+    offs = cand_cls.float()[:, None] * 7680.0
+    iou = _box_iou(cand_boxes + offs, cand_boxes + offs)
+
+    order = torch.arange(max_candidates, device=dev)
+    suppress = (iou > iou_threshold) & (order[None, :] > order[:, None])
+    keep = cand_valid.clone()
+    for i in range(max_candidates):
+        keep &= ~(suppress[i] & keep[i])
+
+    # The first max_det kept (already in descending score order).
+    kept_rank = torch.where(keep, order, max_candidates)
+    sel = torch.argsort(kept_rank, stable=True)[:max_det]
+    valid = keep[sel] & (kept_rank[sel] < max_candidates)
+
+    return Detections(
+        boxes=torch.where(valid[:, None], cand_boxes[sel], 0.0),
+        scores=torch.where(valid, top_scores[sel], 0.0),
+        classes=torch.where(valid, cand_cls[sel], -1),
+        coeffs=torch.where(valid[:, None], coeffs[idx][sel], 0.0),
+        valid=valid,
+    )
+
+
+def assemble_masks(protos: torch.Tensor, dets: Detections,
+                   input_hw: tuple[int, int]) -> torch.Tensor:
+    """Mask logits at prototype resolution, box-cropped (NOT thresholded).
+
+    protos (nm, Hp, Wp); returns (D, Hp, Wp) float32: coeff @ proto, then a
+    multiplicative box crop (zeros outside), as ultralytics' crop_mask does.
+    """
+    _, hp, wp = protos.shape
+    ih, iw = input_hw
+    masks = torch.einsum("dn,nhw->dhw", dets.coeffs.float(), protos.float())
+
+    scale = torch.tensor([wp / iw, hp / ih, wp / iw, hp / ih],
+                         dtype=torch.float32, device=protos.device)
+    b = dets.boxes * scale[None]
+    xs = torch.arange(wp, dtype=torch.float32, device=protos.device)[None, None, :]
+    ys = torch.arange(hp, dtype=torch.float32, device=protos.device)[None, :, None]
+    inside = ((xs >= b[:, 0, None, None]) & (xs < b[:, 2, None, None])
+              & (ys >= b[:, 1, None, None]) & (ys < b[:, 3, None, None]))
+    return masks * (inside & dets.valid[:, None, None]).to(masks.dtype)

@@ -1,0 +1,136 @@
+"""Segmentation inference: one chain from raw frame to cell occupancy.
+
+frame (H0, W0, 3 uint8 BGR)
+  -> letterbox (ops.letterbox)
+  -> YoloSeg forward (bf16 on the card unless ModelConfig.dtype says float32)
+  -> DFL decode + NMS (models.decode)
+  -> proto matmul + box crop (models.decode.assemble_masks)
+  -> winning mask: the largest area (the reference keeps the largest mask)
+  -> occupancy: bilinear logit sampling at every cell centre > 0
+
+The mask never exists at frame resolution: sampling prototype logits at the
+mapped cell centres equals upsample-then-threshold at those pixels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from vision_assist_tpu_torch.config import ModelConfig
+from vision_assist_tpu_torch.models.decode import (
+    Detections,
+    assemble_masks,
+    decode_boxes,
+    nms,
+)
+from vision_assist_tpu_torch.models.yolo import YoloSeg, convert_flax_variables
+from vision_assist_tpu_torch.ops.letterbox import (
+    LetterboxSpec,
+    letterbox,
+    sample_mask_logits_at_points,
+)
+
+
+@dataclasses.dataclass
+class SegFrameResult:
+    occupancy: torch.Tensor      # (R, C) bool — winning mask sampled at centres
+    detections: Detections
+    mask_logits: torch.Tensor    # (D, Hp, Wp) cropped logits
+    winner: torch.Tensor         # () int32 index into detections, -1 if none
+    any_detection: torch.Tensor  # () bool
+
+
+def cell_centres_dst(frame_h: int, frame_w: int, grid_size: int,
+                     spec: LetterboxSpec) -> np.ndarray:
+    """(R*C, 2) letterboxed coordinates of every cell-centre pixel."""
+    rows, cols = frame_h // grid_size, frame_w // grid_size
+    cy, cx = np.meshgrid(
+        np.arange(rows) * grid_size + grid_size // 2,
+        np.arange(cols) * grid_size + grid_size // 2,
+        indexing="ij",
+    )
+    pts = np.stack([cx.reshape(-1), cy.reshape(-1)], axis=-1).astype(np.float32)
+    mapped = np.stack(
+        [spec.frame_to_dst(float(x), float(y)) for x, y in pts]
+    ).astype(np.float32)
+    return mapped
+
+
+def _init_random_(model: YoloSeg, generator: torch.Generator) -> None:
+    """Seeded random weights: convs ~ N(0, 1/fan_in), BN at identity."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                w = torch.randn(m.weight.shape, generator=generator)
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(w / fan_in ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+class Segmenter:
+    """Holds the YoloSeg module on its device and runs the per-frame chain."""
+
+    def __init__(self, cfg: ModelConfig, variables: Any | None = None,
+                 generator: torch.Generator | None = None,
+                 example_hw: tuple[int, int] = (1280, 720),
+                 grid_size: int = 20, device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Segmenter: CUDA requested but not available")
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        self.model = YoloSeg(arch=cfg.arch, num_classes=cfg.num_classes,
+                             reg_max=cfg.reg_max, num_masks=cfg.num_mask_coeffs,
+                             dtype=dtype)
+        if variables is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            _init_random_(self.model, generator)
+        else:
+            self.model.load_state_dict(convert_flax_variables(variables, self.model))
+        self.model.eval().to(self.device)
+        self.frame_h, self.frame_w = example_hw
+        self.grid_size = grid_size
+        self.spec = LetterboxSpec.create(self.frame_h, self.frame_w, cfg.imgsz)
+        self._centres = torch.from_numpy(cell_centres_dst(
+            self.frame_h, self.frame_w, grid_size, self.spec)).to(self.device)
+
+    @torch.no_grad()
+    def _frame_chain(self, frame_bgr: torch.Tensor) -> SegFrameResult:
+        cfg = self.cfg
+        img = letterbox(frame_bgr, dst=cfg.imgsz)
+        outs = self.model(img.permute(2, 0, 1)[None])
+        boxes, cls_logits, coeffs = decode_boxes(outs, cfg.reg_max)
+        dets = nms(boxes[0], cls_logits[0], coeffs[0],
+                   conf_threshold=cfg.conf_threshold,
+                   iou_threshold=cfg.iou_threshold,
+                   max_det=cfg.max_detections)
+        mask_logits = assemble_masks(outs.protos[0], dets, (cfg.imgsz, cfg.imgsz))
+
+        areas = torch.sum(mask_logits > 0, dim=(-1, -2))
+        areas = torch.where(dets.valid, areas, -1)
+        any_det = torch.any(dets.valid)
+        winner = torch.where(any_det, torch.argmax(areas), -1).to(torch.int32)
+
+        samples = sample_mask_logits_at_points(
+            mask_logits, self._centres, dst=cfg.imgsz, threshold=True)
+        rows = self.frame_h // self.grid_size
+        cols = self.frame_w // self.grid_size
+        win_occ = samples[torch.clamp(winner, min=0)].reshape(rows, cols) & any_det
+        return SegFrameResult(
+            occupancy=win_occ, detections=dets, mask_logits=mask_logits,
+            winner=winner, any_detection=any_det)
+
+    def __call__(self, frame_bgr) -> SegFrameResult:
+        frame = torch.as_tensor(frame_bgr).to(self.device)
+        if tuple(frame.shape[:2]) != (self.frame_h, self.frame_w):
+            raise ValueError(
+                f"frame shape {tuple(frame.shape[:2])} != Segmenter example_hw "
+                f"({self.frame_h}, {self.frame_w}); build the Segmenter "
+                "with example_hw matching the camera")
+        return self._frame_chain(frame)

@@ -1,0 +1,481 @@
+"""PyTorch YOLO-seg model family (YOLOv8n-seg / YOLO11n-seg), NCHW.
+
+Counterpart of ``vision_assist_tpu/models/yolo.py``: the same blocks, the
+same channel and depth scaling, and the same arithmetic (bf16 convolutions
+with float32 BatchNorm, eps 1e-3; float32 head convolutions). Every module
+registers its children in the order the Flax module creates them in
+``__call__``, so :func:`convert_flax_variables` can walk the tree and name
+each leaf the way Flax does (``ConvBNAct_3``, ``C3k2_5``, ...).
+
+Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution where
+``nn.Conv2d(padding=1)`` would pad (1, 1); :func:`_pad_same` pads explicitly.
+Flax's ``ConvTranspose`` does not flip its kernel, PyTorch's does: the bridge
+flips the spatial taps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloScale:
+    depth: float
+    width: float
+    max_channels: int
+
+
+SCALES = {
+    "n": YoloScale(depth=1 / 3, width=1 / 4, max_channels=1024),
+    "s": YoloScale(depth=1 / 3, width=1 / 2, max_channels=1024),
+    "m": YoloScale(depth=2 / 3, width=3 / 4, max_channels=768),
+}
+SCALES_11 = {
+    "n": YoloScale(depth=1 / 2, width=1 / 4, max_channels=1024),
+    "s": YoloScale(depth=1 / 2, width=1 / 2, max_channels=1024),
+    "m": YoloScale(depth=1 / 2, width=1.0, max_channels=512),
+}
+
+
+def _round_ch(c: float) -> int:
+    return max(int(round(c)), 1)
+
+
+def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """XLA/TF "SAME" padding: the odd pixel goes to the bottom/right."""
+    if k == 1 and s == 1:
+        return x
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):          # F.pad order: W then H
+        out = -(-n // s)
+        total = max((out - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class ConvBNAct(nn.Module):
+    """Conv (no bias, compute dtype) + BatchNorm (float32) + optional SiLU."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
+                 groups: int = 1, act: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.kernel, self.stride, self.act, self.dtype = kernel, stride, act, dtype
+        self.conv = nn.Conv2d(c_in, c_out, kernel, stride, groups=groups,
+                              bias=False, dtype=dtype)
+        self.bn = nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(_pad_same(x, self.kernel, self.stride))
+        y = self.bn(y.float())
+        return (F.silu(y) if self.act else y).to(self.dtype)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c_in: int, features: int, shortcut: bool = True,
+                 expansion: float = 0.5, kernels: tuple[int, int] = (3, 3),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = _round_ch(features * expansion)
+        self.cv1 = ConvBNAct(c_in, hidden, kernels[0], dtype=dtype)
+        self.cv2 = ConvBNAct(hidden, features, kernels[1], dtype=dtype)
+        self.add = shortcut and c_in == features
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Cross-stage partial block with n bottlenecks (YOLOv8)."""
+
+    def __init__(self, c_in: int, features: int, n: int = 1,
+                 shortcut: bool = False, expansion: float = 0.5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = _round_ch(features * expansion)
+        self.cv1 = ConvBNAct(c_in, 2 * hidden, 1, dtype=dtype)
+        self.m = nn.ModuleList(
+            Bottleneck(hidden, hidden, shortcut, 1.0, (3, 3), dtype=dtype)
+            for _ in range(n))
+        self.cv2 = ConvBNAct((2 + n) * hidden, features, 1, dtype=dtype)
+
+    def forward(self, x):
+        outs = list(torch.chunk(self.cv1(x), 2, dim=1))
+        for m in self.m:
+            outs.append(m(outs[-1]))
+        return self.cv2(torch.cat(outs, dim=1))
+
+
+class C3(nn.Module):
+    def __init__(self, c_in: int, features: int, n: int = 1,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 kernels: tuple[int, int] = (1, 3),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = _round_ch(features * expansion)
+        self.cv1 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
+        self.m = nn.ModuleList(
+            Bottleneck(hidden, hidden, shortcut, 1.0, kernels, dtype=dtype)
+            for _ in range(n))
+        self.cv2 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
+        self.cv3 = ConvBNAct(2 * hidden, features, 1, dtype=dtype)
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for m in self.m:
+            a = m(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+
+
+class C3k2(nn.Module):
+    """YOLO11 block: C2f whose inner units are C3k (when c3k) or Bottleneck."""
+
+    def __init__(self, c_in: int, features: int, n: int = 1, c3k: bool = False,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = _round_ch(features * expansion)
+        self.cv1 = ConvBNAct(c_in, 2 * hidden, 1, dtype=dtype)
+        self.m = nn.ModuleList(
+            C3(hidden, hidden, 2, shortcut, kernels=(3, 3), dtype=dtype) if c3k
+            else Bottleneck(hidden, hidden, shortcut, 0.5, (3, 3), dtype=dtype)
+            for _ in range(n))
+        self.cv2 = ConvBNAct((2 + n) * hidden, features, 1, dtype=dtype)
+
+    def forward(self, x):
+        outs = list(torch.chunk(self.cv1(x), 2, dim=1))
+        for m in self.m:
+            outs.append(m(outs[-1]))
+        return self.cv2(torch.cat(outs, dim=1))
+
+
+class SPPF(nn.Module):
+    def __init__(self, c_in: int, features: int, pool: int = 5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = c_in // 2
+        self.pool = pool
+        self.cv1 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
+        self.cv2 = ConvBNAct(4 * hidden, features, 1, dtype=dtype)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        p = self.pool
+        ys = [y]
+        for _ in range(3):
+            ys.append(F.max_pool2d(ys[-1], p, stride=1, padding=p // 2))
+        return self.cv2(torch.cat(ys, dim=1))
+
+
+class Attention(nn.Module):
+    """Multi-head attention over the spatial grid with a positional
+    depthwise conv on v (YOLO11 PSA). Channels of qkv split per head as
+    (nh, 2*key_dim + head_dim), exactly as the NHWC reference reshapes them."""
+
+    def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5,
+                 legacy: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.nh = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        qkv_dim = num_heads * (2 * self.key_dim + self.head_dim)
+        self.qkv = ConvBNAct(dim, qkv_dim, 1, act=legacy, dtype=dtype)
+        self.pe = ConvBNAct(dim, dim, 3, groups=dim, act=legacy, dtype=dtype)
+        self.proj = ConvBNAct(dim, dim, 1, act=legacy, dtype=dtype)
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        nh, kd, hd = self.nh, self.key_dim, self.head_dim
+        qkv = self.qkv(x).reshape(b, nh, 2 * kd + hd, h * w)
+        q, k, v = torch.split(qkv, [kd, kd, hd], dim=2)
+        attn = torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float())
+        attn = torch.softmax(attn * (kd ** -0.5), dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bhdk->bhdq", attn.float(), v.float())
+        out = out.to(x.dtype).reshape(b, nh * hd, h, w)
+        pe = self.pe(v.reshape(b, nh * hd, h, w))
+        return self.proj(out + pe)
+
+
+class PSABlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, legacy: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.attn = Attention(dim, num_heads, legacy=legacy, dtype=dtype)
+        self.ffn1 = ConvBNAct(dim, dim * 2, 1, dtype=dtype)
+        self.ffn2 = ConvBNAct(dim * 2, dim, 1, act=legacy, dtype=dtype)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn2(self.ffn1(x))
+
+
+class C2PSA(nn.Module):
+    def __init__(self, c_in: int, features: int, n: int = 1,
+                 legacy: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = features // 2
+        self.cv1 = ConvBNAct(c_in, 2 * hidden, 1, dtype=dtype)
+        self.m = nn.ModuleList(
+            PSABlock(hidden, max(1, hidden // 64), legacy=legacy, dtype=dtype)
+            for _ in range(n))
+        self.cv2 = ConvBNAct(2 * hidden, features, 1, dtype=dtype)
+
+    def forward(self, x):
+        a, b = torch.chunk(self.cv1(x), 2, dim=1)
+        for m in self.m:
+            b = m(b)
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class Proto(nn.Module):
+    """Mask prototype head (from P3): conv, 2x transposed conv, conv, 1x1."""
+
+    def __init__(self, c_in: int, hidden: int, out: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cv1 = ConvBNAct(c_in, hidden, 3, dtype=dtype)
+        self.up = nn.ConvTranspose2d(hidden, hidden, 2, 2, bias=True, dtype=dtype)
+        self.cv2 = ConvBNAct(hidden, hidden, 3, dtype=dtype)
+        self.cv3 = ConvBNAct(hidden, out, 1, dtype=dtype)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.up(self.cv1(x))))
+
+
+@dataclasses.dataclass
+class YoloSegOutputs:
+    """Raw per-level head outputs plus prototypes (all NCHW, float32)."""
+
+    box_logits: list[torch.Tensor]   # per level (B, 4*reg_max, H, W)
+    cls_logits: list[torch.Tensor]   # per level (B, nc, H, W)
+    coeffs: list[torch.Tensor]       # per level (B, nm, H, W)
+    protos: torch.Tensor             # (B, nm, Hp, Wp)
+    strides: tuple[int, ...]
+
+
+class YoloSeg(nn.Module):
+    """YOLOv8/11 segmentation model; images (B, 3, H, W) float in [0, 1]."""
+
+    def __init__(self, arch: str = "yolov8n-seg", num_classes: int = 1,
+                 reg_max: int = 16, num_masks: int = 32,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.arch, self.reg_max, self.dtype = arch, reg_max, dtype
+        is_v11 = "11" in arch
+        legacy = is_v11 and arch.endswith("-legacy")
+        letter = arch.replace("-legacy", "").replace("-seg", "")[-1]
+        s = (SCALES_11 if is_v11 else SCALES)[letter]
+        dt = dtype
+
+        def ch(c: int) -> int:
+            return _round_ch(min(c, s.max_channels) * s.width)
+
+        def depth(n: int) -> int:
+            return max(int(round(n * s.depth)), 1)
+
+        if is_v11:
+            self.backbone = nn.ModuleList([
+                ConvBNAct(3, ch(64), 3, 2, dtype=dt),
+                ConvBNAct(ch(64), ch(128), 3, 2, dtype=dt),
+                C3k2(ch(128), ch(256), depth(2), c3k=False, shortcut=True,
+                     expansion=0.25, dtype=dt),
+                ConvBNAct(ch(256), ch(256), 3, 2, dtype=dt),
+                C3k2(ch(256), ch(512), depth(2), c3k=False, shortcut=True,
+                     expansion=0.25, dtype=dt),                        # P3
+                ConvBNAct(ch(512), ch(512), 3, 2, dtype=dt),
+                C3k2(ch(512), ch(512), depth(2), c3k=True, shortcut=True,
+                     dtype=dt),                                        # P4
+                ConvBNAct(ch(512), ch(1024), 3, 2, dtype=dt),
+                C3k2(ch(1024), ch(1024), depth(2), c3k=True, shortcut=True,
+                     dtype=dt),
+                SPPF(ch(1024), ch(1024), 5, dtype=dt),
+                C2PSA(ch(1024), ch(1024), depth(2), legacy=legacy, dtype=dt),
+            ])
+            c_p3, c_p4 = ch(512), ch(512)
+            if legacy:
+                def block(ci, c, n, sc, c3k=False):
+                    return C3k2(ci, c, depth(n), c3k=False, shortcut=sc, dtype=dt)
+            else:
+                def block(ci, c, n, sc, c3k=False):
+                    return C3k2(ci, c, depth(n), c3k=c3k, shortcut=True, dtype=dt)
+            neck_n = 2
+        else:
+            self.backbone = nn.ModuleList([
+                ConvBNAct(3, ch(64), 3, 2, dtype=dt),
+                ConvBNAct(ch(64), ch(128), 3, 2, dtype=dt),
+                C2f(ch(128), ch(128), depth(3), shortcut=True, dtype=dt),
+                ConvBNAct(ch(128), ch(256), 3, 2, dtype=dt),
+                C2f(ch(256), ch(256), depth(6), shortcut=True, dtype=dt),  # P3
+                ConvBNAct(ch(256), ch(512), 3, 2, dtype=dt),
+                C2f(ch(512), ch(512), depth(6), shortcut=True, dtype=dt),  # P4
+                ConvBNAct(ch(512), ch(1024), 3, 2, dtype=dt),
+                C2f(ch(1024), ch(1024), depth(3), shortcut=True, dtype=dt),
+                SPPF(ch(1024), ch(1024), 5, dtype=dt),
+            ])
+            c_p3, c_p4 = ch(256), ch(512)
+
+            def block(ci, c, n, sc, c3k=False):
+                return C2f(ci, c, depth(n), shortcut=sc, dtype=dt)
+            neck_n = 3
+        c_p5 = ch(1024)
+        self._p3_at, self._p4_at = 4, 6
+
+        # PAN neck, registered in the reference's creation order.
+        self.h1 = block(c_p5 + c_p4, ch(512), neck_n, False)
+        self.n3 = block(ch(512) + c_p3, ch(256), neck_n, False)
+        self.d1 = ConvBNAct(ch(256), ch(256), 3, 2, dtype=dt)
+        self.n4 = block(ch(256) + ch(512), ch(512), neck_n, False)
+        self.d2 = ConvBNAct(ch(512), ch(512), 3, 2, dtype=dt)
+        self.n5 = block(ch(512) + c_p5, ch(1024), neck_n, False, c3k=True)
+
+        feats = [ch(256), ch(512), ch(1024)]
+        c_box = max(16, feats[0] // 4, reg_max * 4)
+        c_cls = max(feats[0], min(num_classes, 100))
+        c_m = max(feats[0] // 4, num_masks)
+        heads = []
+        for f in feats:
+            box = [ConvBNAct(f, c_box, 3, dtype=dt),
+                   ConvBNAct(c_box, c_box, 3, dtype=dt),
+                   nn.Conv2d(c_box, 4 * reg_max, 1)]
+            if is_v11:
+                cls = [ConvBNAct(f, f, 3, groups=f, dtype=dt),
+                       ConvBNAct(f, c_cls, 1, dtype=dt),
+                       ConvBNAct(c_cls, c_cls, 3, groups=c_cls, dtype=dt),
+                       ConvBNAct(c_cls, c_cls, 1, dtype=dt)]
+            else:
+                cls = [ConvBNAct(f, c_cls, 3, dtype=dt),
+                       ConvBNAct(c_cls, c_cls, 3, dtype=dt)]
+            cls.append(nn.Conv2d(c_cls, num_classes, 1))
+            mask = [ConvBNAct(f, c_m, 3, dtype=dt),
+                    ConvBNAct(c_m, c_m, 3, dtype=dt),
+                    nn.Conv2d(c_m, num_masks, 1)]
+            heads.append(nn.ModuleList(
+                [nn.ModuleList(box), nn.ModuleList(cls), nn.ModuleList(mask)]))
+        self.heads = nn.ModuleList(heads)
+        self.proto = Proto(ch(256), ch(256), num_masks, dtype=dt)
+
+    def forward(self, images: torch.Tensor) -> YoloSegOutputs:
+        x = images.to(self.dtype)
+        for i, layer in enumerate(self.backbone):
+            x = layer(x)
+            if i == self._p3_at:
+                p3 = x
+            elif i == self._p4_at:
+                p4 = x
+        p5 = x
+
+        def up(z):
+            return F.interpolate(z, scale_factor=2, mode="nearest")
+
+        h1 = self.h1(torch.cat([up(p5), p4], dim=1))
+        n3 = self.n3(torch.cat([up(h1), p3], dim=1))
+        n4 = self.n4(torch.cat([self.d1(n3), h1], dim=1))
+        n5 = self.n5(torch.cat([self.d2(n4), p5], dim=1))
+
+        branches: list[list[torch.Tensor]] = [[], [], []]
+        for f, head in zip([n3, n4, n5], self.heads):
+            for out, branch in zip(branches, head):
+                y = f
+                for layer in branch[:-1]:
+                    y = layer(y)
+                out.append(branch[-1](y.float()))
+        return YoloSegOutputs(
+            box_logits=branches[0], cls_logits=branches[1], coeffs=branches[2],
+            protos=self.proto(n3).float(), strides=(8, 16, 32))
+
+
+# --- Flax weight bridge ------------------------------------------------------------
+
+_FLAX_NAMES = {nn.Conv2d: "Conv", nn.BatchNorm2d: "BatchNorm",
+               nn.ConvTranspose2d: "ConvTranspose"}
+
+
+def _flax_children(module: nn.Module):
+    """(flax name, child) in creation order; containers are transparent."""
+    counts: dict[str, int] = {}
+    out = []
+
+    def visit(m):
+        for child in m.children():
+            if isinstance(child, (nn.ModuleList, nn.Sequential)):
+                visit(child)
+                continue
+            kind = _FLAX_NAMES.get(type(child), type(child).__name__)
+            n = counts.get(kind, 0)
+            counts[kind] = n + 1
+            out.append((f"{kind}_{n}", child))
+
+    visit(module)
+    return out
+
+
+def convert_flax_variables(variables, model: YoloSeg) -> dict[str, torch.Tensor]:
+    """Flax ``{"params", "batch_stats"}`` tree -> ``model.state_dict()`` keys.
+
+    Conv kernels go HWIO -> OIHW (depthwise (3,3,1,C) -> (C,1,3,3));
+    ConvTranspose kernels go (kh,kw,in,out) -> (in,out,kh,kw) with both
+    spatial axes flipped. Raises if a Flax leaf is left unconsumed or a
+    model tensor is left unfilled, or if any shape disagrees."""
+    consumed: set[tuple[str, ...]] = set()
+    names = {id(m): n for n, m in model.named_modules()}
+    state: dict[str, torch.Tensor] = {}
+
+    def take(path: tuple[str, ...]) -> np.ndarray:
+        node = variables
+        try:
+            for k in path:
+                node = node[k]
+        except KeyError:
+            raise ValueError(f"flax leaf {'/'.join(path)} is missing") from None
+        consumed.add(path)
+        return np.asarray(node)
+
+    def put(module, key, value):
+        name = f"{names[id(module)]}.{key}"
+        want = tuple(getattr(module, key).shape)
+        if tuple(value.shape) != want:
+            raise ValueError(f"{name}: flax shape {value.shape} != {want}")
+        state[name] = torch.from_numpy(np.array(value))
+
+    def walk(module, path):
+        for fname, child in _flax_children(module):
+            p, s = ("params",) + path + (fname,), ("batch_stats",) + path + (fname,)
+            if isinstance(child, nn.Conv2d):
+                put(child, "weight", take(p + ("kernel",)).transpose(3, 2, 0, 1))
+                if child.bias is not None:
+                    put(child, "bias", take(p + ("bias",)))
+            elif isinstance(child, nn.ConvTranspose2d):
+                k = take(p + ("kernel",)).transpose(2, 3, 0, 1)
+                put(child, "weight", k[:, :, ::-1, ::-1])
+                put(child, "bias", take(p + ("bias",)))
+            elif isinstance(child, nn.BatchNorm2d):
+                put(child, "weight", take(p + ("scale",)))
+                put(child, "bias", take(p + ("bias",)))
+                put(child, "running_mean", take(s + ("mean",)))
+                put(child, "running_var", take(s + ("var",)))
+                state[f"{names[id(child)]}.num_batches_tracked"] = torch.tensor(0)
+            else:
+                walk(child, path + (fname,))
+
+    walk(model, ())
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path
+
+    left = [p for p in leaves(variables) if p not in consumed]
+    if left:
+        raise ValueError(f"{len(left)} flax leaves not consumed, e.g. {left[:3]}")
+    missing = set(model.state_dict()) - set(state)
+    if missing:
+        raise ValueError(f"model tensors not filled: {sorted(missing)[:5]}")
+    return state

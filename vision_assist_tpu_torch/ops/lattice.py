@@ -1,0 +1,79 @@
+"""Lattice ops on the device: artificial-cell injection and binary-image
+rasterisation of walkable cells."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _artificial_column_mask(cols: int, frame_width: int, grid_size: int,
+                            half_span: int) -> np.ndarray:
+    """Boolean (cols,) mask of always-walkable columns centred on the frame:
+    x in range(W//2 - grid*half, W//2 + grid*(half+1), grid)."""
+    xs = np.arange(
+        frame_width // 2 - grid_size * half_span,
+        frame_width // 2 + grid_size * (half_span + 1),
+        grid_size,
+    )
+    mask = np.zeros(cols, dtype=bool)
+    valid = (xs >= 0) & (xs < cols * grid_size)
+    mask[(xs[valid] // grid_size)] = True
+    return mask
+
+
+def _artificial_start_row(frame_height: int, grid_size: int, frac: float,
+                          replay_rounding: bool) -> int:
+    """First lattice row that receives artificial cells. The live pipeline
+    rounds y = int(H*frac) up to a multiple of grid_size only when it is
+    misaligned; the replay harness always moves one cell down."""
+    y = int(frame_height * frac)
+    rem = y % grid_size
+    if replay_rounding:
+        y = y + (grid_size - rem)
+    else:
+        y = y + (grid_size - rem) % grid_size
+    return y // grid_size
+
+
+def inject_artificial_cells(
+    occupancy: torch.Tensor,
+    *,
+    frame_width: int,
+    frame_height: int,
+    grid_size: int = 20,
+    half_span: int = 8,
+    row_start_frac: float = 0.8375,
+    replay_rounding: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Always-walkable cells at the user's feet; static masks, elementwise OR.
+    Returns (walkable, artificial) bool (R, C)."""
+    rows, cols = occupancy.shape[-2], occupancy.shape[-1]
+    col_mask = _artificial_column_mask(cols, frame_width, grid_size, half_span)
+    start_row = _artificial_start_row(frame_height, grid_size, row_start_frac,
+                                      replay_rounding)
+    row_mask = np.zeros(rows, dtype=bool)
+    if start_row < rows:
+        row_mask[start_row:] = True
+    injected = torch.from_numpy(row_mask[:, None] & col_mask[None, :]).to(
+        occupancy.device)
+
+    occupancy = occupancy.bool()
+    artificial = injected & ~occupancy
+    walkable = occupancy | injected
+    return walkable, artificial
+
+
+def rasterize_cells(walkable: torch.Tensor, grid_size: int = 20) -> torch.Tensor:
+    """Binary (H, W) bool image of walkable cells painted as inclusive
+    (grid_size+1)^2 squares clipped at the frame edge — the union of the
+    reference's per-cell cv2.fillPoly calls: upsample by grid_size, then OR
+    in one-pixel down/right shifts so each cell also owns the first pixel
+    row/column of its successor."""
+    rep = walkable.bool().repeat_interleave(grid_size, dim=-2) \
+        .repeat_interleave(grid_size, dim=-1)
+    down = F.pad(rep[..., :-1, :], (0, 0, 1, 0))
+    right = F.pad(rep[..., :, :-1], (1, 0, 0, 0))
+    diag = F.pad(rep[..., :-1, :-1], (1, 0, 1, 0))
+    return rep | down | right | diag
