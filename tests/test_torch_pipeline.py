@@ -12,6 +12,13 @@ Floats: penalty within 1e-6, path costs within rtol 1e-6, best_conf within
 Replay path: process_occupancy on the 13 scenario fixtures, against the JAX
 FrameProcessor(engine="wavefront"), with instruction memory carried across
 the fixtures.
+
+Default wavefront configuration (``PathFinderConfig(engine="wavefront")``
+with nothing else set: plain relax_sweep on both sides): answers, paths and
+peaks equal on the 13 replay scenarios and on two seeded frames. relax_sweep
+re-associates float32 sums differently in the two frameworks, so path costs
+are compared at rtol 1e-6, atol 2e-3 (the JAX package's own tolerance for
+it); cells are integers and must be equal.
 """
 
 from __future__ import annotations
@@ -43,15 +50,15 @@ H = W = 640
 N_FRAMES = 6
 
 
-def _pipeline_cfgs(h, w, **kw):
+def _pipeline_cfgs(h, w, use_pallas_relax=True, **kw):
     jc = jconfig.PipelineConfig(
         frame_height=h, frame_width=w,
-        pathfinder=jconfig.PathFinderConfig(engine="wavefront",
-                                            use_pallas_relax=True), **kw)
+        pathfinder=jconfig.PathFinderConfig(
+            engine="wavefront", use_pallas_relax=use_pallas_relax), **kw)
     tc = config.PipelineConfig(
         frame_height=h, frame_width=w,
-        pathfinder=config.PathFinderConfig(engine="wavefront",
-                                           use_pallas_relax=True), **kw)
+        pathfinder=config.PathFinderConfig(
+            engine="wavefront", use_pallas_relax=use_pallas_relax), **kw)
     return jc, tc
 
 
@@ -84,6 +91,43 @@ def frame_slice():
         return v[jnp.maximum(seg.winner, 0)].reshape(H // 20, W // 20)
 
     return jfp, tfp, jseg, winner_logits
+
+
+@pytest.fixture(scope="module")
+def default_flag_frames(frame_slice):
+    """Two seeded frames through both FrameProcessors with the default
+    wavefront flags, sharing the frame slice's segmenters."""
+    jfp, tfp, _, _ = frame_slice
+    jc, tc = _pipeline_cfgs(H, W, use_pallas_relax=False, transfer_format="i420")
+    assert tc.pathfinder == config.PathFinderConfig(engine="wavefront")
+    jd = JaxFrameProcessor(jc, segmenter=jfp.segmenter)
+    td = FrameProcessor(tc, segmenter=tfp.segmenter, device="cpu")
+    return [(jd(f, now_ms=i * 100), td(f, now_ms=i * 100))
+            for i, f in enumerate(walkway_frames(2, H, W, seed=7))]
+
+
+@pytest.fixture(scope="module")
+def default_flag_replay():
+    """The 13 scenarios through both FrameProcessors with the default
+    wavefront flags, instruction memory carried across them."""
+    pf = dict(engine="wavefront")
+    jfp = JaxFrameProcessor(jconfig.replay_config().replace(
+        pathfinder=jconfig.PathFinderConfig(**pf)), replay_rounding=True)
+    tfp = FrameProcessor(config.replay_config().replace(
+        pathfinder=config.PathFinderConfig(**pf)), replay_rounding=True,
+        device="cpu")
+    return {name: (jfp.process_occupancy(load_scenario(name), now_ms=i * 400),
+                   tfp.process_occupancy(load_scenario(name), now_ms=i * 400))
+            for i, name in enumerate(scenario_names())}
+
+
+def _assert_same_guidance(ta, ja):
+    assert ta.final_answer == ja.final_answer
+    assert _paths(ta) == _paths(ja)
+    assert _peaks(ta) == _peaks(ja)
+    assert len(ta.paths) == len(ja.paths)
+    np.testing.assert_allclose([p.total_cost for p in ta.paths],
+                               [p.total_cost for p in ja.paths], rtol=1e-6, atol=2e-3)
 
 
 def test_frame_path_payload_and_answers_match_jax(frame_slice):
@@ -179,11 +223,22 @@ def test_unported_engines_raise(engine):
         FrameProcessor(cfg, device="cpu")
 
 
-def test_sweep_relaxation_not_ported_raises():
-    cfg = config.PipelineConfig(
-        pathfinder=config.PathFinderConfig(engine="wavefront"))
-    with pytest.raises(NotImplementedError, match="relax_sweep"):
-        FrameProcessor(cfg, device="cpu")
+@pytest.mark.parametrize("name", scenario_names())
+def test_default_wavefront_replay_matches_jax(default_flag_replay, name):
+    ja, ta = default_flag_replay[name]
+    assert ta.paths, name
+    _assert_same_guidance(ta, ja)
+    np.testing.assert_array_equal(ta.walkable, ja.walkable)
+    np.testing.assert_allclose(ta.penalty, ja.penalty, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_default_wavefront_frames_match_jax(default_flag_frames, i):
+    ja, ta = default_flag_frames[i]
+    assert ta.n_detections == ja.n_detections > 0
+    np.testing.assert_array_equal(ta.occupancy, ja.occupancy)
+    assert ta.paths
+    _assert_same_guidance(ta, ja)
 
 
 def test_cuda_without_card_raises():

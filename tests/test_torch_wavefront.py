@@ -6,6 +6,17 @@ tests/test_pallas_kernels.py runs it); find_paths(use_pallas=True) must
 return the same PathBatch. On the CPU the kernel's wrapper runs the twin;
 the CUDA kernel itself is held against the twin by the tests marked
 ``cuda`` (they skip without a card) and by chip_smoke.py.
+
+The CUDA kernel does not sweep in Jacobi order: it walks whole lines
+sequentially, all lines at once. A slow numpy emulation of that update
+order, under two schedules of the lines, must give the twin's field bit for
+bit; it guards the argument the kernel's design rests on.
+
+relax_sweep (the default of find_paths) re-associates the float32 sums along
+a straight run, here by log-step doubling, in JAX by its associative scan,
+so it is not bit-equal to relax or to the JAX relax_sweep. Tolerance, JAX's
+own (tests/test_tpu_ops.py): the same reachability, rtol 1e-6 and atol 2e-3
+on reachable states, and identical backtraced cells, lengths and validity.
 """
 
 from __future__ import annotations
@@ -138,13 +149,145 @@ def test_relax_field_batch_equals_single_streams(inputs):
         assert int(sweeps[i]) == int(s1[0]) > 1
 
 
-def test_cpu_wrapper_counts_no_launch_and_sweep_is_not_ported(inputs):
-    walk, pen, start, goals, gvalid = inputs["right_turn"]
+def test_cpu_wrapper_counts_no_launch(inputs):
+    walk, pen, start, _, _ = inputs["right_turn"]
     cuda_wavefront.reset_launches()
     cuda_wavefront.relax_cuda(_t(walk), _t(pen), _t(start))
     assert cuda_wavefront.launches == 0
-    with pytest.raises(NotImplementedError, match="relax_sweep"):
-        wavefront.find_paths(_t(walk), _t(pen), _t(start), _t(goals), _t(gvalid))
+
+
+# --- relax_sweep, the default relaxation -------------------------------------------
+
+
+def _assert_same_field(got, ref, name):
+    reach = ref < 1e30
+    assert (got[~reach] > 1e30).all(), name
+    np.testing.assert_allclose(got[reach], ref[reach], rtol=1e-6, atol=2e-3,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_relax_sweep_matches_jax_and_backtraces_like_relax(inputs, name):
+    walk, pen, start, goals, _ = inputs[name]
+    ref = np.asarray(jwave.relax_sweep(jnp.asarray(walk), jnp.asarray(pen),
+                                       jnp.asarray(start), angle_weight=TURN_WEIGHT))
+    swept = wavefront.relax_sweep(_t(walk), _t(pen), _t(start),
+                                  angle_weight=TURN_WEIGHT)
+    plain = wavefront.relax(_t(walk), _t(pen), _t(start), angle_weight=TURN_WEIGHT)
+    _assert_same_field(swept.numpy(), ref, name)
+    _assert_same_field(swept.numpy(), plain.numpy(), name)
+    a = wavefront.backtrace(swept, _t(start), _t(goals), angle_weight=TURN_WEIGHT)
+    b = wavefront.backtrace(plain, _t(start), _t(goals), angle_weight=TURN_WEIGHT)
+    for got, want, f in zip(a, b, ("cells", "lengths", "costs", "valid")):
+        if f != "costs":
+            np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_find_paths_default_flags_match_jax(inputs, name):
+    walk, pen, start, goals, gvalid = inputs[name]
+    ref = jwave.find_paths(jnp.asarray(walk), jnp.asarray(pen),
+                           jnp.asarray(start), jnp.asarray(goals),
+                           jnp.asarray(gvalid), angle_weight=TURN_WEIGHT)
+    out = wavefront.find_paths(_t(walk), _t(pen), _t(start), _t(goals),
+                               _t(gvalid), angle_weight=TURN_WEIGHT)
+    assert np.asarray(ref.valid).any()
+    for f in ("cells", "lengths", "valid"):
+        np.testing.assert_array_equal(getattr(out, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    np.testing.assert_allclose(out.costs.numpy(), np.asarray(ref.costs),
+                               rtol=1e-6, atol=2e-3)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 9), (6, 1), (7, 5), (33, 65)])
+def test_relax_sweep_odd_shapes_match_jax(shape):
+    rows, cols = shape
+    rng = np.random.default_rng(rows * 100 + cols)
+    walk = rng.random((rows, cols)) < 0.7
+    pen = rng.random((rows, cols)).astype(np.float32) * walk
+    start = np.array([rng.integers(0, rows), rng.integers(0, cols)], np.int32)
+    walk[start[0], start[1]] = True
+    ref = np.asarray(jwave.relax_sweep(jnp.asarray(walk), jnp.asarray(pen),
+                                       jnp.asarray(start), angle_weight=TURN_WEIGHT))
+    out = wavefront.relax_sweep(_t(walk), _t(pen), _t(start),
+                                angle_weight=TURN_WEIGHT).numpy()
+    _assert_same_field(out, ref, str(shape))
+
+
+# --- the CUDA kernel's update order, emulated --------------------------------------
+
+
+def _emulate_line_kernel(enter, start, turn, lockstep):
+    """The relax kernel's passes in numpy float32 scalars: one chain per
+    (direction, line) walks its line in the direction of travel, carrying
+    its own direction's value and reading the other three directions at the
+    parent cell from the shared state. ``lockstep`` advances every chain one
+    cell at a time, all reading the state as it was before that step; else
+    the chains run one after another. Both are orders the card may take."""
+    f32, inf = np.float32, np.float32(wavefront.INF)
+    rows, cols = enter.shape
+    ent = np.full((rows + 2, cols + 2), inf, f32)
+    ent[1:-1, 1:-1] = enter
+    dist = np.full((4, rows + 2, cols + 2), inf, f32)
+    dist[:, start[0] + 1, start[1] + 1] = 0
+    chains = []
+    for d, (dr, dc) in enumerate(wavefront.MOVES):
+        for line in range(rows if dc else cols):
+            along = range(cols if dc else rows)
+            if dr + dc < 0:
+                along = reversed(along)
+            chains.append((d, [(line + 1, j + 1) if dc else (j + 1, line + 1)
+                               for j in along]))
+
+    def step(d, cell, x, seen):
+        dr, dc = wavefront.MOVES[d]
+        parent = (cell[0] - dr, cell[1] - dc)
+        g = min(f32(seen[o][parent] + turn[o, d]) for o in range(4) if o != d)
+        e, old = ent[cell], dist[d][cell]
+        new = min(old, f32(g + e), f32(f32(x + turn[d, d]) + e))
+        dist[d][cell] = new
+        return new, new < old
+
+    passes = 0
+    with np.errstate(over="ignore"):
+        while True:
+            passes += 1
+            changed = False
+            if lockstep:
+                carried = [inf] * len(chains)
+                for j in range(max(rows, cols)):
+                    seen = dist.copy()
+                    for k, (d, cells) in enumerate(chains):
+                        if j < len(cells):
+                            carried[k], ch = step(d, cells[j], carried[k], seen)
+                            changed |= ch
+            else:
+                for d, cells in chains:
+                    x = inf
+                    for cell in cells:
+                        x, ch = step(d, cell, x, dist)
+                        changed |= ch
+            if not changed:
+                return dist[:, 1:-1, 1:-1].transpose(1, 2, 0), passes
+
+
+@pytest.mark.parametrize("lockstep", [True, False], ids=["lockstep", "one_by_one"])
+@pytest.mark.parametrize("shape", [(5, 3), (7, 11), (9, 4), (12, 13)])
+def test_line_order_emulation_bit_equal_to_twin(shape, lockstep):
+    rows, cols = shape
+    rng = np.random.default_rng(rows * 31 + cols)
+    walk = rng.random((rows, cols)) < 0.7
+    pen = rng.random((rows, cols)).astype(np.float32) * walk
+    start = np.array([rng.integers(0, rows), rng.integers(0, cols)])
+    walk[start[0], start[1]] = True
+    # a turn weight large enough for turns to decide between paths
+    turn = wavefront._scaled_turn(20, 0.05, 30.0, 1.5, 90.0)
+    enter = wavefront.enter_cost(_t(walk), _t(pen), 20, 0.5)
+    ref, sweeps = wavefront.relax_field(enter[None], _t(start)[None], turn)
+    got, passes = _emulate_line_kernel(enter.numpy(), start, turn.numpy(), lockstep)
+    np.testing.assert_array_equal(got, ref[0].numpy())
+    assert (ref[0].numpy() < 1e30).sum() > 4          # the start is not alone
+    assert passes <= int(sweeps[0])
 
 
 # --- on the card --------------------------------------------------------------------
@@ -158,7 +301,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 32), (64, 36)])
+@pytest.mark.parametrize("shape", [(32, 32), (64, 36), (20, 27), (3, 70)])
 def test_relax_kernel_bit_equal_to_twin_on_card(cuda, shape):
     rows, cols = shape
     rng = np.random.default_rng(rows)
@@ -176,4 +319,5 @@ def test_relax_kernel_bit_equal_to_twin_on_card(cuda, shape):
     assert cuda_wavefront.launches == 1
     ref, ref_sweeps = wavefront.relax_field(enter, start_t, turn)
     assert torch.equal(got, ref)
-    assert torch.equal(sweeps, ref_sweeps)
+    # the kernel counts its own line passes: never more than Jacobi sweeps
+    assert bool((sweeps >= 1).all()) and bool((sweeps <= ref_sweeps).all())

@@ -1,9 +1,11 @@
 """Wavefront relaxation as a hand-written CUDA kernel for Hopper (sm_90a).
 
 Counterpart of the Pallas TPU kernel ``vision_assist_tpu/ops/pallas_wavefront.py``
-(``relax_pallas``): the whole sweep loop runs inside one launch, one CTA per
-stream, with the state in shared memory (see ``csrc/relax.cu`` for the design
-and what bounds it).
+(``relax_pallas``): the whole relaxation runs inside one launch, one CTA per
+stream, with the state in shared memory. The kernel does not sweep in the
+twin's Jacobi order: it walks whole lines sequentially, which reaches the
+same fixed point, bit for bit, in far fewer barrier-separated passes (see
+``csrc/relax.cu`` for the design, the argument and what bounds it).
 
 The kernel is compiled by ``nvcc`` from the repository's source at first use
 on a CUDA tensor, into ``.torch_ext_build/`` at the repository root, and bound
@@ -16,6 +18,7 @@ or raises — it never falls back to the twin.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -83,19 +86,40 @@ def build() -> ctypes.CDLL:
     lib.relax_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.relax_launch.restype = ctypes.c_int
-    lib.relax_max_cells.argtypes = [ctypes.c_int]
-    lib.relax_max_cells.restype = ctypes.c_int
+    lib.relax_shared_bytes.argtypes = [ctypes.c_int] * 2
+    lib.relax_shared_bytes.restype = ctypes.c_longlong
+    lib.relax_shared_cap.argtypes = [ctypes.c_int]
+    lib.relax_shared_cap.restype = ctypes.c_int
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_cap(index: int) -> int:
+    """Shared memory one block may have on card ``index`` (asked once)."""
+    return build().relax_shared_cap(index)
+
+
+def _as(x: torch.Tensor, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """x on ``dev`` as contiguous ``dtype``; x itself where it already is."""
+    if x.dtype != dtype or x.device != dev:
+        x = x.to(device=dev, dtype=dtype)
+    return x if x.is_contiguous() else x.contiguous()
 
 
 def relax_field_cuda(enter: torch.Tensor, start: torch.Tensor,
                      turn: torch.Tensor, max_sweeps: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """enter (B, R, C) f32, start (B, 2) int, turn (4, 4) f32 ->
-    (dist (B, R, C, 4) f32, sweeps (B,) int32). Same contract as the plain
-    twin ``relax_field``, which runs instead for a CPU tensor."""
+    (dist (B, R, C, 4) f32, sweeps (B,) int32).
+
+    ``dist`` is bit-equal to the plain twin ``relax_field``, which runs
+    instead for a CPU tensor. ``sweeps`` is the kernel's own count: the
+    line passes each stream ran, fewer than the twin's Jacobi sweeps, and
+    ``max_sweeps`` caps those passes (default R*C, which never binds; a
+    cap that cuts the iteration short leaves a field that is not the
+    twin's)."""
     global launches
     if enter.device.type == "cpu":
         return relax_field(enter, start, turn, max_sweeps)
@@ -109,13 +133,13 @@ def relax_field_cuda(enter: torch.Tensor, start: torch.Tensor,
     dev = enter.device
     lib = build()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    cap = lib.relax_max_cells(index)
-    if rows * cols > cap:
-        raise ValueError(f"relax_field_cuda: a {rows}x{cols} lattice does not "
-                         f"fit in shared memory (at most {cap} cells)")
-    enter_c = enter.to(torch.float32).contiguous()
-    start_c = start.to(device=dev, dtype=torch.int32).contiguous()
-    turn_c = turn.to(device=dev, dtype=torch.float32).contiguous()
+    need, cap = lib.relax_shared_bytes(rows, cols), _shared_cap(index)
+    if need > cap:
+        raise ValueError(f"relax_field_cuda: a {rows}x{cols} lattice needs "
+                         f"{need} bytes of shared memory, a block has {cap}")
+    enter_c = _as(enter, torch.float32, dev)
+    start_c = _as(start, torch.int32, dev)
+    turn_c = _as(turn, torch.float32, dev)
     out = torch.empty((b, rows, cols, 4), dtype=torch.float32, device=dev)
     sweeps = torch.empty((b,), dtype=torch.int32, device=dev)
     err = lib.relax_launch(

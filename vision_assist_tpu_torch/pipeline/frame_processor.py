@@ -8,9 +8,10 @@ guidance answers out.
 * All cross-frame state (instruction memory) is explicit.
 
 Only ``engine="wavefront"`` is ported; ``exact`` and ``exact_device`` raise
-NotImplementedError. The wavefront relaxation runs as the CUDA relax kernel
-(``use_pallas_relax=True``) or the plain per-cell twin
-(``use_sweep_relax=False``); the fast-sweeping form is not ported yet.
+NotImplementedError. The wavefront relaxation runs as plain fast sweeping
+(``relax_sweep``, the default), as the CUDA relax kernel
+(``use_pallas_relax=True``) or as the plain per-cell twin
+(``use_sweep_relax=False``).
 """
 
 from __future__ import annotations

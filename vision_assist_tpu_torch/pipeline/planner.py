@@ -36,18 +36,15 @@ def make_plan_step(cfg: PipelineConfig, replay_rounding: bool = False):
     """Build the planning function for a fixed config.
 
     Returned fn: occupancy (R, C) bool -> PlanResult, on the occupancy's
-    device. Only the wavefront engine is ported, with the relax kernel
-    (``use_pallas_relax``) or the plain per-cell relaxation
-    (``use_sweep_relax=False``); anything else raises NotImplementedError.
+    device. Only the wavefront engine is ported: with the fast-sweeping
+    relaxation by default, the relax kernel (``use_pallas_relax``) or the
+    plain per-cell relaxation (``use_sweep_relax=False``); another engine
+    raises NotImplementedError.
     """
     pf = cfg.pathfinder
     if pf.engine != "wavefront":
         raise NotImplementedError(
             f"engine={pf.engine!r} is not ported yet; use 'wavefront'")
-    if not pf.use_pallas_relax and pf.use_sweep_relax:
-        raise NotImplementedError(
-            "relax_sweep is not ported yet; set use_pallas_relax=True "
-            "(the CUDA kernel) or use_sweep_relax=False")
     g = cfg.grid.grid_size
 
     @torch.no_grad()

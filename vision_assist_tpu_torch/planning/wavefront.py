@@ -147,6 +147,88 @@ def relax(walkable: torch.Tensor, penalty: torch.Tensor, start_rc: torch.Tensor,
     return dist[0]
 
 
+def _ahead_behind(x: torch.Tensor, s: int, reverse: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Views of x along the last axis: the positions that have a neighbour
+    s steps behind them in scan order, and those neighbours."""
+    return (x[..., :-s], x[..., s:]) if reverse else (x[..., s:], x[..., :-s])
+
+
+def _scan_levels(b: torch.Tensor, reverse: bool) -> list[torch.Tensor]:
+    """The ``b`` halves of the doubling scan along the last axis: level k
+    holds, at each position, the sum of ``b`` over the 2**k positions that
+    end there in scan order, clipped at the line's start. They depend only
+    on the entry costs, so one set serves every pass."""
+    levels, s = [b], 1
+    while 2 * s < b.shape[-1]:
+        nxt = b.clone()
+        here, behind = _ahead_behind(b, s, reverse)
+        _ahead_behind(nxt, s, reverse)[0].copy_(here + behind)
+        levels.append(nxt)
+        b, s = nxt, 2 * s
+    return levels
+
+
+def _min_plus_scan(a: torch.Tensor, levels: list[torch.Tensor],
+                   reverse: bool) -> torch.Tensor:
+    """x[i] = min(a[i], x[i-1] + b[i]) along the last axis (x[i+1] for a
+    reverse scan), in place on ``a``, by log-step doubling over the min-plus
+    affine semigroup (a1, b1) * (a2, b2) = (min(a2, a1 + b2), b1 + b2)."""
+    for k, b in enumerate(levels):
+        here, behind = _ahead_behind(a, 2 ** k, reverse)
+        torch.minimum(here, behind + _ahead_behind(b, 2 ** k, reverse)[0], out=here)
+    return a
+
+
+def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
+                start_rc: torch.Tensor, *, grid_size: int = 20,
+                penalty_weight: float = 0.5, angle_weight: float = 1.5,
+                angle_grace_deg: float = 30.0, angle_exponent: float = 1.5,
+                angle_denominator: float = 90.0,
+                max_passes: int | None = None) -> torch.Tensor:
+    """Fast-sweeping form of :func:`relax`: the same min-plus fixed point in
+    far fewer iterations, dist (R, C, 4).
+
+    Each pass runs four directional scans in Gauss-Seidel order (right,
+    left, down, up). One scan relaxes every straight run of its direction
+    at once: with h the best cost of standing at the parent cell ready to
+    step in direction d, ``x[c] = min(A[c], x[c-1] + enter[c])`` where
+    ``A = min(old, h_parent + enter)``, solved for all lines together by
+    :func:`_min_plus_scan`. A pass that changes nothing ends the loop (one
+    host sync per pass); at most ``R*C`` passes run. The scan re-associates
+    the float32 sums along a run, so the field agrees with :func:`relax`
+    to round-off on reachable states, not bit for bit.
+    """
+    rows, cols = walkable.shape
+    turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
+                        angle_exponent, angle_denominator, walkable.device)
+    enter = enter_cost(walkable, penalty, grid_size, penalty_weight)
+    start = start_rc.to(walkable.device).long()
+    dist = torch.full((4, rows, cols), INF, dtype=torch.float32,
+                      device=walkable.device)
+    dist[:, start[0], start[1]] = 0.0
+    # Scans run along the last axis: vertical moves see transposed views.
+    across = [bool(dc) for _, dc in MOVES]
+    reverse = [int(dr + dc) < 0 for dr, dc in MOVES]
+    ent = [enter if across[d] else enter.t() for d in range(4)]
+    levels = [_scan_levels(ent[d], reverse[d]) for d in range(4)]
+
+    for _ in range(rows * cols if max_passes is None else max_passes):
+        new = dist.clone()
+        for d in range(4):  # Gauss-Seidel: later scans see earlier updates
+            h = torch.min(new + turn[:, d, None, None], dim=0).values
+            a, h = (new[d], h) if across[d] else (new[d].t(), h.t())
+            here, _ = _ahead_behind(a, 1, reverse[d])
+            torch.minimum(here, _ahead_behind(h, 1, reverse[d])[1]
+                          + _ahead_behind(ent[d], 1, reverse[d])[0], out=here)
+            _min_plus_scan(a, levels[d], reverse[d])
+        changed = bool((new < dist).any())
+        dist = new
+        if not changed:
+            break
+    return dist.permute(1, 2, 0).contiguous()
+
+
 def backtrace(dist: torch.Tensor, start_rc: torch.Tensor, goals_rc: torch.Tensor,
               *, grid_size: int = 20, angle_grace_deg: float = 30.0,
               angle_exponent: float = 1.5, angle_denominator: float = 90.0,
@@ -222,10 +304,10 @@ def find_paths(walkable: torch.Tensor, penalty: torch.Tensor,
                use_pallas: bool = False, use_sweep: bool = True) -> PathBatch:
     """Paths from one start to K goal cells sharing a single relaxation.
 
-    ``use_pallas`` selects the hand-written relax kernel (its CUDA build on
-    a CUDA tensor, its plain twin on a CPU tensor); otherwise
-    ``use_sweep=False`` selects the plain per-cell relaxation. The
-    fast-sweeping form is not ported yet.
+    The relaxation defaults to the fast-sweeping form (:func:`relax_sweep`);
+    ``use_sweep=False`` selects the plain per-cell relaxation, and
+    ``use_pallas`` the hand-written relax kernel (its CUDA build on a CUDA
+    tensor, its plain twin on a CPU tensor).
     """
     kw = dict(grid_size=grid_size, penalty_weight=penalty_weight,
               angle_weight=angle_weight, angle_grace_deg=angle_grace_deg,
@@ -236,9 +318,7 @@ def find_paths(walkable: torch.Tensor, penalty: torch.Tensor,
 
         dist = relax_cuda(walkable, penalty, start_rc, **kw)
     elif use_sweep:
-        raise NotImplementedError(
-            "relax_sweep is not ported yet; use use_pallas=True or "
-            "use_sweep=False")
+        dist = relax_sweep(walkable, penalty, start_rc, **kw)
     else:
         dist = relax(walkable, penalty, start_rc, **kw)
 
