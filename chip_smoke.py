@@ -8,13 +8,22 @@ Run from the repository root with no arguments:
 Phases, each printed on its own line, any failure exits non-zero with no
 result line:
 
-1. build     nvcc compiles the relax kernel (csrc/relax.cu, sm_90a) into
-             .torch_ext_build/ and loads it.
-2. kernel    the kernel against its plain PyTorch twin, both on the card, on
-             the 13 scenario lattices (one batched launch), on seeded random
-             32x32 and 64x36 lattices with 8 streams and on an odd 20x27
-             lattice with 3: the field bit-equal. The kernel's pass counts
-             are printed beside the twin's sweep counts, not compared.
+1. build     nvcc compiles the relax kernel (csrc/relax.cu) and the A* kernel
+             (csrc/astar.cu) for sm_90a and g++ compiles the host engine of
+             engine="exact" (planning/native/engine.cpp), all three at once,
+             into .torch_ext_build/, and loads them.
+2. kernel    the relax kernel against its plain PyTorch twin, both on the
+             card, on the 13 scenario lattices (one batched launch), on seeded
+             random 32x32 and 64x36 lattices with 8 streams and on an odd
+             20x27 lattice with 3: the field bit-equal. The kernel's pass
+             counts are printed beside the twin's sweep counts, not compared.
+             Then the A* kernel against its plain version, both on the card,
+             on the 13 scenarios and on six seeded random 64x36 lattices (all
+             goals of a lattice in one launch, three on a random lattice; the
+             cache carried from lattice to lattice): cells, lengths, validity
+             and the cache's NaN pattern equal, costs and cache values within
+             rtol 1e-5; and all 13 scenarios as one batched launch against
+             the launches one by one.
 3. frames    the served configuration (640x640 frames sent as I420, grid 20,
              flagship yolo11n-seg@256 in bf16, engine "wavefront" with the
              relax kernel) through FrameProcessor.__call__ on 8 seeded
@@ -27,26 +36,44 @@ result line:
 5. check     the kernel path on the card against itself on the CPU: replay
              of the 13 scenarios (answers and paths equal) and two frames
              with the model in float32 (TF32 off).
-6. timing    the kernel at the served lattice (32x32, B=1), at 32x32 B=8 and
-             at 64x36 B=13, each with its pass counts; an empty launch
+6. exact     the served configuration with the default engine ("exact": the
+             device sends fields and peaks, the host plans with the native
+             C++ A*, which must be the engine in use) on the same 8 frames;
+             and the 13 scenarios through process_occupancy on the card
+             against tests/fixtures/goldens (answer, peak centres, path
+             cells).
+7. exact_device  the same 8 frames with engine="exact_device": one A* launch
+             a frame, no relax launch; the 13 scenarios on the card against
+             the goldens' answers and path cells; card against CPU.
+8. serve     StreamingServer at depth 1, 2 and 8 over 32 frames (the 8
+             repeated) for the kernel-wavefront and exact_device
+             configurations: results equal to the synchronous loop's, in
+             order; frames/s printed.
+9. timing    the relax kernel at the served lattice (32x32, B=1), at 32x32 B=8
+             and at 64x36 B=13, each with its pass counts; an empty launch
              through the same wrapper; the plain twin and plain relax_sweep;
-             and the frame path's stages. Kernel times are CUDA events over
-             200 launches queued behind a device-side sleep, so the host's
-             call overhead is not what is timed; the time of back-to-back
-             calls from the host is printed beside them.
+             the A* kernel at the served lattice and at 64x36 B=13 with its
+             pops and relaxations, and its plain version; the frame path's
+             stages, the host half of "exact" and the __call__ medians of
+             the engines. Kernel times are CUDA events over launches queued
+             behind a device-side sleep, so the host's call overhead is not
+             what is timed; the time of back-to-back calls from the host is
+             printed beside them.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
 
-``--relax-only`` stops after the relax kernel's timings (phases 1, 2 and the
-kernel lines of 6). ``--root DIR`` imports the port from DIR instead of this
-checkout, to time another commit's kernel on the same card in the same
-run of a job: ``python3 chip_smoke.py --relax-only --root <unpacked commit>``.
+``--relax-only`` stops after the relax kernel's timings (phases 1, the relax
+half of 2 and the relax lines of 9). ``--root DIR`` imports the port from
+DIR instead of this checkout, to time another commit's kernel on the same
+card in the same run of a job:
+``python3 chip_smoke.py --relax-only --root <unpacked commit>``.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import pathlib
 import statistics
@@ -118,6 +145,39 @@ def random_inputs(torch, rows, cols, b, seed, device):
 
     walk, pen, start = random_lattices(torch, rows, cols, b, seed, device)
     return enter_cost(walk, pen, 20, 0.5), start
+
+
+def astar_inputs(torch, cfg, occupancy, replay_rounding: bool):
+    """The A* kernel's inputs for one lattice, from the port's own plan
+    fields: walkable, penalty f32, start (2,), goals (K, 2), goals_valid (K,)."""
+    from vision_assist_tpu_torch.pipeline.planner import make_plan_step
+    from vision_assist_tpu_torch.planning.wavefront import closest_walkable_cell
+
+    pr = make_plan_step(cfg, replay_rounding=replay_rounding,
+                        include_paths=False)(occupancy)
+    goals = closest_walkable_cell(
+        pr.walkable, torch.stack([pr.peaks.centre_x, pr.peaks.centre_y], dim=-1),
+        cfg.grid.grid_size)
+    return pr.walkable, pr.penalty, pr.start_rc, goals, pr.peaks.valid
+
+
+def astar_bounds(batch: int, n_cells: int, k_goals: int, max_len: int,
+                 pops: int, relaxations: int) -> dict:
+    """The least time the card could take for these searches: bytes (each
+    input read once, each output written once) over the memory rate, against
+    the operations this run's data needed (one key comparison a cell for the
+    argmin of each pop, 12 float operations a relaxation) over the float32
+    rate; and the same operations on one SM. A search is a chain of dependent
+    pops, so neither bound is near: the kernel is latency-bound."""
+    cache = 4 * (49 * 25 + 1)
+    n_bytes = batch * (5 * n_cells + 8 + 9 * k_goals + cache
+                       + 8 * k_goals * max_len + 16 * k_goals + cache)
+    n_ops = pops * n_cells + 12 * relaxations
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return {"n_bytes": n_bytes, "n_ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "one_sm_ms": ops_ms * N_SMS}
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 3, queued: bool = False) -> float:
@@ -196,6 +256,10 @@ def main() -> int:
             enter_cost,
             relax_field,
         )
+        if not args.relax_only:     # another commit's port may lack these
+            from vision_assist_tpu_torch.ops import cuda_astar
+            from vision_assist_tpu_torch.pipeline.server import StreamingServer
+            from vision_assist_tpu_torch.planning import device_astar, native
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -209,11 +273,21 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------------
-    cuda_wavefront.build()
-    ptxas = [ln.strip() for ln in cuda_wavefront.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"phase build: ok in {cuda_wavefront.build_seconds:.3f} s; "
-        + "; ".join(ptxas))
+    # One compiler process a source, all started together.
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(cuda_wavefront.build)]
+        if not args.relax_only:
+            builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
+        built = [b.result() for b in builds]
+    for mod in [cuda_wavefront] if args.relax_only else [cuda_wavefront, cuda_astar]:
+        ptxas = [ln.strip() for ln in mod.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"phase build {mod.SOURCE.name}: ok in {mod.build_seconds:.3f} s; "
+            + "; ".join(ptxas))
+    if not args.relax_only:
+        if not built[2]:
+            raise AssertionError("the native exact engine did not build (g++)")
+        log(f"phase build {native.SOURCE.name}: ok in {native.build_seconds:.3f} s")
 
     # -- 2. kernel against its twin ----------------------------------------------------
     turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
@@ -237,6 +311,78 @@ def main() -> int:
             f"{enter.shape[1]}x{enter.shape[2]}, kernel passes {passes.tolist()}"
             f", twin sweeps {ref_sweeps.tolist()}")
 
+    # The A* kernel against its plain version: one launch a lattice, the
+    # cache carried from lattice to lattice on both sides.
+    rcfg = replay_config()
+    astar_kw = dict(grid_size=rcfg.grid.grid_size,
+                    max_len=rcfg.pathfinder.max_path_len)
+    astar_err, scen_inputs = 0.0, []
+    if not args.relax_only:
+        lattices = list(scen)
+        for seed in range(6):
+            rng = np.random.default_rng(seed)
+            lattices.append((f"random{seed}",
+                             rng.random((64, 36)) > rng.uniform(0.25, 0.5)))
+        cache_k = cache_p = device_astar.empty_cache(dev)
+        for name, occ in lattices:
+            inp = astar_inputs(torch, rcfg, torch.from_numpy(occ).to(dev), True)
+            if len(scen_inputs) < len(scen):
+                scen_inputs.append(inp)
+            else:                     # a random lattice: its first three goals
+                inp = (*inp[:4], inp[4] & (inp[4].cumsum(0) <= 3))
+            cells, lengths, costs, cache_out, stats = cuda_astar.astar_paths_cuda(
+                *(x[None] for x in inp), cache_k[None], **astar_kw)
+            torch.cuda.synchronize()
+            ref, cache_ref = device_astar.device_astar_paths_plain(
+                *inp, cache_p, **astar_kw)
+            cache_k, cache_p = cache_out[0], cache_ref
+            valid = inp[4] & (lengths[0] > 0)
+            if not (torch.equal(cells[0], ref.cells)
+                    and torch.equal(lengths[0], ref.lengths)
+                    and torch.equal(valid, ref.valid)
+                    and torch.equal(cache_k.isnan(), cache_p.isnan())):
+                raise AssertionError(f"A* kernel differs from its plain version on "
+                                     f"{name}: lengths {lengths[0].tolist()} vs "
+                                     f"{ref.lengths.tolist()}")
+            if not (torch.allclose(costs[0], ref.costs, rtol=1e-5, atol=0)
+                    and torch.allclose(cache_k, cache_p, rtol=1e-5, atol=0,
+                                       equal_nan=True)):
+                raise AssertionError(f"A* kernel costs or cache off on {name}: "
+                                     f"{costs[0].tolist()} vs {ref.costs.tolist()}")
+            found = ref.valid
+            err = max(float((costs[0][found] - ref.costs[found]).abs().max())
+                      if found.any() else 0.0,
+                      float((cache_k - cache_p).nan_to_num().abs().max()))
+            astar_err = max(astar_err, err)
+            log(f"phase kernel astar {name}: cells, lengths, validity and cache "
+                f"pattern equal, max abs err {err:.3g} (rtol 1e-5), goals "
+                f"{int(inp[4].sum())}, lengths {lengths[0].tolist()}, pops and "
+                f"relaxations {stats[0].tolist()}")
+        # All 13 scenarios as streams of one launch against one launch each.
+        fresh = device_astar.empty_cache(dev)
+        batched = [torch.stack(x) for x in zip(*scen_inputs)]
+        caches = fresh.repeat(len(scen_inputs), 1)
+        got = cuda_astar.astar_paths_cuda(*batched, caches, **astar_kw)
+        for i, inp in enumerate(scen_inputs):
+            one = cuda_astar.astar_paths_cuda(*(x[None] for x in inp), fresh[None],
+                                              **astar_kw)
+            for a, b in zip(got, one):
+                if not torch.equal(a[i].view(torch.int32), b[0].view(torch.int32)):
+                    raise AssertionError(f"A* kernel: stream {i} of the batched "
+                                         "launch differs from its own launch")
+        for threads in (32, 64, 128):
+            alt = cuda_astar.astar_paths_cuda(*batched, caches, block_threads=threads,
+                                              **astar_kw)
+            for a, b in zip(got, alt):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"A* kernel: a block of {threads} threads "
+                                         "gives another result")
+        torch.cuda.synchronize()
+        log(f"phase kernel astar batched: B={len(scen_inputs)} streams in one "
+            f"launch bit-equal to one launch each, and with blocks of 32, 64 and "
+            f"128 threads; elapsed "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     # -- 3. the main path on the card --------------------------------------------------
     h = w = 640
     cfg = PipelineConfig(frame_height=h, frame_width=w, transfer_format="i420",
@@ -254,7 +400,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # The relax timings come first under --relax-only (and for another
-    # commit's port under --root); the full run repeats them in phase 6.
+    # commit's port under --root); the full run repeats them in phase 9.
     plan = fp._plan(seg(frames[-1]).occupancy)
     served = (enter_cost(plan.walkable, plan.penalty, 20, 0.5)[None],
               plan.start_rc[None])
@@ -383,7 +529,109 @@ def main() -> int:
             f"{b.final_answer}, occupancy cells differing {flips}, best_conf "
             f"{a.best_conf:.6f} vs {b.best_conf:.6f}")
 
-    # -- 6. timing ----------------------------------------------------------------------
+    def run_frames(proc, label):
+        """The 8 frames through proc.__call__; (results, latencies in ms)."""
+        proc(frames[0], now_ms=0)                # this configuration's first call
+        torch.cuda.synchronize()
+        cuda_wavefront.reset_launches()
+        cuda_astar.reset_launches()
+        out, ms = [], []
+        for i, frame in enumerate(frames):
+            t0 = time.perf_counter()
+            out.append(proc(frame, now_ms=1000 + i * 33))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for i, res in enumerate(out):
+            if res is None or res.final_answer not in ANSWERS:
+                raise AssertionError(f"{label} frame {i}: bad result {res!r}")
+        return out, ms
+
+    def check_goldens(engine, with_peaks):
+        """process_occupancy on the card against the stored goldens."""
+        pfc = PathFinderConfig(engine=engine)
+        for name, occ in scen:
+            proc = FrameProcessor(replay_config().replace(pathfinder=pfc),
+                                  replay_rounding=True, device=dev)
+            res = proc.process_occupancy(occ, now_ms=0)
+            gold = json.loads((REPO / "tests" / "fixtures" / "goldens"
+                               / f"{name}.json").read_text())
+            same = res.final_answer == gold["final_answer"] and \
+                [[list(rc) for rc in p] for p in path_cells(res)] == \
+                [gp["cells_rc"] for gp in gold["paths"]]
+            if with_peaks:
+                same = same and [[pk.centre.x, pk.centre.y] for pk in res.peaks] \
+                    == [gp["centre"] for gp in gold["peaks"]]
+            if not same:
+                raise AssertionError(f"{engine} replay {name}: differs from its "
+                                     f"golden ({res.final_answer} vs "
+                                     f"{gold['final_answer']})")
+
+    # -- 6. the default engine: fields on the card, the native A* on the host -------------
+    exact_pf = PathFinderConfig()
+    if exact_pf.engine != "exact":
+        raise AssertionError("the default engine is not 'exact'")
+    fp_exact = FrameProcessor(cfg.replace(pathfinder=exact_pf), segmenter=seg,
+                              device=dev)
+    if not (native.available()
+            and isinstance(fp_exact._exact, native.NativeAStarEngine)):
+        raise AssertionError("engine 'exact' is not running the native C++ engine")
+    exact_res, exact_lat = run_frames(fp_exact, "exact")
+    if cuda_wavefront.launches or cuda_astar.launches:
+        raise AssertionError("engine 'exact' launched a planning kernel")
+    check_goldens("exact", with_peaks=True)
+    log(f"phase exact: ok, host engine {type(fp_exact._exact).__name__}, "
+        f"{N_FRAMES} frames, answers {[r.final_answer for r in exact_res]}, median "
+        f"latency {statistics.median(exact_lat):.3f} ms; replay of {len(scen)} "
+        "scenarios on the card equal to the goldens (answer, peak centres, path cells)")
+
+    # -- 7. the exact A* on the card ----------------------------------------------------------
+    ed_pf = PathFinderConfig(engine="exact_device")
+    fp_ed = FrameProcessor(cfg.replace(pathfinder=ed_pf), segmenter=seg, device=dev)
+    ed_res, ed_lat = run_frames(fp_ed, "exact_device")
+    astar_launches = cuda_astar.launches
+    if astar_launches != N_FRAMES or cuda_wavefront.launches:
+        raise AssertionError(f"exact_device: {astar_launches} A* launches and "
+                             f"{cuda_wavefront.launches} relax launches in "
+                             f"{N_FRAMES} frames")
+    if not torch.isfinite(fp_ed._astar_cache).any():
+        raise AssertionError("exact_device: the carried cache is still empty")
+    same_as_exact = sum(a.final_answer == b.final_answer
+                        and path_cells(a) == path_cells(b)
+                        for a, b in zip(ed_res, exact_res))
+    check_goldens("exact_device", with_peaks=False)
+    replay_card_vs_cpu(ed_pf)
+    log(f"phase exact_device: ok, {N_FRAMES} frames, A* launches {astar_launches}, "
+        f"answers {[r.final_answer for r in ed_res]}, {same_as_exact} frames with "
+        f"answer and path cells equal to engine exact's, median latency "
+        f"{statistics.median(ed_lat):.3f} ms; replay of {len(scen)} scenarios on "
+        "the card equal to the goldens (answer, path cells) and to the CPU")
+
+    # -- 8. depth-N serving against the synchronous loop ---------------------------------------
+    served_frames = list(frames) * 4
+    fps = {}
+    for label, pfc in (("wavefront_kernel", cfg.pathfinder), ("exact_device", ed_pf)):
+        def guidance(results):
+            return [(r.final_answer, path_cells(r)) for r in results]
+
+        proc = FrameProcessor(cfg.replace(pathfinder=pfc), segmenter=seg, device=dev)
+        t0 = time.perf_counter()
+        sync = guidance([proc(f, now_ms=i * 33) for i, f in enumerate(served_frames)])
+        fps[label, "sync"] = len(served_frames) / (time.perf_counter() - t0)
+        for depth in (1, 2, 8):
+            server = StreamingServer(FrameProcessor(
+                cfg.replace(pathfinder=pfc), segmenter=seg, device=dev), depth=depth)
+            t0 = time.perf_counter()
+            got = guidance(server.serve(served_frames, now_ms_start=0,
+                                        frame_interval_ms=33))
+            fps[label, depth] = len(served_frames) / (time.perf_counter() - t0)
+            if got != sync or server.in_flight:
+                raise AssertionError(f"serve {label} depth {depth}: results differ "
+                                     "from the synchronous loop's")
+        log(f"phase serve {label}: {len(served_frames)} frames, results equal to "
+            f"the synchronous loop's in order at depth 1, 2, 8; frames/s sync "
+            f"{fps[label, 'sync']:.3f}, depth 1 {fps[label, 1]:.3f}, depth 2 "
+            f"{fps[label, 2]:.3f}, depth 8 {fps[label, 8]:.3f}")
+
+    # -- 9. timing ----------------------------------------------------------------------
     timed = time_relax()
     main_shape = timed[shapes[0][0]]
     plain_ms = cuda_ms(torch, lambda: relax_field(*served, turn), reps=5, warmup=1)
@@ -414,9 +662,69 @@ def main() -> int:
     t0 = time.perf_counter()
     for i in range(10):
         payload = fp._unpack(handle.host.numpy())
-        fp._paths_from_arrays(payload.artificial, payload.peaks,
+        fp._paths_from_arrays(payload.walkable, payload.artificial, payload.peaks,
                               payload.penalty, payload.paths)
     log(f"timing stage host_half: {(time.perf_counter() - t0) * 100:.3f} ms")
+
+    # The A* kernel, with the cache as one pass over the same goals leaves it
+    # (the steady state of a stream), and its plain version on the same inputs.
+    served_in = astar_inputs(torch, cfg, seg_res.occupancy, False)
+    ed_kw = dict(grid_size=cfg.grid.grid_size, max_len=cfg.pathfinder.max_path_len)
+    astar_timed = {}
+    for name, inp, kw in (("32x32 B=1 served", [x[None] for x in served_in], ed_kw),
+                          ("64x36 B=13 scenarios", batched, astar_kw)):
+        b, rows, cols = inp[0].shape
+        warm = cuda_astar.astar_paths_cuda(
+            *inp, device_astar.empty_cache(dev).repeat(b, 1), **kw)[3]
+
+        def call(inp=inp, warm=warm, kw=kw, **more):
+            return cuda_astar.astar_paths_cuda(*inp, warm, **kw, **more)
+        stats = call()[4]
+        searches = int(inp[4].sum())
+        pops, relaxations = (int(v) for v in stats.sum(dim=(0, 1)))
+        bounds = astar_bounds(b, rows * cols, inp[3].shape[1], kw["max_len"],
+                              pops, relaxations)
+        astar_timed[name] = dict(bounds, ms=cuda_ms(torch, call, reps=100, queued=True),
+                                 call_ms=cuda_ms(torch, call, reps=100), warm=warm)
+        log(f"timing astar kernel {name}: {astar_timed[name]['ms']:.5f} ms on the "
+            f"device, {astar_timed[name]['call_ms']:.5f} ms per back-to-back call, "
+            f"{searches} searches, {pops} pops and {relaxations} relaxations in all "
+            f"(most pops in one stream {int(stats[..., 0].sum(dim=1).max())}), bound "
+            f"{bounds['bound_ms']:.6f} ms by {bounds['bound_by']} "
+            f"({bounds['n_bytes']} B, {bounds['n_ops']} operations), one-SM bound "
+            f"{bounds['one_sm_ms']:.6f} ms; latency-bound")
+        sizes = {threads: cuda_ms(torch, lambda: call(block_threads=threads),
+                                  reps=50, queued=True) for threads in (32, 64, 128, 256)}
+        log(f"timing astar kernel {name} by block size (256 threads is the default): "
+            + ", ".join(f"{k} threads {v:.5f} ms" for k, v in sizes.items()))
+    astar_main = astar_timed["32x32 B=1 served"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_astar.device_astar_paths_plain(*served_in, astar_main["warm"][0], **ed_kw)
+    torch.cuda.synchronize()
+    astar_plain_ms = (time.perf_counter() - t0) * 1e3
+    log(f"timing astar plain version 32x32 B=1 on the card: {astar_plain_ms:.3f} ms")
+
+    handle = fp_exact.submit_frame(frames[-1])
+    handle.done.synchronize()
+    payload = fp_exact._unpack(handle.host.numpy())
+    t0 = time.perf_counter()
+    for i in range(10):
+        fp_exact._host_penalty(payload.walkable)
+    pen_ms = (time.perf_counter() - t0) * 100
+    t0 = time.perf_counter()
+    for i in range(10):
+        fp_exact._paths_from_arrays(
+            fp_exact._unpack(handle.host.numpy()).walkable, payload.artificial,
+            payload.peaks, None, None)
+    log(f"timing stage host_half exact: {(time.perf_counter() - t0) * 100:.3f} ms "
+        f"(float64 penalty {pen_ms:.3f} ms of it; the rest is the native A*, "
+        "sectioning and dedup)")
+    log(f"timing __call__ medians over {N_FRAMES} frames: wavefront kernel "
+        f"{statistics.median(lat):.3f} ms, wavefront default flags "
+        f"{statistics.median(sweep_lat):.3f} ms, exact "
+        f"{statistics.median(exact_lat):.3f} ms, exact_device "
+        f"{statistics.median(ed_lat):.3f} ms")
 
     print_card()
     print(json.dumps({"kernels": [{
@@ -430,6 +738,20 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+    }, {
+        # Replaces a compiled JAX loop, not a Pallas kernel; no single
+        # PyTorch call computes a best-first search.
+        "name": "astar",
+        "route": "cuda",
+        "source": "vision_assist_tpu_torch/csrc/astar.cu",
+        "replaces": "vision_assist_tpu/planning/device_astar.py:77",
+        "launches": astar_launches,
+        "max_abs_err": astar_err,
+        "ms": astar_main["ms"],
+        "plain_ms": astar_plain_ms,
+        "bound_ms": astar_main["bound_ms"],
+        "bound_by": astar_main["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

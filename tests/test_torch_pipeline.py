@@ -19,9 +19,20 @@ peaks equal on the 13 replay scenarios and on two seeded frames. relax_sweep
 re-associates float32 sums differently in the two frameworks, so path costs
 are compared at rtol 1e-6, atol 2e-3 (the JAX package's own tolerance for
 it); cells are integers and must be equal.
+
+Exact engines: ``engine="exact"`` (the default; host A* on a float64 penalty)
+and ``engine="exact_device"`` (float32 A* on the device, here its plain
+version) replay the 13 scenarios equal to tests/fixtures/goldens (answer,
+path cells; peak centres too for ``exact``), and run two seeded frames
+against the JAX FrameProcessor: payloads equal where they hold integers,
+path costs within rtol 1e-5, and for ``exact_device`` the carried angle cache
+equal in its NaN pattern and within rtol 1e-5 after each frame.
 """
 
 from __future__ import annotations
+
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -48,6 +59,8 @@ torch.set_num_threads(2)
 
 H = W = 640
 N_FRAMES = 6
+GOLDENS = pathlib.Path(__file__).parent / "fixtures" / "goldens"
+ANSWERS = ("move_left", "move_right", "continue_forward")
 
 
 def _pipeline_cfgs(h, w, use_pallas_relax=True, **kw):
@@ -216,11 +229,123 @@ def test_no_detection_frame_gives_no_guidance():
     assert not res.walkable.any()
 
 
+def _exact_cfgs(engine, **kw):
+    return (jconfig.PipelineConfig(
+                frame_height=H, frame_width=W, transfer_format="i420",
+                pathfinder=jconfig.PathFinderConfig(engine=engine), **kw),
+            config.PipelineConfig(
+                frame_height=H, frame_width=W, transfer_format="i420",
+                pathfinder=config.PathFinderConfig(engine=engine), **kw))
+
+
+@pytest.mark.parametrize("name", scenario_names())
 @pytest.mark.parametrize("engine", ["exact", "exact_device"])
-def test_unported_engines_raise(engine):
-    cfg = config.PipelineConfig(pathfinder=config.PathFinderConfig(engine=engine))
-    with pytest.raises(NotImplementedError, match=engine):
-        FrameProcessor(cfg, device="cpu")
+def test_exact_engines_replay_matches_goldens(engine, name):
+    cfg = config.replay_config().replace(
+        pathfinder=config.PathFinderConfig(engine=engine))
+    fp = FrameProcessor(cfg, replay_rounding=True, device="cpu")
+    res = fp.process_occupancy(load_scenario(name), now_ms=0)
+    gold = json.loads((GOLDENS / f"{name}.json").read_text())
+    assert res.final_answer == gold["final_answer"]
+    assert [[list(rc) for rc in p] for p in _paths(res)] == \
+        [gp["cells_rc"] for gp in gold["paths"]]
+    if engine == "exact":
+        assert [[p.centre.x, p.centre.y] for p in res.peaks] == \
+            [gp["centre"] for gp in gold["peaks"]]
+    else:
+        assert torch.isfinite(fp._astar_cache).any()    # the search warmed it
+        assert torch.isnan(fp._astar_cache[-1])
+
+
+@pytest.fixture(scope="module")
+def exact_frames(frame_slice):
+    """Two seeded frames through both FrameProcessors for each exact engine,
+    sharing the frame slice's float32 segmenters: engine -> per frame
+    (JAX result, port result, JAX payload, port payload read by the JAX
+    unpack, JAX cache, port cache)."""
+    jfp0, tfp0, jseg, _ = frame_slice
+    out = {}
+    for engine in ("exact", "exact_device"):
+        jc, tc = _exact_cfgs(engine)
+        jfp = JaxFrameProcessor(jc, segmenter=jseg)
+        tfp = FrameProcessor(tc, segmenter=tfp0.segmenter, device="cpu")
+        rows = []
+        for i, frame in enumerate(walkway_frames(2, H, W, seed=7)):
+            jh, th = jfp.submit_frame(frame), tfp.submit_frame(frame)
+            pj, pt = jfp._unpack(np.asarray(jh)), jfp._unpack(th.host.numpy())
+            rows.append((jfp.retire_frame(jh, now_ms=i * 100),
+                         tfp.retire_frame(th, now_ms=i * 100), pj, pt,
+                         None if jfp._astar_cache is None
+                         else np.asarray(jfp._astar_cache),
+                         None if tfp._astar_cache is None
+                         else tfp._astar_cache.numpy().copy()))
+        out[engine] = rows
+    return out
+
+
+@pytest.mark.parametrize("i", [0, 1])
+@pytest.mark.parametrize("engine", ["exact", "exact_device"])
+def test_exact_engines_frames_match_jax(exact_frames, engine, i):
+    ja, ta, pj, pt, jcache, tcache = exact_frames[engine][i]
+    assert pt.n_detections == pj.n_detections > 0
+    np.testing.assert_array_equal(pt.occupancy, pj.occupancy)
+    np.testing.assert_array_equal(pt.walkable, pj.walkable)
+    np.testing.assert_array_equal(pt.artificial, pj.artificial)
+    for f in ("centre_x", "centre_y", "left_x", "right_x", "orientation", "valid"):
+        np.testing.assert_array_equal(getattr(pt.peaks, f), getattr(pj.peaks, f))
+    if engine == "exact":
+        assert pt.paths is None and pt.penalty is None and pj.paths is None
+        np.testing.assert_array_equal(ta.penalty, ja.penalty)   # float64, host
+        assert [p.total_cost for p in ta.paths] == [p.total_cost for p in ja.paths]
+    else:
+        for f in ("cells", "lengths", "valid"):
+            np.testing.assert_array_equal(getattr(pt.paths, f), getattr(pj.paths, f))
+        np.testing.assert_allclose(pt.paths.costs, pj.paths.costs, rtol=1e-5)
+        np.testing.assert_allclose(pt.penalty, pj.penalty, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(np.isnan(tcache), np.isnan(jcache))
+        np.testing.assert_allclose(tcache, jcache, rtol=1e-5)
+        assert np.isfinite(tcache).any()
+    assert ta.paths
+    assert ta.final_answer == ja.final_answer
+    assert _paths(ta) == _paths(ja)
+    assert _peaks(ta) == _peaks(ja)
+
+
+def test_blur_rejected_frame_leaves_device_cache_untouched(frame_slice):
+    """A blur-rejected frame never reaches planning in the reference, so the
+    cross-frame angle cache must not change, although the cache lives on the
+    device and is threaded through the frame program."""
+    _, tfp0, _, _ = frame_slice
+    frame = walkway_frames(1, H, W, seed=7)[0]
+    _, rejecting = _exact_cfgs("exact_device", blur=config.BlurConfig(
+        enabled=True, laplacian_var_threshold=1e9))
+    fp = FrameProcessor(rejecting, segmenter=tfp0.segmenter, device="cpu")
+    before = fp._astar_cache.numpy().copy()
+    assert fp(frame, now_ms=0) is None           # everything is "blurry"
+    np.testing.assert_array_equal(fp._astar_cache.numpy(), before)
+
+    # Control: an accepted frame does change the cache.
+    _, accepting = _exact_cfgs("exact_device", blur=config.BlurConfig(
+        enabled=True, laplacian_var_threshold=0.0))
+    fp2 = FrameProcessor(accepting, segmenter=tfp0.segmenter, device="cpu")
+    assert fp2(frame, now_ms=0) is not None
+    assert not np.array_equal(fp2._astar_cache.numpy(), before, equal_nan=True)
+
+
+def test_default_frame_processor_constructs_and_answers():
+    """FrameProcessor(device="cpu") with nothing else set: the default engine
+    is "exact", planned on the host by the native engine where a compiler
+    exists and by its numpy twin elsewhere."""
+    from vision_assist_tpu_torch.golden.astar import AStarEngine
+    from vision_assist_tpu_torch.planning import native
+
+    fp = FrameProcessor(device="cpu")
+    assert fp.cfg.pathfinder.engine == "exact" and fp._astar_cache is None
+    assert isinstance(fp._exact, native.NativeAStarEngine if native.available()
+                      else AStarEngine)
+    res = fp.process_occupancy(load_scenario("right_turn"), now_ms=0)
+    assert res.final_answer in ANSWERS and res.paths
+    assert res.penalty.dtype == np.float64
 
 
 @pytest.mark.parametrize("name", scenario_names())

@@ -19,11 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 import time
 
 import torch
@@ -33,9 +29,9 @@ from vision_assist_tpu_torch.planning.wavefront import (
     enter_cost,
     relax_field,
 )
+from vision_assist_tpu_torch.utils.build import compile_shared, nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "relax.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -53,35 +49,13 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = pathlib.Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the relax kernel cannot be built")
-    return str(path)
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source and flags) and load the kernel library."""
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"librelax_{tag}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE}:\n{build_log}")
-        os.replace(tmp, lib_path)
+    lib_path, build_log = compile_shared(nvcc(), NVCC_FLAGS, SOURCE, "relax")
     lib = ctypes.CDLL(str(lib_path))
     lib.relax_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]

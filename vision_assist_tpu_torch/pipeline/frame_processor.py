@@ -7,11 +7,18 @@ guidance answers out.
   sectioning, dedup and instruction synthesis.
 * All cross-frame state (instruction memory) is explicit.
 
-Only ``engine="wavefront"`` is ported; ``exact`` and ``exact_device`` raise
-NotImplementedError. The wavefront relaxation runs as plain fast sweeping
-(``relax_sweep``, the default), as the CUDA relax kernel
-(``use_pallas_relax=True``) or as the plain per-cell twin
-(``use_sweep_relax=False``).
+Engines (``cfg.pathfinder.engine``):
+
+* ``"exact"`` (the default): the device sends fields and peaks, the host
+  plans with the bit-exact A* (native C++ when a compiler exists, else its
+  numpy twin) on a float64 penalty field.
+* ``"exact_device"``: the same search on the device (the CUDA A* kernel on
+  the card, its plain version on the CPU); its angle cache is cross-frame
+  state that stays on the device, fed to and taken from every frame.
+* ``"wavefront"``: the batched approximate search; its relaxation runs as
+  plain fast sweeping (``relax_sweep``, the default), as the CUDA relax
+  kernel (``use_pallas_relax=True``) or as the plain per-cell twin
+  (``use_sweep_relax=False``).
 """
 
 from __future__ import annotations
@@ -23,10 +30,13 @@ import numpy as np
 import torch
 
 from vision_assist_tpu_torch.config import PipelineConfig
+from vision_assist_tpu_torch.golden.astar import AStarEngine, closest_cell_to_point
 from vision_assist_tpu_torch.golden.pipeline import materialize_cells
 from vision_assist_tpu_torch.models.inference import Segmenter
 from vision_assist_tpu_torch.pipeline.planner import make_plan_step
+from vision_assist_tpu_torch.planning import native as native_engine
 from vision_assist_tpu_torch.planning.dedup import deduplicate_paths
+from vision_assist_tpu_torch.planning.device_astar import empty_cache
 from vision_assist_tpu_torch.semantics.analyser import InstructionEngine
 from vision_assist_tpu_torch.semantics.sections import AnalysedPath, build_path
 from vision_assist_tpu_torch.types import Coordinate, Peak
@@ -88,19 +98,62 @@ class FrameProcessor:
             from vision_assist_tpu_torch.ops.yuv import i420_shape
             i420_shape(self.cfg.frame_height, self.cfg.frame_width)
         self.segmenter = segmenter
-        self._plan = make_plan_step(self.cfg, replay_rounding=replay_rounding)
+        engine = self.cfg.pathfinder.engine
+        self._plan = make_plan_step(self.cfg, replay_rounding=replay_rounding,
+                                    include_paths=engine != "exact")
         self.analyser = InstructionEngine(self.cfg.analyser)
+        self._exact = self._make_exact_engine()
         self._device_fn = None
         self._unpack = None
         self._replay_rounding = replay_rounding
+        # engine="exact_device": the angle cache is explicit carried state
+        # (the reference's PathFinder singleton cache), resident on the
+        # processor's device across frames; the host never reads it.
+        self._astar_cache = (empty_cache(self.device)
+                             if engine == "exact_device" else None)
 
     # -- host half -------------------------------------------------------------------
 
-    def _paths_from_arrays(self, artificial: np.ndarray, peaks, penalty_f32,
-                           paths_batch
+    def _make_exact_engine(self):
+        """A fresh exact engine with its own cross-frame angle cache, one per
+        stream: the native C++ engine, or its bit-identical numpy twin when
+        no compiler exists."""
+        pf = self.cfg.pathfinder
+        kwargs = dict(
+            angle_window=pf.angle_window, angle_grace_deg=pf.angle_grace_deg,
+            angle_exponent=pf.angle_exponent,
+            angle_denominator=pf.angle_denominator,
+            penalty_weight=pf.penalty_weight, angle_weight=pf.angle_weight,
+            replicate_radians_cache_bug=pf.replicate_radians_cache_bug,
+        )
+        if native_engine.available():
+            return native_engine.NativeAStarEngine(**kwargs)
+        return AStarEngine(**kwargs)
+
+    def _host_penalty(self, walkable: np.ndarray) -> np.ndarray:
+        """Bit-parity float64 penalty field (native, else its numpy twin)."""
+        kwargs = dict(
+            saturation_threshold=self.cfg.penalty.saturation_threshold,
+            dominance_gain=self.cfg.penalty.dominance_gain)
+        if native_engine.available():
+            return native_engine.native_penalty_field(walkable, **kwargs)
+        from vision_assist_tpu_torch.golden.lattice import penalty_field
+        return penalty_field(walkable, **kwargs)
+
+    def _empty_guidance(self, payload):
+        """The no-detection short-circuit's (paths, peaks, penalty) triple:
+        nothing was detected, so there is no lattice and no cost field. The
+        fixed-shape program still plants artificial cells, which must not
+        fabricate a path on a frame where the model saw nothing."""
+        return [], [], np.zeros(payload.walkable.shape, np.float64)
+
+    def _paths_from_arrays(self, walkable: np.ndarray, artificial: np.ndarray,
+                           peaks, penalty_f32, paths_batch, exact_engine=None
                            ) -> tuple[list[AnalysedPath], list[Peak], np.ndarray]:
-        """Numpy core of the host half: peak objects + wavefront path
-        materialisation + sectioning + dedup. Returns (paths, peaks, penalty)."""
+        """Numpy core of the host half: peak objects + A* or device path
+        materialisation + sectioning + dedup. Returns (paths, peaks, penalty)
+        where penalty is the field used for the costs (the float64 host
+        recompute in exact mode: the reference's arithmetic is float64)."""
         cfg = self.cfg
         g = cfg.grid.grid_size
 
@@ -117,21 +170,36 @@ class FrameProcessor:
                 orientation=("up", "left", "right")[int(peaks.orientation[i])],
             ))
 
-        penalty = np.asarray(penalty_f32, np.float64)
-        pb = paths_batch
-        raw: list[AnalysedPath] = []
-        for i in range(n_peaks):
-            if not bool(pb.valid[i]):
-                continue
-            length = int(pb.lengths[i])
-            rc = [tuple(x) for x in np.asarray(pb.cells[i][:length]).tolist()]
-            raw.append(build_path(
-                materialize_cells(rc, penalty, artificial, g),
-                float(pb.costs[i]),
-                min_straight=cfg.sections.min_straight_cells,
-                merge_below=cfg.sections.merge_below_cells,
-                sharp_angle_deg=cfg.sections.sharp_angle_deg))
+        found: list[tuple[list[tuple[int, int]], float]] = []
+        if cfg.pathfinder.engine == "exact":
+            penalty = self._host_penalty(walkable)
+            start = closest_cell_to_point(
+                walkable, (cfg.frame_width // 2, cfg.frame_height), g)
+            for peak in peak_objs:
+                goal = closest_cell_to_point(
+                    walkable, peak.centre.to_tuple(), g)
+                if start is None or goal is None:
+                    continue
+                rc, cost = (exact_engine or self._exact).find_path(
+                    walkable, penalty, start, goal, g)
+                if rc:
+                    found.append((rc, cost))
+        else:
+            penalty = np.asarray(penalty_f32, np.float64)
+            pb = paths_batch
+            for i in range(n_peaks):
+                if not bool(pb.valid[i]):
+                    continue
+                length = int(pb.lengths[i])
+                found.append((
+                    [tuple(x) for x in np.asarray(pb.cells[i][:length]).tolist()],
+                    float(pb.costs[i])))
 
+        raw = [build_path(
+            materialize_cells(rc, penalty, artificial, g), cost,
+            min_straight=cfg.sections.min_straight_cells,
+            merge_below=cfg.sections.merge_below_cells,
+            sharp_angle_deg=cfg.sections.sharp_angle_deg) for rc, cost in found]
         return (deduplicate_paths(raw, cfg.dedup.similarity_threshold),
                 peak_objs, penalty)
 
@@ -144,18 +212,24 @@ class FrameProcessor:
         if now_ms is None:
             now_ms = int(time.time() * 1000)
         occ = np.asarray(occupancy, dtype=bool)
-        plan = self._plan(torch.from_numpy(occ).to(self.device))
+        plan = self._plan(torch.from_numpy(occ).to(self.device),
+                          self._astar_cache)
+        self._astar_cache = plan.astar_cache
+        walkable = plan.walkable.cpu().numpy()
         artificial = plan.artificial.cpu().numpy()
-        paths, peaks, penalty = self._paths_from_arrays(
-            artificial=artificial, peaks=_numpy(plan.peaks),
-            penalty_f32=plan.penalty.cpu().numpy(),
-            paths_batch=_numpy(plan.paths))
+        penalty_f32 = plan.penalty.cpu().numpy()
+        paths, peaks, _ = self._paths_from_arrays(
+            walkable=walkable, artificial=artificial, peaks=_numpy(plan.peaks),
+            penalty_f32=penalty_f32,
+            paths_batch=None if plan.paths is None else _numpy(plan.paths))
         answer = self.analyser(self.cfg.frame_height, self.cfg.frame_width,
                                paths, now_ms)
+        # The result reports the device's float32 field, as the JAX package
+        # does, whichever field priced the paths.
         return FrameResult(
             final_answer=answer, paths=paths, peaks=peaks, occupancy=occ,
-            walkable=plan.walkable.cpu().numpy(), artificial=artificial,
-            penalty=penalty)
+            walkable=walkable, artificial=artificial,
+            penalty=penalty_f32.astype(np.float64))
 
     def _ensure_program(self):
         if self._device_fn is None:
@@ -186,7 +260,12 @@ class FrameProcessor:
         src = torch.from_numpy(np.ascontiguousarray(frame))
         if cuda:
             src = src.pin_memory()
-        payload = self._device_fn(src.to(self.device, non_blocking=cuda))
+        dev_frame = src.to(self.device, non_blocking=cuda)
+        if self._astar_cache is not None:
+            payload, self._astar_cache = self._device_fn(dev_frame,
+                                                         self._astar_cache)
+        else:
+            payload = self._device_fn(dev_frame)
         if not cuda:
             return _Handle(host=payload, done=None)
         host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
@@ -209,15 +288,12 @@ class FrameProcessor:
             return None
         empty = payload.n_detections == 0
         if empty:
-            # With no detection there is no lattice and no guidance: the
-            # fixed-shape program still plants artificial cells, which must
-            # not fabricate a path on a frame where the model saw nothing.
-            paths, peaks = [], []
-            penalty = np.zeros(payload.walkable.shape, np.float64)
+            paths, peaks, penalty = self._empty_guidance(payload)
         else:
             paths, peaks, penalty = self._paths_from_arrays(
-                artificial=payload.artificial, peaks=payload.peaks,
-                penalty_f32=payload.penalty, paths_batch=payload.paths)
+                walkable=payload.walkable, artificial=payload.artificial,
+                peaks=payload.peaks, penalty_f32=payload.penalty,
+                paths_batch=payload.paths)
         answer = self.analyser(self.cfg.frame_height, self.cfg.frame_width,
                                paths, now_ms)
         zeros = np.zeros_like(payload.walkable, dtype=bool)

@@ -1,21 +1,25 @@
 """The per-frame device program and its ONE packed int32 payload.
 
 The device side — I420 -> BGR, letterbox -> YOLO-seg -> NMS -> masks ->
-occupancy -> artificial cells -> penalty -> peaks -> wavefront paths -> blur
-metric — ends in one int32 vector, so a frame costs one device->host copy.
-The layout is the reference's wavefront-mode layout, word for word, so the
-JAX package's ``unpack`` reads this payload unchanged:
+occupancy -> artificial cells -> penalty -> peaks (-> paths) -> blur metric —
+ends in one int32 vector, so a frame costs one device->host copy. The layout
+is the reference's, word for word, so the JAX package's ``unpack`` reads this
+payload unchanged:
 
   [ flags (R*C)            bit0 walkable, bit1 artificial, bit2 occupancy
   , peaks (P*6)            centre_x, centre_y, left_x, right_x, orient, valid
   , meta  (3)              bitcast(blur_var f32), n_detections,
                            bitcast(best_conf f32)
-  , penalty (R*C)          bitcast f32
-  , path cells (K*L*2)     int32 (row, col), -1 pad
-  , path lengths (K)
-  , path costs (K)         bitcast f32
-  , path valid (K)
+  , penalty (R*C)          bitcast f32            -- include_paths only
+  , path cells (K*L*2)     int32 (row, col), -1 pad -- include_paths only
+  , path lengths (K)                               -- include_paths only
+  , path costs (K)         bitcast f32             -- include_paths only
+  , path valid (K)                                 -- include_paths only
   ]
+
+With ``engine="exact"`` (the default) the payload ends after ``meta``: the
+host plans, and recomputes the penalty in float64 for bit parity anyway. The
+wavefront and ``exact_device`` engines carry penalty and paths.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ class FramePayload:
     blur_var: float
     n_detections: int
     best_conf: float
-    penalty: np.ndarray       # (R, C) f32
-    paths: Any                # PathBatch of numpy
+    penalty: np.ndarray | None = None   # (R, C) f32 (not in exact mode)
+    paths: Any | None = None            # PathBatch of numpy (not in exact mode)
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +64,9 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
 
     device_fn(frame) -> (N,) int32 packed payload on the segmenter's device;
     ``frame`` is (H, W, 3) uint8 BGR, or the packed (H*3/2, W) uint8 I420
-    plane when cfg.transfer_format == "i420". unpack(np_payload) ->
+    plane when cfg.transfer_format == "i420". With ``engine="exact_device"``
+    it is device_fn(frame, astar_cache) -> (payload, cache_out): the angle
+    cache stays on the device from frame to frame. unpack(np_payload) ->
     FramePayload.
     """
     if (segmenter.frame_h, segmenter.frame_w) != (cfg.frame_height,
@@ -72,16 +78,20 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
             f"({cfg.frame_height}x{cfg.frame_width}, grid "
             f"{cfg.grid.grid_size}); build the Segmenter with "
             f"example_hw=(cfg.frame_height, cfg.frame_width)")
-    plan = make_plan_step(cfg, replay_rounding=replay_rounding)
+    include_paths = cfg.pathfinder.engine != "exact"
+    exact_device = cfg.pathfinder.engine == "exact_device"
+    plan = make_plan_step(cfg, replay_rounding=replay_rounding,
+                          include_paths=include_paths)
     g = cfg.grid.grid_size
     rows, cols = cfg.frame_height // g, cfg.frame_width // g
     P = cfg.peaks.max_peaks
     K = P  # one candidate path per peak
     L = cfg.pathfinder.max_path_len
 
-    sizes = {"flags": rows * cols, "peaks": P * 6, "meta": 3,
-             "penalty": rows * cols, "cells": K * L * 2,
-             "lengths": K, "costs": K, "pvalid": K}
+    sizes = {"flags": rows * cols, "peaks": P * 6, "meta": 3}
+    if include_paths:
+        sizes.update({"penalty": rows * cols, "cells": K * L * 2,
+                      "lengths": K, "costs": K, "pvalid": K})
     offsets = {}
     pos = 0
     for k, n in sizes.items():
@@ -92,11 +102,11 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
     i420 = cfg.transfer_format == "i420"
 
     @torch.no_grad()
-    def device_fn(frame: torch.Tensor) -> torch.Tensor:
+    def device_fn(frame: torch.Tensor, astar_cache: torch.Tensor | None = None):
         frame_bgr = (i420_to_bgr(frame, cfg.frame_height, cfg.frame_width)
                      if i420 else frame)
         seg = segmenter._frame_chain(frame_bgr)
-        pr = plan(seg.occupancy)
+        pr = plan(seg.occupancy, astar_cache)
         blur = laplacian_variance(frame_bgr)
 
         i32 = torch.int32
@@ -110,16 +120,29 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
         best_conf = torch.where(seg.any_detection,
                                 seg.detections.scores.max(), 0.0)
         meta = torch.stack([_bits(blur), n_det, _bits(best_conf)])
-        packed = torch.cat([
-            flags.reshape(-1), peaks.reshape(-1), meta,
-            _bits(pr.penalty).reshape(-1),
-            pr.paths.cells.to(i32).reshape(-1),
-            pr.paths.lengths.to(i32),
-            _bits(pr.paths.costs),
-            pr.paths.valid.to(i32),
-        ])
+        parts = [flags.reshape(-1), peaks.reshape(-1), meta]
+        if include_paths:
+            parts += [
+                _bits(pr.penalty).reshape(-1),
+                pr.paths.cells.to(i32).reshape(-1),
+                pr.paths.lengths.to(i32),
+                _bits(pr.paths.costs),
+                pr.paths.valid.to(i32),
+            ]
+        packed = torch.cat(parts)
         assert packed.shape == (total,), (packed.shape, total)
-        return packed
+        if not exact_device:
+            return packed
+        cache_out = pr.astar_cache
+        if cfg.blur.enabled:
+            # A blur-rejected frame must not change the cross-frame angle
+            # cache: the reference's blur gate rejects the frame BEFORE
+            # planning runs. Decided on the device, with no host read,
+            # because the cache feeds the next submit before the host sees
+            # this frame's blur metric.
+            keep = blur >= cfg.blur.laplacian_var_threshold
+            cache_out = torch.where(keep, pr.astar_cache, astar_cache)
+        return packed, cache_out
 
     def unpack(buf: np.ndarray) -> FramePayload:
         buf = np.asarray(buf)
@@ -135,7 +158,7 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
         flags = seg_("flags", (rows, cols))
         pk = seg_("peaks", (P, 6))
         meta = seg_("meta")
-        return FramePayload(
+        payload = FramePayload(
             walkable=(flags & 1).astype(bool),
             artificial=((flags >> 1) & 1).astype(bool),
             occupancy=((flags >> 2) & 1).astype(bool),
@@ -146,12 +169,14 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
             blur_var=float(meta[0:1].view(np.float32)[0]),
             n_detections=int(meta[1]),
             best_conf=float(meta[2:3].view(np.float32)[0]),
-            penalty=seg_("penalty", (rows, cols), np.float32),
-            paths=PathBatch(
+        )
+        if include_paths:
+            payload.penalty = seg_("penalty", (rows, cols), np.float32)
+            payload.paths = PathBatch(
                 cells=seg_("cells", (K, L, 2)),
                 lengths=seg_("lengths"),
                 costs=seg_("costs", None, np.float32),
-                valid=seg_("pvalid").astype(bool)),
-        )
+                valid=seg_("pvalid").astype(bool))
+        return payload
 
     return device_fn, unpack

@@ -1,0 +1,89 @@
+"""Streaming serving: keep N frames in flight, retire them in order.
+
+The building blocks are ``FrameProcessor.submit_frame``/``retire_frame`` (one
+device program and one asynchronous packed payload copy per frame).
+``StreamingServer`` packages the depth-N pipeline over them: the submits of
+newer frames overlap the host half of older ones. With
+``engine="exact_device"`` the angle cache chains from submit to submit on the
+device, so frames in flight still see the cache in frame order.
+
+The reference processes frames strictly synchronously; this is the serving
+shape of the device pipeline. The batched multi-stream server waits for the
+multi-stream processor.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Iterable, Iterator
+
+import numpy as np
+
+from vision_assist_tpu_torch.pipeline.frame_processor import (
+    FrameProcessor,
+    FrameResult,
+)
+
+
+class StreamingServer:
+    """Depth-N pipelined single-stream serving over a FrameProcessor.
+
+    feed() submits one frame and returns the retired results that became
+    due (0 or 1 normally; blur-gated frames retire to None and are
+    dropped). drain() retires everything still in flight. Results come
+    back in submit order, so the temporal instruction memory sees frames
+    exactly as the synchronous loop would.
+    """
+
+    def __init__(self, fp: FrameProcessor, depth: int = 8,
+                 keep_frames: bool = False):
+        """keep_frames exists to hand each frame to the overlay renderer at
+        its retirement; the renderer belongs to the visualiser slice, which
+        is not ported, so it raises NotImplementedError."""
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        if keep_frames:
+            raise NotImplementedError(
+                "keep_frames=True feeds the debug overlay renderer, which "
+                "comes with the visualiser slice of the port")
+        self.fp = fp
+        self.depth = depth
+        self._inflight: collections.deque = collections.deque()
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._inflight)
+
+    def feed(self, frame_bgr: np.ndarray,
+             now_ms: int | None = None) -> list[FrameResult]:
+        """Submit one frame; retire the oldest once `depth` are in flight."""
+        if now_ms is None:
+            now_ms = int(time.time() * 1000)
+        self._inflight.append((self.fp.submit_frame(frame_bgr), now_ms))
+        out = []
+        while len(self._inflight) >= self.depth:
+            out.extend(self._retire_one())
+        return out
+
+    def drain(self, now_ms: int | None = None) -> list[FrameResult]:
+        """Retire every in-flight frame (end of stream)."""
+        out = []
+        while self._inflight:
+            out.extend(self._retire_one(now_ms))
+        return out
+
+    def _retire_one(self, now_ms: int | None = None) -> list[FrameResult]:
+        handle, submit_now = self._inflight.popleft()
+        res = self.fp.retire_frame(handle, now_ms=now_ms if now_ms is not None
+                                   else submit_now)
+        return [res] if res is not None else []
+
+    def serve(self, frames: Iterable[np.ndarray],
+              now_ms_start: int = 0,
+              frame_interval_ms: int = 33) -> Iterator[FrameResult]:
+        """Generator over a frame iterable with synthetic timestamps."""
+        for i, f in enumerate(frames):
+            yield from self.feed(f, now_ms=now_ms_start
+                                 + i * frame_interval_ms)
+        yield from self.drain()
