@@ -43,8 +43,12 @@ result line:
              against tests/fixtures/goldens (answer, peak centres, path
              cells).
 7. exact_device  the same 8 frames with engine="exact_device": one A* launch
-             a frame, no relax launch; the 13 scenarios on the card against
-             the goldens' answers and path cells; card against CPU.
+             a frame, no relax launch, answers and path cells equal to engine
+             "exact"'s on every frame; the A* kernel against its plain
+             version on each of the 8 served lattices (32x32, the goals of
+             the frame, the cache carried from frame to frame), held as in
+             phase 2; the 13 scenarios on the card against the goldens'
+             answers and path cells; card against CPU.
 8. serve     StreamingServer at depth 1, 2 and 8 over 32 frames (the 8
              repeated) for the kernel-wavefront and exact_device
              configurations: results equal to the synchronous loop's, in
@@ -53,7 +57,8 @@ result line:
              and at 64x36 B=13, each with its pass counts; an empty launch
              through the same wrapper; the plain twin and plain relax_sweep;
              the A* kernel at the served lattice and at 64x36 B=13 with its
-             pops and relaxations, and its plain version; the frame path's
+             pops and relaxations, and its plain version, whose result on the
+             timed inputs is held against the kernel's; the frame path's
              stages, the host half of "exact" and the __call__ medians of
              the engines. Kernel times are CUDA events over launches queued
              behind a device-side sleep, so the host's call overhead is not
@@ -279,15 +284,19 @@ def main() -> int:
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
         built = [b.result() for b in builds]
+    def how(mod):       # another commit's port (--root) may not say
+        return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
+
     for mod in [cuda_wavefront] if args.relax_only else [cuda_wavefront, cuda_astar]:
         ptxas = [ln.strip() for ln in mod.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"phase build {mod.SOURCE.name}: ok in {mod.build_seconds:.3f} s; "
-            + "; ".join(ptxas))
+        log(f"phase build {mod.SOURCE.name}: {how(mod)} in "
+            f"{mod.build_seconds:.3f} s; " + "; ".join(ptxas))
     if not args.relax_only:
         if not built[2]:
             raise AssertionError("the native exact engine did not build (g++)")
-        log(f"phase build {native.SOURCE.name}: ok in {native.build_seconds:.3f} s")
+        log(f"phase build {native.SOURCE.name}: {how(native)} in "
+            f"{native.build_seconds:.3f} s")
 
     # -- 2. kernel against its twin ----------------------------------------------------
     turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
@@ -317,6 +326,45 @@ def main() -> int:
     astar_kw = dict(grid_size=rcfg.grid.grid_size,
                     max_len=rcfg.pathfinder.max_path_len)
     astar_err, scen_inputs = 0.0, []
+
+    def astar_against_plain(name, inp, cache_k, cache_p, kw):
+        """One launch of the A* kernel for one lattice against the plain
+        version on the same inputs, each from its own carried cache; raises
+        on a difference, else (cache of the kernel, cache of the plain
+        version, largest absolute error in costs and cache values, the plain
+        version's milliseconds on the host's clock)."""
+        cells, lengths, costs, cache_out, stats = cuda_astar.astar_paths_cuda(
+            *(x[None] for x in inp), cache_k[None], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, cache_p = device_astar.device_astar_paths_plain(*inp, cache_p, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        cache_k = cache_out[0]
+        valid = inp[4] & (lengths[0] > 0)
+        if not (torch.equal(cells[0], ref.cells)
+                and torch.equal(lengths[0], ref.lengths)
+                and torch.equal(valid, ref.valid)
+                and torch.equal(cache_k.isnan(), cache_p.isnan())):
+            raise AssertionError(f"A* kernel differs from its plain version on "
+                                 f"{name}: lengths {lengths[0].tolist()} vs "
+                                 f"{ref.lengths.tolist()}")
+        if not (torch.allclose(costs[0], ref.costs, rtol=1e-5, atol=0)
+                and torch.allclose(cache_k, cache_p, rtol=1e-5, atol=0,
+                                   equal_nan=True)):
+            raise AssertionError(f"A* kernel costs or cache off on {name}: "
+                                 f"{costs[0].tolist()} vs {ref.costs.tolist()}")
+        found = ref.valid
+        err = max(float((costs[0][found] - ref.costs[found]).abs().max())
+                  if found.any() else 0.0,
+                  float((cache_k - cache_p).nan_to_num().abs().max()))
+        rows, cols = inp[0].shape
+        log(f"phase kernel astar {name}: {rows}x{cols}, cells, lengths, validity "
+            f"and cache pattern equal, max abs err {err:.3g} (rtol 1e-5), goals "
+            f"{int(inp[4].sum())}, lengths {lengths[0].tolist()}, pops and "
+            f"relaxations {stats[0].tolist()}")
+        return cache_k, cache_p, err, plain_ms
+
     if not args.relax_only:
         lattices = list(scen)
         for seed in range(6):
@@ -330,34 +378,9 @@ def main() -> int:
                 scen_inputs.append(inp)
             else:                     # a random lattice: its first three goals
                 inp = (*inp[:4], inp[4] & (inp[4].cumsum(0) <= 3))
-            cells, lengths, costs, cache_out, stats = cuda_astar.astar_paths_cuda(
-                *(x[None] for x in inp), cache_k[None], **astar_kw)
-            torch.cuda.synchronize()
-            ref, cache_ref = device_astar.device_astar_paths_plain(
-                *inp, cache_p, **astar_kw)
-            cache_k, cache_p = cache_out[0], cache_ref
-            valid = inp[4] & (lengths[0] > 0)
-            if not (torch.equal(cells[0], ref.cells)
-                    and torch.equal(lengths[0], ref.lengths)
-                    and torch.equal(valid, ref.valid)
-                    and torch.equal(cache_k.isnan(), cache_p.isnan())):
-                raise AssertionError(f"A* kernel differs from its plain version on "
-                                     f"{name}: lengths {lengths[0].tolist()} vs "
-                                     f"{ref.lengths.tolist()}")
-            if not (torch.allclose(costs[0], ref.costs, rtol=1e-5, atol=0)
-                    and torch.allclose(cache_k, cache_p, rtol=1e-5, atol=0,
-                                       equal_nan=True)):
-                raise AssertionError(f"A* kernel costs or cache off on {name}: "
-                                     f"{costs[0].tolist()} vs {ref.costs.tolist()}")
-            found = ref.valid
-            err = max(float((costs[0][found] - ref.costs[found]).abs().max())
-                      if found.any() else 0.0,
-                      float((cache_k - cache_p).nan_to_num().abs().max()))
+            cache_k, cache_p, err, _ = astar_against_plain(
+                name, inp, cache_k, cache_p, astar_kw)
             astar_err = max(astar_err, err)
-            log(f"phase kernel astar {name}: cells, lengths, validity and cache "
-                f"pattern equal, max abs err {err:.3g} (rtol 1e-5), goals "
-                f"{int(inp[4].sum())}, lengths {lengths[0].tolist()}, pops and "
-                f"relaxations {stats[0].tolist()}")
         # All 13 scenarios as streams of one launch against one launch each.
         fresh = device_astar.empty_cache(dev)
         batched = [torch.stack(x) for x in zip(*scen_inputs)]
@@ -370,17 +393,9 @@ def main() -> int:
                 if not torch.equal(a[i].view(torch.int32), b[0].view(torch.int32)):
                     raise AssertionError(f"A* kernel: stream {i} of the batched "
                                          "launch differs from its own launch")
-        for threads in (32, 64, 128):
-            alt = cuda_astar.astar_paths_cuda(*batched, caches, block_threads=threads,
-                                              **astar_kw)
-            for a, b in zip(got, alt):
-                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                    raise AssertionError(f"A* kernel: a block of {threads} threads "
-                                         "gives another result")
         torch.cuda.synchronize()
         log(f"phase kernel astar batched: B={len(scen_inputs)} streams in one "
-            f"launch bit-equal to one launch each, and with blocks of 32, 64 and "
-            f"128 threads; elapsed "
+            f"launch bit-equal to one launch each; elapsed "
             f"{time.perf_counter() - t_start:.1f} s")
 
     # -- 3. the main path on the card --------------------------------------------------
@@ -594,15 +609,34 @@ def main() -> int:
                              f"{N_FRAMES} frames")
     if not torch.isfinite(fp_ed._astar_cache).any():
         raise AssertionError("exact_device: the carried cache is still empty")
+    # Both engines are exact: on these frames they must give the same guidance.
     same_as_exact = sum(a.final_answer == b.final_answer
                         and path_cells(a) == path_cells(b)
                         for a, b in zip(ed_res, exact_res))
+    if same_as_exact != N_FRAMES:
+        raise AssertionError(
+            f"exact_device: only {same_as_exact} of {N_FRAMES} frames equal to "
+            f"engine exact's; occupancy cells differing "
+            f"{[int((a.occupancy != b.occupancy).sum()) for a, b in zip(ed_res, exact_res)]}")
+    # The kernel against its plain version at the shape this path gives it:
+    # every frame's lattice and goals, the cache carried from frame to frame
+    # as the processor carries it.
+    ed_kw = dict(grid_size=cfg.grid.grid_size, max_len=cfg.pathfinder.max_path_len)
+    cache_k = cache_p = device_astar.empty_cache(dev)
+    served_err = 0.0
+    for i, frame in enumerate(frames):
+        inp = astar_inputs(torch, cfg, seg(frame).occupancy, False)
+        cache_k, cache_p, err, _ = astar_against_plain(
+            f"served frame {i}", inp, cache_k, cache_p, ed_kw)
+        served_err = max(served_err, err)
+    astar_err = max(astar_err, served_err)
     check_goldens("exact_device", with_peaks=False)
     replay_card_vs_cpu(ed_pf)
     log(f"phase exact_device: ok, {N_FRAMES} frames, A* launches {astar_launches}, "
         f"answers {[r.final_answer for r in ed_res]}, {same_as_exact} frames with "
-        f"answer and path cells equal to engine exact's, median latency "
-        f"{statistics.median(ed_lat):.3f} ms; replay of {len(scen)} scenarios on "
+        f"answer and path cells equal to engine exact's, kernel against plain "
+        f"version on the {N_FRAMES} served lattices max abs err {served_err:.3g}, "
+        f"median latency {statistics.median(ed_lat):.3f} ms; replay of {len(scen)} scenarios on "
         "the card equal to the goldens (answer, path cells) and to the CPU")
 
     # -- 8. depth-N serving against the synchronous loop ---------------------------------------
@@ -669,7 +703,6 @@ def main() -> int:
     # The A* kernel, with the cache as one pass over the same goals leaves it
     # (the steady state of a stream), and its plain version on the same inputs.
     served_in = astar_inputs(torch, cfg, seg_res.occupancy, False)
-    ed_kw = dict(grid_size=cfg.grid.grid_size, max_len=cfg.pathfinder.max_path_len)
     astar_timed = {}
     for name, inp, kw in (("32x32 B=1 served", [x[None] for x in served_in], ed_kw),
                           ("64x36 B=13 scenarios", batched, astar_kw)):
@@ -677,8 +710,8 @@ def main() -> int:
         warm = cuda_astar.astar_paths_cuda(
             *inp, device_astar.empty_cache(dev).repeat(b, 1), **kw)[3]
 
-        def call(inp=inp, warm=warm, kw=kw, **more):
-            return cuda_astar.astar_paths_cuda(*inp, warm, **kw, **more)
+        def call(inp=inp, warm=warm, kw=kw):
+            return cuda_astar.astar_paths_cuda(*inp, warm, **kw)
         stats = call()[4]
         searches = int(inp[4].sum())
         pops, relaxations = (int(v) for v in stats.sum(dim=(0, 1)))
@@ -693,16 +726,13 @@ def main() -> int:
             f"{bounds['bound_ms']:.6f} ms by {bounds['bound_by']} "
             f"({bounds['n_bytes']} B, {bounds['n_ops']} operations), one-SM bound "
             f"{bounds['one_sm_ms']:.6f} ms; latency-bound")
-        sizes = {threads: cuda_ms(torch, lambda: call(block_threads=threads),
-                                  reps=50, queued=True) for threads in (32, 64, 128, 256)}
-        log(f"timing astar kernel {name} by block size (256 threads is the default): "
-            + ", ".join(f"{k} threads {v:.5f} ms" for k, v in sizes.items()))
     astar_main = astar_timed["32x32 B=1 served"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    device_astar.device_astar_paths_plain(*served_in, astar_main["warm"][0], **ed_kw)
-    torch.cuda.synchronize()
-    astar_plain_ms = (time.perf_counter() - t0) * 1e3
+    # The timed launch itself (served lattice, warm cache) against the plain
+    # version, which is timed in the same comparison.
+    warm = astar_main["warm"][0]
+    _, _, err, astar_plain_ms = astar_against_plain("timed served lattice", served_in,
+                                                    warm, warm, ed_kw)
+    astar_err = max(astar_err, err)
     log(f"timing astar plain version 32x32 B=1 on the card: {astar_plain_ms:.3f} ms")
 
     handle = fp_exact.submit_frame(frames[-1])

@@ -6,19 +6,38 @@ weights in float32) on the CPU, with seeded synthetic walkway frames. Depth
 twin here) and for ``exact_device``, whose angle cache chains from submit to
 submit while frames are in flight: answers and path cells equal to the
 synchronous loop's, in order.
+
+Against the JAX package: its ``StreamingServer`` over its ``FrameProcessor``
+(the same weights in float32) serves the same frames at depth 3, for
+``exact_device`` and for the kernel wavefront: the served sequence (answers,
+which carry the instruction memory's view of the order, peaks and path
+cells) is equal frame by frame, path costs agree within rtol 1e-5, and for
+``exact_device`` the angle cache left on the device after the last frame has
+the same NaN pattern and values within rtol 1e-5.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
-from vision_assist_tpu_torch import config
-from vision_assist_tpu_torch.io.synthetic import walkway_frames
-from vision_assist_tpu_torch.models import flagship
-from vision_assist_tpu_torch.models.inference import Segmenter
-from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
-from vision_assist_tpu_torch.pipeline.server import StreamingServer
+jax = pytest.importorskip("jax")
+
+from vision_assist_tpu import config as jconfig  # noqa: E402
+from vision_assist_tpu.models.inference import Segmenter as JaxSegmenter  # noqa: E402
+from vision_assist_tpu.pipeline.frame_processor import (  # noqa: E402
+    FrameProcessor as JaxFrameProcessor,
+)
+from vision_assist_tpu.pipeline.server import (  # noqa: E402
+    StreamingServer as JaxStreamingServer,
+)
+from vision_assist_tpu_torch import config  # noqa: E402
+from vision_assist_tpu_torch.io.synthetic import walkway_frames  # noqa: E402
+from vision_assist_tpu_torch.models import flagship  # noqa: E402
+from vision_assist_tpu_torch.models.inference import Segmenter  # noqa: E402
+from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor  # noqa: E402
+from vision_assist_tpu_torch.pipeline.server import StreamingServer  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -78,6 +97,45 @@ def test_matches_sync_loop(segmenter, frames, sync_loop, engine, depth):
     got = _guidance(srv.serve(frames, now_ms_start=0, frame_interval_ms=33))
     assert got == expected
     assert srv.in_flight == 0
+
+
+@pytest.fixture(scope="module")
+def jax_segmenter():
+    rec = flagship.flagship()
+    return JaxSegmenter(jconfig.ModelConfig(arch=rec["arch"], imgsz=rec["imgsz"],
+                                            dtype="float32"),
+                        variables=flagship.load_flagship_variables(),
+                        example_hw=(H, W))
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_served_sequence_matches_jax_server(segmenter, jax_segmenter, frames, engine):
+    pf = ENGINES[engine]
+    jcfg = jconfig.PipelineConfig(
+        frame_height=H, frame_width=W,
+        pathfinder=jconfig.PathFinderConfig(
+            engine=pf.engine, use_pallas_relax=pf.use_pallas_relax))
+    jsrv = JaxStreamingServer(JaxFrameProcessor(jcfg, segmenter=jax_segmenter),
+                              depth=3)
+    tsrv = StreamingServer(_processor(segmenter, engine), depth=3)
+    jres = list(jsrv.serve(frames, now_ms_start=0, frame_interval_ms=33))
+    tres = list(tsrv.serve(frames, now_ms_start=0, frame_interval_ms=33))
+    assert len(tres) == len(jres) == N_FRAMES
+    assert any(r.paths for r in tres)
+    for i, (tr, jr) in enumerate(zip(tres, jres)):
+        np.testing.assert_array_equal(tr.occupancy, jr.occupancy, err_msg=str(i))
+        assert tr.final_answer == jr.final_answer, i
+        assert _guidance([tr]) == _guidance([jr]), i
+        assert [(p.centre.x, p.centre.y, p.orientation) for p in tr.peaks] == \
+            [(p.centre.x, p.centre.y, p.orientation) for p in jr.peaks], i
+        np.testing.assert_allclose([p.total_cost for p in tr.paths],
+                                   [p.total_cost for p in jr.paths], rtol=1e-5)
+    if engine == "exact_device":
+        tcache = tsrv.fp._astar_cache.numpy()
+        jcache = np.asarray(jsrv.fp._astar_cache)
+        assert np.isfinite(tcache).any()
+        np.testing.assert_array_equal(np.isnan(tcache), np.isnan(jcache))
+        np.testing.assert_allclose(tcache, jcache, rtol=1e-5)
 
 
 def test_feed_retires_oldest_once_depth_in_flight(segmenter, frames):

@@ -63,8 +63,10 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kMaxWarps = kMaxThreads / 32;
+// One block size: the pop's scan is one 128-bit load for four cells, so 256
+// threads cover 1024 cells in one load each.
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kCacheSize = 49 * 25 + 1;  // last slot is scratch, always NaN
 constexpr unsigned kFull = 0xffffffffu;
 // Cell flags: closed, walkable, and "the neighbour in move d exists" at bit
@@ -199,7 +201,7 @@ __device__ int expand(const Search& s, int cur, int lane) {
   return __popc(mask);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads)
 astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict__ penalty,
              const int* __restrict__ start, const int* __restrict__ goals,
              const unsigned char* __restrict__ goals_valid, const float* __restrict__ cache_in,
@@ -207,12 +209,11 @@ astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict
              float* __restrict__ cache_out, int* __restrict__ stats, int rows, int cols,
              int k_goals, Params p) {
   extern __shared__ uint4 smem4[];
-  __shared__ unsigned long long scratch[2][kMaxWarps];
+  __shared__ unsigned long long scratch[2][kWarps];
   const int n = rows * cols;
   const int n4 = static_cast<int>(round_up4(n));
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int nwarps = nthreads >> 5;
+  constexpr int nthreads = kThreads;
   const int lane = tid & 31;
   const int b = blockIdx.x;
 
@@ -297,8 +298,7 @@ astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict
         __syncthreads();
         unsigned long long best = sc2[0];
 #pragma unroll
-        for (int w = 1; w < kMaxWarps; ++w)
-          if (w < nwarps) best = sc2[w] < best ? sc2[w] : best;
+        for (int w = 1; w < kWarps; ++w) best = sc2[w] < best ? sc2[w] : best;
         if (static_cast<unsigned>(best >> 32) >= kInfBits) break;  // open set exhausted
         ++pops;
         const int cur = static_cast<int>(best & 0xffffffffu);
@@ -360,16 +360,14 @@ extern "C" int astar_shared_cap(int device) {
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
       cudaSuccess)
     return -1;
-  return optin - static_cast<int>(2 * kMaxWarps * sizeof(unsigned long long));
+  return optin - static_cast<int>(2 * kWarps * sizeof(unsigned long long));
 }
 
 // walkable (B, R, C) u8, penalty (B, R, C) f32, start (B, 2) i32, goals
 // (B, K, 2) i32, goals_valid (B, K) u8, cache_in (B, 1226) f32 -> cells
 // (B, K, L, 2) i32 (-1 padded), lengths (B, K) i32, costs (B, K) f32,
 // cache_out (B, 1226) f32, stats (B, K, 2) i32 (pops, relaxations); all
-// pointers on card `device`. `threads` is the block size, a multiple of 32
-// up to 256, or 0 for 256: the pop's scan is one 128-bit load for four
-// cells, so 256 threads cover 1024 cells in one load each. Returns the
+// pointers on card `device`. Returns the
 // cudaError_t of the launch (0 on success); launches on `stream`, does not
 // synchronise. This library carries its own CUDA runtime, so the card is set
 // here when it is not the current one, and the kernel's shared-memory limit
@@ -380,7 +378,7 @@ extern "C" int astar_launch(const unsigned char* walkable, const float* penalty,
                             float* cache_out, int* stats, int batch, int rows, int cols,
                             int k_goals, int max_len, float grid, float grace_deg, float exponent,
                             float denominator, float penalty_w, float angle_w, int store_radians,
-                            int threads, int device, void* stream) {
+                            int device, void* stream) {
   constexpr int kMaxDevices = 64;
   static long long configured[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
@@ -395,12 +393,8 @@ extern "C" int astar_launch(const unsigned char* walkable, const float* penalty,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[device] = smem;
   }
-  if (threads == 0) threads = kMaxThreads;
-  if (threads < 32 || threads > kMaxThreads || threads % 32) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
   const Params p{grid, grace_deg, exponent, denominator, penalty_w, angle_w, store_radians, max_len};
-  astar_kernel<<<batch, threads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  astar_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       walkable, penalty, start, goals, goals_valid, cache_in, cells, lengths, costs, cache_out,
       stats, rows, cols, k_goals, p);
   return static_cast<int>(cudaGetLastError());

@@ -40,6 +40,7 @@ launches = 0
 _lib = None
 build_log = ""
 build_seconds = 0.0
+compiled = False       # False when build() reused an earlier build's library
 
 
 def reset_launches() -> None:
@@ -49,15 +50,16 @@ def reset_launches() -> None:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source and flags) and load the kernel library."""
-    global _lib, build_log, build_seconds
+    global _lib, build_log, build_seconds, compiled
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    lib_path, build_log = compile_shared(nvcc(), NVCC_FLAGS, SOURCE, "astar")
+    lib_path, build_log, compiled = compile_shared(
+        nvcc(), NVCC_FLAGS, SOURCE, "astar")
     lib = ctypes.CDLL(str(lib_path))
     lib.astar_launch.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 6
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.astar_launch.restype = ctypes.c_int
     lib.astar_shared_bytes.argtypes = [ctypes.c_int] * 2
     lib.astar_shared_bytes.restype = ctypes.c_longlong
@@ -91,8 +93,7 @@ def astar_paths_cuda(walkable: torch.Tensor, penalty: torch.Tensor,
                      angle_exponent: float = 1.5,
                      angle_denominator: float = 90.0,
                      penalty_weight: float = 0.5, angle_weight: float = 1.5,
-                     replicate_radians_cache_bug: bool = True,
-                     block_threads: int | None = None):
+                     replicate_radians_cache_bug: bool = True):
     """walkable (B, R, C) bool, penalty (B, R, C) f32, start_rc (B, 2) int,
     goals_rc (B, K, 2) int, goals_valid (B, K) bool, cache (B, 1226) f32 ->
     (cells (B, K, L, 2) int32 -1 padded, lengths (B, K) int32, costs (B, K)
@@ -101,9 +102,7 @@ def astar_paths_cuda(walkable: torch.Tensor, penalty: torch.Tensor,
 
     Each stream searches its K goals in order with its cache carried from
     goal to goal; invalid goals are skipped (length 0, cost inf) and leave
-    the cache alone. Nothing is read back to the host. ``block_threads``
-    (a multiple of 32 up to 256) overrides the block size of 256; it exists
-    so that the choice can be measured."""
+    the cache alone. Nothing is read back to the host."""
     global launches
     dev = walkable.device
     if walkable.dim() != 3:
@@ -172,8 +171,7 @@ def astar_paths_cuda(walkable: torch.Tensor, penalty: torch.Tensor,
         cache_out.data_ptr(), stats.data_ptr(), b, rows, cols, k_goals,
         max_len, float(grid_size), float(angle_grace_deg),
         float(angle_exponent), float(angle_denominator), float(penalty_weight),
-        float(angle_weight), int(replicate_radians_cache_bug),
-        block_threads or 0, index,
+        float(angle_weight), int(replicate_radians_cache_bug), index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"A* kernel launch failed: cudaError {err}")

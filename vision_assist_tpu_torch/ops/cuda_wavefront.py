@@ -42,6 +42,7 @@ launches = 0
 _lib = None
 build_log = ""
 build_seconds = 0.0
+compiled = False       # False when build() reused an earlier build's library
 
 
 def reset_launches() -> None:
@@ -51,11 +52,12 @@ def reset_launches() -> None:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source and flags) and load the kernel library."""
-    global _lib, build_log, build_seconds
+    global _lib, build_log, build_seconds, compiled
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    lib_path, build_log = compile_shared(nvcc(), NVCC_FLAGS, SOURCE, "relax")
+    lib_path, build_log, compiled = compile_shared(
+        nvcc(), NVCC_FLAGS, SOURCE, "relax")
     lib = ctypes.CDLL(str(lib_path))
     lib.relax_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]

@@ -27,10 +27,11 @@ _lock = threading.Lock()
 _lib = None
 _build_failed = False
 build_seconds = 0.0
+compiled = False       # False when an earlier build's library was reused
 
 
 def _load():
-    global _lib, _build_failed, build_seconds
+    global _lib, _build_failed, build_seconds, compiled
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
@@ -39,7 +40,7 @@ def _load():
         try:
             if cxx is None:
                 raise RuntimeError("g++ not found")
-            lib_path, _ = compile_shared(cxx, CXX_FLAGS, SOURCE, "vaengine")
+            lib_path, _, compiled = compile_shared(cxx, CXX_FLAGS, SOURCE, "vaengine")
             lib = ctypes.CDLL(str(lib_path))
         except (RuntimeError, OSError):
             _build_failed = True

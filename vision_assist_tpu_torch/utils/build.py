@@ -31,15 +31,18 @@ def nvcc() -> str:
 
 
 def compile_shared(compiler: str, flags: list[str], source: pathlib.Path,
-                   stem: str) -> tuple[pathlib.Path, str]:
+                   stem: str) -> tuple[pathlib.Path, str, bool]:
     """``compiler flags -o <lib> source`` unless the library for this source
     and these flags is already there. Returns (library path, compiler
-    output); raises RuntimeError with that output when the compiler fails."""
+    output, whether the compiler ran); the output is kept beside the library
+    and returned again when the library is reused. Raises RuntimeError with
+    that output when the compiler fails."""
     tag = hashlib.sha256(source.read_bytes()
                          + " ".join([compiler, *flags]).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{stem}_{tag}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
-        return lib_path, ""
+        return lib_path, log_path.read_text() if log_path.exists() else "", False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
@@ -47,5 +50,6 @@ def compile_shared(compiler: str, flags: list[str], source: pathlib.Path,
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"{compiler} failed building {source}:\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, lib_path)
-    return lib_path, log
+    return lib_path, log, True
