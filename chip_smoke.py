@@ -49,17 +49,37 @@ result line:
              the frame, the cache carried from frame to frame), held as in
              phase 2; the 13 scenarios on the card against the goldens'
              answers and path cells; card against CPU.
-8. serve     StreamingServer at depth 1, 2 and 8 over 32 frames (the 8
+8. batch     the served configuration with 8 streams a step (the 8 frames as
+             8 streams, 3 steps, each stream seeing three different frames)
+             through MultiStreamProcessor.process_frames for the
+             kernel-wavefront, exact and exact_device engines: launch counts
+             zeroed before and read after, one relax launch or one A* launch
+             a step. With the bf16 flagship the occupancy cells that differ
+             from the single-stream run are counted and printed, and each
+             stream's answer, walkable cells and path cells must equal the
+             single-stream planner's on that stream's own occupancy; with
+             the model in float32 (TF32 off) each stream's answer,
+             occupancy, walkable cells and path cells must equal its
+             single-stream run. The 13 scenarios as 13 streams of one
+             process_occupancies step against the goldens for exact and
+             exact_device. Both kernels against their plain versions on the
+             batched inputs of two steps (32x32, B=8, A* caches carried).
+9. serve     StreamingServer at depth 1, 2 and 8 over 16 frames (the 8
              repeated) for the kernel-wavefront and exact_device
              configurations: results equal to the synchronous loop's, in
-             order; frames/s printed.
-9. timing    the relax kernel at the served lattice (32x32, B=1), at 32x32 B=8
+             order; frames/s printed. BatchedStreamingServer at depth 1, 2
+             and 4 over 12 steps of 8 streams for the same two: results equal
+             to the synchronous process_frames loop's, step by step;
+             aggregate frames/s printed beside the single-stream figures.
+10. timing   the relax kernel at the served lattice (32x32, B=1), at 32x32 B=8
              and at 64x36 B=13, each with its pass counts; an empty launch
              through the same wrapper; the plain twin and plain relax_sweep;
              the A* kernel at the served lattice and at 64x36 B=13 with its
-             pops and relaxations, and its plain version, whose result on the
+             pops and relaxations (also the 8 served lattices as 8 streams of
+             one launch), and its plain version, whose result on the
              timed inputs is held against the kernel's; the frame path's
-             stages, the host half of "exact" and the __call__ medians of
+             stages, the device program a step at 1, 2, 4 and 8 streams, the
+             host's I420 packer, the host half of "exact" and the __call__ medians of
              the engines. Kernel times are CUDA events over launches queued
              behind a device-side sleep, so the host's call overhead is not
              what is timed; the time of back-to-back calls from the host is
@@ -69,10 +89,15 @@ It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
 
 ``--relax-only`` stops after the relax kernel's timings (phases 1, the relax
-half of 2 and the relax lines of 9). ``--root DIR`` imports the port from
+half of 2 and the relax lines of 10). ``--root DIR`` imports the port from
 DIR instead of this checkout, to time another commit's kernel on the same
 card in the same run of a job:
 ``python3 chip_smoke.py --relax-only --root <unpacked commit>``.
+``--astar-only`` stops after the A* kernel's checks (phase 2 and the served
+lattices) and timings; ``--astar-source FILE`` builds the A* kernel from
+another source with the same C interface (another commit's
+``csrc/astar.cu``), to time it on the same inputs:
+``python3 chip_smoke.py --astar-only --astar-source <file>``.
 """
 
 from __future__ import annotations
@@ -228,6 +253,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
                     help="stop after the relax kernel's timings")
+    ap.add_argument("--astar-only", action="store_true",
+                    help="stop after the A* kernel's checks and timings")
+    ap.add_argument("--astar-source", type=pathlib.Path, default=None,
+                    help="build the A* kernel from this file instead of the "
+                         "port's csrc/astar.cu (same C interface)")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this directory instead")
     args = ap.parse_args()
@@ -265,10 +295,18 @@ def main() -> int:
             from vision_assist_tpu_torch.ops import cuda_astar
             from vision_assist_tpu_torch.pipeline.server import StreamingServer
             from vision_assist_tpu_torch.planning import device_astar, native
+        if not (args.relax_only or args.astar_only):
+            from vision_assist_tpu_torch.pipeline.multi_stream import (
+                MultiStreamProcessor,
+            )
+            from vision_assist_tpu_torch.pipeline.planner import make_plan_step
+            from vision_assist_tpu_torch.pipeline.server import BatchedStreamingServer
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
 
+    if args.astar_source is not None and not args.relax_only:
+        cuda_astar.SOURCE = args.astar_source.resolve()
     dev = torch.device("cuda")
     # float32 reference checks run in full float32 (no TF32 anywhere).
     torch.backends.cudnn.allow_tf32 = False
@@ -328,41 +366,53 @@ def main() -> int:
     astar_err, scen_inputs = 0.0, []
 
     def astar_against_plain(name, inp, cache_k, cache_p, kw):
-        """One launch of the A* kernel for one lattice against the plain
-        version on the same inputs, each from its own carried cache; raises
-        on a difference, else (cache of the kernel, cache of the plain
-        version, largest absolute error in costs and cache values, the plain
+        """One launch of the A* kernel against the plain version on the same
+        inputs, each from its own carried cache. ``inp`` is one lattice's
+        (walkable, penalty, start, goals, goals_valid) with caches (1226,),
+        or B lattices stacked with caches (B, 1226): the kernel takes them
+        in one launch, the plain version stream by stream. Raises on a
+        difference, else (cache of the kernel, cache of the plain version,
+        largest absolute error in costs and cache values, the plain
         version's milliseconds on the host's clock)."""
-        cells, lengths, costs, cache_out, stats = cuda_astar.astar_paths_cuda(
-            *(x[None] for x in inp), cache_k[None], **kw)
+        single = inp[0].dim() == 2
+        if single:
+            inp, cache_k, cache_p = [x[None] for x in inp], cache_k[None], cache_p[None]
+        cells, lengths, costs, cache_k, stats = cuda_astar.astar_paths_cuda(
+            *inp, cache_k, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref, cache_p = device_astar.device_astar_paths_plain(*inp, cache_p, **kw)
+        refs = [device_astar.device_astar_paths_plain(*(x[i] for x in inp), cache_p[i],
+                                                      **kw) for i in range(len(inp[0]))]
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        cache_k = cache_out[0]
-        valid = inp[4] & (lengths[0] > 0)
-        if not (torch.equal(cells[0], ref.cells)
-                and torch.equal(lengths[0], ref.lengths)
-                and torch.equal(valid, ref.valid)
-                and torch.equal(cache_k.isnan(), cache_p.isnan())):
-            raise AssertionError(f"A* kernel differs from its plain version on "
-                                 f"{name}: lengths {lengths[0].tolist()} vs "
-                                 f"{ref.lengths.tolist()}")
-        if not (torch.allclose(costs[0], ref.costs, rtol=1e-5, atol=0)
-                and torch.allclose(cache_k, cache_p, rtol=1e-5, atol=0,
-                                   equal_nan=True)):
-            raise AssertionError(f"A* kernel costs or cache off on {name}: "
-                                 f"{costs[0].tolist()} vs {ref.costs.tolist()}")
-        found = ref.valid
-        err = max(float((costs[0][found] - ref.costs[found]).abs().max())
-                  if found.any() else 0.0,
-                  float((cache_k - cache_p).nan_to_num().abs().max()))
-        rows, cols = inp[0].shape
-        log(f"phase kernel astar {name}: {rows}x{cols}, cells, lengths, validity "
-            f"and cache pattern equal, max abs err {err:.3g} (rtol 1e-5), goals "
-            f"{int(inp[4].sum())}, lengths {lengths[0].tolist()}, pops and "
-            f"relaxations {stats[0].tolist()}")
+        cache_p = torch.stack([c for _, c in refs])
+        err = 0.0
+        for i, (ref, _) in enumerate(refs):
+            valid = inp[4][i] & (lengths[i] > 0)
+            if not (torch.equal(cells[i], ref.cells)
+                    and torch.equal(lengths[i], ref.lengths)
+                    and torch.equal(valid, ref.valid)
+                    and torch.equal(cache_k[i].isnan(), cache_p[i].isnan())):
+                raise AssertionError(f"A* kernel differs from its plain version on "
+                                     f"{name} stream {i}: lengths {lengths[i].tolist()} "
+                                     f"vs {ref.lengths.tolist()}")
+            if not (torch.allclose(costs[i], ref.costs, rtol=1e-5, atol=0)
+                    and torch.allclose(cache_k[i], cache_p[i], rtol=1e-5, atol=0,
+                                       equal_nan=True)):
+                raise AssertionError(f"A* kernel costs or cache off on {name} stream "
+                                     f"{i}: {costs[i].tolist()} vs {ref.costs.tolist()}")
+            found = ref.valid
+            err = max(err, float((costs[i][found] - ref.costs[found]).abs().max())
+                      if found.any() else 0.0,
+                      float((cache_k[i] - cache_p[i]).nan_to_num().abs().max()))
+        b, rows, cols = inp[0].shape
+        log(f"phase kernel astar {name}: B={b} {rows}x{cols}, cells, lengths, "
+            f"validity and cache pattern equal, max abs err {err:.3g} (rtol 1e-5), "
+            f"goals {inp[4].sum(dim=1).tolist()}, lengths "
+            f"{[x[x > 0].tolist() for x in lengths]}, pops a stream "
+            f"{stats[..., 0].sum(dim=1).tolist()}")
+        if single:
+            cache_k, cache_p = cache_k[0], cache_p[0]
         return cache_k, cache_p, err, plain_ms
 
     if not args.relax_only:
@@ -445,6 +495,40 @@ def main() -> int:
             f"{cuda_ms(torch, empty, reps=200):.5f} ms per back-to-back call")
         return timed
 
+    def time_astar():
+        """The A* kernel at the served lattice (one stream, and the 8 served
+        lattices as 8 streams of one launch) and at 64x36 B=13, with the
+        cache as one pass over the same goals leaves it (the steady state of
+        a stream)."""
+        astar_timed = {}
+        for name, inp, kw in (
+                ("32x32 B=1 served", [x[None] for x in served_astar[-1]], ed_kw),
+                ("32x32 B=8 served", [torch.stack(x) for x in zip(*served_astar)], ed_kw),
+                ("64x36 B=13 scenarios", batched, astar_kw)):
+            b, rows, cols = inp[0].shape
+            warm = cuda_astar.astar_paths_cuda(
+                *inp, device_astar.empty_cache(dev).repeat(b, 1), **kw)[3]
+
+            def call(inp=inp, warm=warm, kw=kw):
+                return cuda_astar.astar_paths_cuda(*inp, warm, **kw)
+            stats = call()[4]
+            searches = int(inp[4].sum())
+            pops, relaxations = (int(v) for v in stats.sum(dim=(0, 1)))
+            bounds = astar_bounds(b, rows * cols, inp[3].shape[1], kw["max_len"],
+                                  pops, relaxations)
+            astar_timed[name] = dict(bounds, ms=cuda_ms(torch, call, reps=100, queued=True),
+                                     call_ms=cuda_ms(torch, call, reps=100), warm=warm)
+            most = int(stats[..., 0].sum(dim=1).max())
+            log(f"timing astar kernel {name}: {astar_timed[name]['ms']:.5f} ms on the "
+                f"device ({astar_timed[name]['ms'] / most * 1e3:.3f} us a pop of the "
+                f"slowest stream), {astar_timed[name]['call_ms']:.5f} ms per "
+                f"back-to-back call, {searches} searches, {pops} pops and "
+                f"{relaxations} relaxations in all (most pops in one stream {most}), "
+                f"bound {bounds['bound_ms']:.6f} ms by {bounds['bound_by']} "
+                f"({bounds['n_bytes']} B, {bounds['n_ops']} operations), one-SM bound "
+                f"{bounds['one_sm_ms']:.6f} ms; latency-bound")
+        return astar_timed
+
     def print_card():
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -454,6 +538,29 @@ def main() -> int:
 
     if args.relax_only:
         time_relax()
+        print_card()
+        return 0
+
+    # The A* kernel's inputs on the served lattices: each frame's fields and
+    # goals from the port's own plan step.
+    ed_kw = dict(grid_size=cfg.grid.grid_size, max_len=cfg.pathfinder.max_path_len)
+    served_astar = [astar_inputs(torch, cfg, seg(f).occupancy, False) for f in frames]
+
+    def served_astar_against_plain():
+        """The kernel against its plain version at the shape the frame path
+        gives it: every frame's lattice and goals, the cache carried from
+        frame to frame as the processor carries it. The largest error."""
+        cache_k = cache_p = device_astar.empty_cache(dev)
+        worst = 0.0
+        for i, inp in enumerate(served_astar):
+            cache_k, cache_p, err, _ = astar_against_plain(
+                f"served frame {i}", inp, cache_k, cache_p, ed_kw)
+            worst = max(worst, err)
+        return worst
+
+    if args.astar_only:
+        served_astar_against_plain()
+        time_astar()
         print_card()
         return 0
 
@@ -560,25 +667,28 @@ def main() -> int:
                 raise AssertionError(f"{label} frame {i}: bad result {res!r}")
         return out, ms
 
+    def assert_golden(label, name, res, with_peaks):
+        """One scenario's result against its stored golden."""
+        gold = json.loads((REPO / "tests" / "fixtures" / "goldens"
+                           / f"{name}.json").read_text())
+        same = res.final_answer == gold["final_answer"] and \
+            [[list(rc) for rc in p] for p in path_cells(res)] == \
+            [gp["cells_rc"] for gp in gold["paths"]]
+        if with_peaks:
+            same = same and [[pk.centre.x, pk.centre.y] for pk in res.peaks] \
+                == [gp["centre"] for gp in gold["peaks"]]
+        if not same:
+            raise AssertionError(f"{label} {name}: differs from its golden "
+                                 f"({res.final_answer} vs {gold['final_answer']})")
+
     def check_goldens(engine, with_peaks):
         """process_occupancy on the card against the stored goldens."""
         pfc = PathFinderConfig(engine=engine)
         for name, occ in scen:
             proc = FrameProcessor(replay_config().replace(pathfinder=pfc),
                                   replay_rounding=True, device=dev)
-            res = proc.process_occupancy(occ, now_ms=0)
-            gold = json.loads((REPO / "tests" / "fixtures" / "goldens"
-                               / f"{name}.json").read_text())
-            same = res.final_answer == gold["final_answer"] and \
-                [[list(rc) for rc in p] for p in path_cells(res)] == \
-                [gp["cells_rc"] for gp in gold["paths"]]
-            if with_peaks:
-                same = same and [[pk.centre.x, pk.centre.y] for pk in res.peaks] \
-                    == [gp["centre"] for gp in gold["peaks"]]
-            if not same:
-                raise AssertionError(f"{engine} replay {name}: differs from its "
-                                     f"golden ({res.final_answer} vs "
-                                     f"{gold['final_answer']})")
+            assert_golden(f"{engine} replay", name,
+                          proc.process_occupancy(occ, now_ms=0), with_peaks)
 
     # -- 6. the default engine: fields on the card, the native A* on the host -------------
     exact_pf = PathFinderConfig()
@@ -618,17 +728,7 @@ def main() -> int:
             f"exact_device: only {same_as_exact} of {N_FRAMES} frames equal to "
             f"engine exact's; occupancy cells differing "
             f"{[int((a.occupancy != b.occupancy).sum()) for a, b in zip(ed_res, exact_res)]}")
-    # The kernel against its plain version at the shape this path gives it:
-    # every frame's lattice and goals, the cache carried from frame to frame
-    # as the processor carries it.
-    ed_kw = dict(grid_size=cfg.grid.grid_size, max_len=cfg.pathfinder.max_path_len)
-    cache_k = cache_p = device_astar.empty_cache(dev)
-    served_err = 0.0
-    for i, frame in enumerate(frames):
-        inp = astar_inputs(torch, cfg, seg(frame).occupancy, False)
-        cache_k, cache_p, err, _ = astar_against_plain(
-            f"served frame {i}", inp, cache_k, cache_p, ed_kw)
-        served_err = max(served_err, err)
+    served_err = served_astar_against_plain()
     astar_err = max(astar_err, served_err)
     check_goldens("exact_device", with_peaks=False)
     replay_card_vs_cpu(ed_pf)
@@ -639,8 +739,140 @@ def main() -> int:
         f"median latency {statistics.median(ed_lat):.3f} ms; replay of {len(scen)} scenarios on "
         "the card equal to the goldens (answer, path cells) and to the CPU")
 
-    # -- 8. depth-N serving against the synchronous loop ---------------------------------------
-    served_frames = list(frames) * 4
+    # -- 8. the batched multi-stream path: S streams a step, one launch a kernel ------------
+    n_streams, n_steps = N_FRAMES, 3
+    # Step j gives stream s frame (s + j) mod 8: every stream sees three
+    # different frames, so its cache and its instruction memory carry.
+    steps = [np.stack([frames[(s + j) % N_FRAMES] for s in range(n_streams)])
+             for j in range(n_steps)]
+    seg32 = fp32_card.segmenter
+    batch_launches = {}
+    for label, pfc in (("wavefront_kernel", cfg.pathfinder), ("exact", exact_pf),
+                       ("exact_device", ed_pf)):
+        bcfg = cfg.replace(pathfinder=pfc, num_streams=n_streams)
+        MultiStreamProcessor(bcfg, segmenter=seg, device=dev).process_frames(
+            steps[0], now_ms=0)                  # a batch of 8: cuDNN's first call
+        msp = MultiStreamProcessor(bcfg, segmenter=seg, device=dev)
+        torch.cuda.synchronize()
+        cuda_wavefront.reset_launches()
+        cuda_astar.reset_launches()
+        t0 = time.perf_counter()
+        stepped = [msp.process_frames(step, now_ms=1000 + j * 33)
+                   for j, step in enumerate(steps)]
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        got = (cuda_wavefront.launches, cuda_astar.launches)
+        want = {"wavefront_kernel": (n_steps, 0), "exact": (0, 0),
+                "exact_device": (0, n_steps)}[label]
+        if got != want:
+            raise AssertionError(f"batch {label}: (relax, A*) launches {got} in "
+                                 f"{n_steps} steps of {n_streams} streams, not {want}")
+        batch_launches[label] = got
+        if label == "exact_device" and not torch.isfinite(
+                msp._stream_caches).any(dim=1).all():
+            raise AssertionError("batch exact_device: a stream's cache is still empty")
+        msp.close()
+        # bf16: a batch of 8 through the convolutions need not give the
+        # logits of 8 batches of 1, so a cell at the threshold may flip. Count
+        # those cells against the single-stream run, and hold each stream's
+        # plan and answer to the single-stream planner on that stream's OWN
+        # batched occupancy (instruction memory and cache carried a stream).
+        on_frames = [FrameProcessor(cfg.replace(pathfinder=pfc), segmenter=seg,
+                                    device=dev) for _ in range(n_streams)]
+        on_occupancy = [FrameProcessor(cfg.replace(pathfinder=pfc), device=dev)
+                        for _ in range(n_streams)]
+        differing = []
+        for j, results in enumerate(stepped):
+            for st, res in enumerate(results):
+                if res.final_answer not in ANSWERS or res.n_detections == 0:
+                    raise AssertionError(f"batch {label} step {j} stream {st}: bad "
+                                         f"result {res.final_answer!r}, detections "
+                                         f"{res.n_detections}")
+                single = on_frames[st](steps[j][st], now_ms=1000 + j * 33)
+                differing.append(int((res.occupancy != single.occupancy).sum()))
+                own = on_occupancy[st].process_occupancy(res.occupancy,
+                                                         now_ms=1000 + j * 33)
+                if own.final_answer != res.final_answer \
+                        or path_cells(own) != path_cells(res) \
+                        or not np.array_equal(own.walkable, res.walkable):
+                    raise AssertionError(
+                        f"batch {label} step {j} stream {st}: {res.final_answer} "
+                        f"{path_cells(res)} vs the single-stream planner on the "
+                        f"same occupancy {own.final_answer} {path_cells(own)}")
+        # float32 (TF32 off): every stream equal to its single-stream run.
+        msp32 = MultiStreamProcessor(bcfg, segmenter=seg32, device=dev)
+        singles32 = [FrameProcessor(cfg.replace(pathfinder=pfc), segmenter=seg32,
+                                    device=dev) for _ in range(n_streams)]
+        for j, step in enumerate(steps[:2]):
+            for st, res in enumerate(msp32.process_frames(step, now_ms=j * 33)):
+                single = singles32[st](step[st], now_ms=j * 33)
+                if res.final_answer != single.final_answer \
+                        or not np.array_equal(res.occupancy, single.occupancy) \
+                        or not np.array_equal(res.walkable, single.walkable) \
+                        or path_cells(res) != path_cells(single):
+                    raise AssertionError(
+                        f"batch {label} float32 step {j} stream {st}: "
+                        f"{res.final_answer} vs single-stream {single.final_answer}, "
+                        f"{int((res.occupancy != single.occupancy).sum())} occupancy "
+                        "cells differ")
+        msp32.close()
+        log(f"phase batch {label}: ok, {n_steps} steps of {n_streams} streams, relax "
+            f"launches {got[0]}, A* launches {got[1]}, {step_ms:.3f} ms a step "
+            f"({step_ms / n_streams:.3f} ms a frame); bf16 occupancy cells differing "
+            f"from the single-stream run a stream and step {differing} (of "
+            f"{h // 20 * (w // 20)}), plan and answer equal to the single-stream "
+            f"planner on each stream's own occupancy; float32: answer, occupancy, "
+            f"walkable and path cells equal to single-stream on {2 * n_streams} "
+            f"stream-steps; answers of the last step "
+            f"{[r.final_answer for r in stepped[-1]]}")
+
+    # The 13 scenarios as 13 streams of one step, against the goldens.
+    occ13 = np.stack([o for _, o in scen])
+    for engine in ("exact", "exact_device"):
+        msp = MultiStreamProcessor(
+            replay_config().replace(pathfinder=PathFinderConfig(engine=engine),
+                                    num_streams=len(scen)),
+            replay_rounding=True, device=dev)
+        cuda_astar.reset_launches()
+        replayed = msp.process_occupancies(occ13, now_ms=0)
+        msp.close()
+        if cuda_astar.launches != (engine == "exact_device"):
+            raise AssertionError(f"batch replay {engine}: {cuda_astar.launches} A* "
+                                 "launches for one step")
+        for (name, _), res in zip(scen, replayed):
+            assert_golden(f"batch replay {engine}", name, res, engine == "exact")
+    log(f"phase batch replay: {len(scen)} scenarios as {len(scen)} streams of one step "
+        "equal to the goldens for exact (answer, peak centres, path cells) and "
+        "exact_device (answer, path cells; one A* launch)")
+
+    # Both kernels against their plain versions on the inputs the batched
+    # path gives them: 8 streams of 32x32 in one launch, two steps so that
+    # the A* caches carry.
+    plan8 = make_plan_step(cfg.replace(pathfinder=exact_pf), include_paths=False)
+    cache_k = cache_p = device_astar.empty_cache(dev).repeat(n_streams, 1)
+    batch_err = 0.0
+    for j, step in enumerate(steps[:2]):
+        pr = plan8(seg(torch.from_numpy(step)).occupancy)
+        enter8 = enter_cost(pr.walkable, pr.penalty, cfg.grid.grid_size,
+                            cfg.pathfinder.penalty_weight)
+        got8, passes8 = cuda_wavefront.relax_field_cuda(enter8, pr.start_rc, turn)
+        ref8, _ = relax_field(enter8, pr.start_rc, turn)
+        if not torch.equal(got8, ref8):
+            raise AssertionError(f"relax kernel differs from its twin on batch step {j}")
+        max_abs_err = max(max_abs_err, float((got8 - ref8).abs().max()))
+        goals8 = wavefront.closest_walkable_cell(
+            pr.walkable, torch.stack([pr.peaks.centre_x, pr.peaks.centre_y], dim=-1),
+            cfg.grid.grid_size)
+        cache_k, cache_p, err, _ = astar_against_plain(
+            f"batch step {j}", (pr.walkable, pr.penalty, pr.start_rc, goals8,
+                                pr.peaks.valid), cache_k, cache_p, ed_kw)
+        batch_err = max(batch_err, err)
+        log(f"phase batch kernels step {j}: relax B={n_streams} 32x32 bit-equal to "
+            f"its twin (passes {passes8.tolist()}), A* against its plain version max "
+            f"abs err {err:.3g}")
+    astar_err = max(astar_err, batch_err)
+
+    # -- 9. depth-N serving against the synchronous loop ---------------------------------------
+    served_frames = list(frames) * 2
     fps = {}
     for label, pfc in (("wavefront_kernel", cfg.pathfinder), ("exact_device", ed_pf)):
         def guidance(results):
@@ -665,7 +897,40 @@ def main() -> int:
             f"{fps[label, 'sync']:.3f}, depth 1 {fps[label, 1]:.3f}, depth 2 "
             f"{fps[label, 2]:.3f}, depth 8 {fps[label, 8]:.3f}")
 
-    # -- 9. timing ----------------------------------------------------------------------
+        # The batched server: 12 steps of 8 streams (step j gives stream s
+        # frame (s + j) mod 8) at depth 1, 2, 4 against the synchronous loop.
+        served_steps = [np.stack([frames[(st + j) % N_FRAMES]
+                                  for st in range(n_streams)]) for j in range(12)]
+        n_served = len(served_steps) * n_streams
+        bcfg = cfg.replace(pathfinder=pfc, num_streams=n_streams)
+        msp = MultiStreamProcessor(bcfg, segmenter=seg, device=dev)
+        t0 = time.perf_counter()
+        sync = [guidance(msp.process_frames(step, now_ms=j * 33))
+                for j, step in enumerate(served_steps)]
+        fps[label, "batched sync"] = n_served / (time.perf_counter() - t0)
+        msp.close()
+        for depth in (1, 2, 4):
+            server = BatchedStreamingServer(
+                MultiStreamProcessor(bcfg, segmenter=seg, device=dev), depth=depth)
+            t0 = time.perf_counter()
+            got = []
+            for j, step in enumerate(served_steps):
+                got.extend(server.feed(step, now_ms=j * 33))
+            got.extend(server.drain())
+            fps[label, "batched", depth] = n_served / (time.perf_counter() - t0)
+            server.msp.close()
+            if [guidance(step) for step in got] != sync or server.in_flight:
+                raise AssertionError(f"serve batched {label} depth {depth}: results "
+                                     "differ from the synchronous loop's")
+        log(f"phase serve batched {label}: {len(served_steps)} steps of {n_streams} "
+            f"streams, results equal to the synchronous process_frames loop's in "
+            f"order at depth 1, 2, 4; aggregate frames/s sync "
+            f"{fps[label, 'batched sync']:.3f}, depth 1 {fps[label, 'batched', 1]:.3f}"
+            f", depth 2 {fps[label, 'batched', 2]:.3f}, depth 4 "
+            f"{fps[label, 'batched', 4]:.3f} (one stream: sync "
+            f"{fps[label, 'sync']:.3f}, depth 2 {fps[label, 2]:.3f})")
+
+    # -- 10. timing ----------------------------------------------------------------------
     timed = time_relax()
     main_shape = timed[shapes[0][0]]
     plain_ms = cuda_ms(torch, lambda: relax_field(*served, turn), reps=5, warmup=1)
@@ -691,41 +956,35 @@ def main() -> int:
     }
     for name, fn in stages.items():
         log(f"timing stage {name}: {cuda_ms(torch, fn, reps=10, warmup=2):.3f} ms")
+    planes = torch.from_numpy(np.stack([bgr_to_i420_host(f) for f in frames])).to(dev)
+    for label, proc in (("wavefront kernel", fp), ("exact_device", fp_ed)):
+        proc._ensure_program()
+        caches = device_astar.empty_cache(dev).repeat(N_FRAMES, 1)
+        per_step = {}
+        for n in (1, 2, 4, 8):
+            def step(n=n, proc=proc):
+                if proc._astar_cache is None:
+                    return proc._device_fn(planes[:n])
+                return proc._device_fn(planes[:n], caches[:n])
+            per_step[n] = cuda_ms(torch, step, reps=10, warmup=2)
+        log(f"timing device program {label}, ms a step (ms a frame) at S streams: "
+            + ", ".join(f"S={n} {ms:.3f} ({ms / n:.3f})" for n, ms in per_step.items()))
+    t0 = time.perf_counter()
+    for f in frames:
+        bgr_to_i420_host(f)
+    log(f"timing host I420 packer: {(time.perf_counter() - t0) * 1e3 / N_FRAMES:.3f} "
+        "ms a frame")
     handle = fp.submit_frame(frames[-1])
-    handle.done.synchronize()
+    handle.payload()
     t0 = time.perf_counter()
     for i in range(10):
-        payload = fp._unpack(handle.host.numpy())
+        payload = fp._unpack(handle.payload())
         fp._paths_from_arrays(payload.walkable, payload.artificial, payload.peaks,
                               payload.penalty, payload.paths)
     log(f"timing stage host_half: {(time.perf_counter() - t0) * 100:.3f} ms")
 
-    # The A* kernel, with the cache as one pass over the same goals leaves it
-    # (the steady state of a stream), and its plain version on the same inputs.
-    served_in = astar_inputs(torch, cfg, seg_res.occupancy, False)
-    astar_timed = {}
-    for name, inp, kw in (("32x32 B=1 served", [x[None] for x in served_in], ed_kw),
-                          ("64x36 B=13 scenarios", batched, astar_kw)):
-        b, rows, cols = inp[0].shape
-        warm = cuda_astar.astar_paths_cuda(
-            *inp, device_astar.empty_cache(dev).repeat(b, 1), **kw)[3]
-
-        def call(inp=inp, warm=warm, kw=kw):
-            return cuda_astar.astar_paths_cuda(*inp, warm, **kw)
-        stats = call()[4]
-        searches = int(inp[4].sum())
-        pops, relaxations = (int(v) for v in stats.sum(dim=(0, 1)))
-        bounds = astar_bounds(b, rows * cols, inp[3].shape[1], kw["max_len"],
-                              pops, relaxations)
-        astar_timed[name] = dict(bounds, ms=cuda_ms(torch, call, reps=100, queued=True),
-                                 call_ms=cuda_ms(torch, call, reps=100), warm=warm)
-        log(f"timing astar kernel {name}: {astar_timed[name]['ms']:.5f} ms on the "
-            f"device, {astar_timed[name]['call_ms']:.5f} ms per back-to-back call, "
-            f"{searches} searches, {pops} pops and {relaxations} relaxations in all "
-            f"(most pops in one stream {int(stats[..., 0].sum(dim=1).max())}), bound "
-            f"{bounds['bound_ms']:.6f} ms by {bounds['bound_by']} "
-            f"({bounds['n_bytes']} B, {bounds['n_ops']} operations), one-SM bound "
-            f"{bounds['one_sm_ms']:.6f} ms; latency-bound")
+    served_in = served_astar[-1]
+    astar_timed = time_astar()
     astar_main = astar_timed["32x32 B=1 served"]
     # The timed launch itself (served lattice, warm cache) against the plain
     # version, which is timed in the same comparison.
@@ -736,8 +995,7 @@ def main() -> int:
     log(f"timing astar plain version 32x32 B=1 on the card: {astar_plain_ms:.3f} ms")
 
     handle = fp_exact.submit_frame(frames[-1])
-    handle.done.synchronize()
-    payload = fp_exact._unpack(handle.host.numpy())
+    payload = fp_exact._unpack(handle.payload())
     t0 = time.perf_counter()
     for i in range(10):
         fp_exact._host_penalty(payload.walkable)
@@ -745,7 +1003,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for i in range(10):
         fp_exact._paths_from_arrays(
-            fp_exact._unpack(handle.host.numpy()).walkable, payload.artificial,
+            fp_exact._unpack(handle.payload()).walkable, payload.artificial,
             payload.peaks, None, None)
     log(f"timing stage host_half exact: {(time.perf_counter() - t0) * 100:.3f} ms "
         f"(float64 penalty {pen_ms:.3f} ms of it; the rest is the native A*, "
@@ -763,6 +1021,7 @@ def main() -> int:
         "source": "vision_assist_tpu_torch/csrc/relax.cu",
         "replaces": "vision_assist_tpu/ops/pallas_wavefront.py:121",
         "launches": launches,
+        "launches_batch": batch_launches["wavefront_kernel"][0],
         "max_abs_err": max_abs_err,
         "ms": main_shape["ms"],
         "plain_ms": plain_ms,
@@ -777,6 +1036,7 @@ def main() -> int:
         "source": "vision_assist_tpu_torch/csrc/astar.cu",
         "replaces": "vision_assist_tpu/planning/device_astar.py:77",
         "launches": astar_launches,
+        "launches_batch": batch_launches["exact_device"][1],
         "max_abs_err": astar_err,
         "ms": astar_main["ms"],
         "plain_ms": astar_plain_ms,

@@ -220,14 +220,42 @@ def test_cpu_wrapper_runs_plain_version_and_counts_no_launch(searched):
 
 # -- the kernel's algorithm, emulated in numpy float32 ---------------------------------
 
+def _window_key(h):
+    """csrc/astar.cu window_key: the cache key of the window a node adds,
+    from the last six moves of its path, or None without an angle."""
+    dr, dc = (0, 0, 1, -1), (1, -1, 0, 0)
+    m1, m2, m4, m5, m6 = (h >> s & 3 for s in (0, 2, 6, 8, 10))
+    nxt_dc, nxt_dr = dc[m1] + dc[m2], dr[m1] + dr[m2]
+    prev_dc, prev_dr = dc[m4] + dc[m5] + dc[m6], dr[m4] + dr[m5] + dr[m6]
+    if prev_dc ** 2 + prev_dr ** 2 == 0 or nxt_dc ** 2 + nxt_dr ** 2 == 0:
+        return None
+    return device_astar._cache_key(prev_dc, prev_dr, nxt_dc, nxt_dr)
+
+
+def _key_vectors(key):
+    """csrc/astar.cu window_radians: the two vectors back from a key."""
+    return key // 175 - 3, key // 25 % 7 - 3, key // 5 % 5 - 2, key % 5 - 2
+
+
 def _emulate_kernel(walk, pen, start, goals, valid, cache, bug=True, g=20.0,
-                    grace=30.0, exponent=1.5, den=90.0, pw=0.5, aw=1.5):
+                    grace=30.0, exponent=1.5, den=90.0, pw=0.5, aw=1.5,
+                    segments=False):
     """csrc/astar.cu step for step: column-major state, (bits(f), t) pop key,
     the last six moves of a node's path in ``hist`` (2 bits a move, newest
     lowest), and the window maximum built from the parent's (``mbase``) and
-    ONE new window a node, whose key is arithmetic on ``hist``."""
+    ONE new window a node, whose key is arithmetic on ``hist``.
+
+    With ``segments`` the pop is the kernel's: the open set in at most 32
+    segments of 128 << s cells, the least (key, t) of segment j kept by lane
+    j; a pop takes the least of the 32, reads the popped node's segment
+    again, and hands each pushed key to the lane that owns it. Every pop is
+    held against the argmin over the whole open set."""
     rows, cols = walk.shape
     n = rows * cols
+    shift = 7
+    while (32 << shift) < n:
+        shift += 1
+    none = np.uint64(2 ** 64 - 1)
     cache = cache.astype(F).copy()
     k_goals = len(goals)
     cells = np.full((k_goals, MAX_LEN, 2), -1, np.int32)
@@ -253,15 +281,26 @@ def _emulate_kernel(walk, pen, start, goals, valid, cache, bug=True, g=20.0,
         gs[st], fo[st], opn[st], plen[st] = 0, heur(st), True, 1
         pops = relax = 0
         found = False
+
+        def open_keys():
+            return np.where(opn, (fo.view(np.uint32).astype(np.uint64) << np.uint64(32))
+                            | np.arange(n, dtype=np.uint64), none)
+
+        lane_min = np.full(32, none)
+        lane_min[st >> shift] = open_keys()[st]
         while opn.any():
-            keys = np.where(opn, (fo.view(np.uint32).astype(np.uint64) << np.uint64(32))
-                            | np.arange(n, dtype=np.uint64), np.uint64(2 ** 64 - 1))
+            keys = open_keys()
             cur = int(np.argmin(keys))
+            if segments:
+                assert lane_min.min() == keys[cur], (pops, cur)
+                cur = int(lane_min.min() & np.uint64(0xffffffff))
             pops += 1
             if cur == gt:
                 found = True
                 break
             opn[cur], closed[cur] = False, True
+            owner = cur >> shift
+            lane_min[owner] = open_keys()[owner << shift:(owner + 1) << shift].min()
             if not (walk_t[cur] or cur == st):
                 continue
             cc, cr = divmod(cur, rows)
@@ -272,17 +311,15 @@ def _emulate_kernel(walk, pen, start, goals, valid, cache, bug=True, g=20.0,
             m, h = int(plen[cur]), int(hist[cur])
             ma_first = ma_rest = F(0)
             if m >= 7:
-                m1, m2, m4, m5, m6 = (h >> s & 3 for s in (0, 2, 6, 8, 10))
-                nxt_dc, nxt_dr = dc[m1] + dc[m2], dr[m1] + dr[m2]
-                prev_dc, prev_dr = dc[m4] + dc[m5] + dc[m6], dr[m4] + dr[m5] + dr[m6]
                 base = mbase[cur]
-                mp = np.sqrt(F(prev_dc * prev_dc + prev_dr * prev_dr))
-                mn = np.sqrt(F(nxt_dc * nxt_dc + nxt_dr * nxt_dr))
                 ma_first = ma_rest = base
-                if mp > 0 and mn > 0:
-                    key = device_astar._cache_key(prev_dc, prev_dr, nxt_dc, nxt_dr)
+                key = _window_key(h)
+                if key is not None:
                     first = rest = cache[key]
                     if np.isnan(first):
+                        prev_dc, prev_dr, nxt_dc, nxt_dr = _key_vectors(key)
+                        mp = np.sqrt(F(prev_dc * prev_dc + prev_dr * prev_dr))
+                        mn = np.sqrt(F(nxt_dc * nxt_dc + nxt_dr * nxt_dr))
                         cosv = np.clip(F(prev_dc * nxt_dc + prev_dr * nxt_dr) / (mp * mn),
                                        F(-1), F(1))
                         rad = np.arccos(F(cosv))
@@ -305,6 +342,8 @@ def _emulate_kernel(walk, pen, start, goals, valid, cache, bug=True, g=20.0,
                     hist[nt] = (h << 2 | d) & 0xfff
                     if not opn[nt]:
                         fo[nt], opn[nt] = F(tent + heur(nt)), True
+                        lane_min[nt >> shift] = min(lane_min[nt >> shift],
+                                                    open_keys()[nt])
         stats[k] = (pops, relax)
         if found and plen[gt] <= MAX_LEN:
             t = gt
@@ -327,6 +366,42 @@ def test_kernel_rule_emulation_equals_plain_version(searched, name):
     np.testing.assert_allclose(costs, tb.costs.numpy(), rtol=1e-5)
     np.testing.assert_array_equal(np.isnan(cache), np.isnan(tcache.numpy()))
     np.testing.assert_allclose(cache, tcache.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["insane_case", "two_global_peaks", "random0",
+                                  "random3", "obstacle_ahead"])
+def test_kernel_segment_minima_pop_the_open_sets_argmin(searched, name):
+    """The kernel's open set: 32 lane minima over segments, kept by one
+    rescan and at most four hand-offs a pop, give the pop sequence of the
+    argmin over the whole open set (asserted at every pop), so the result is
+    the plain version's."""
+    inp, tb, tcache, counts = searched(name)
+    cells, lengths, _, cache, stats = _emulate_kernel(
+        *inp, np.ones(len(inp[3]), bool), device_astar.empty_cache().numpy(),
+        segments=True)
+    np.testing.assert_array_equal(cells, tb.cells.numpy())
+    np.testing.assert_array_equal(lengths, tb.lengths.numpy())
+    assert stats.tolist() == [list(c) for c in counts]
+    np.testing.assert_array_equal(np.isnan(cache), np.isnan(tcache.numpy()))
+
+
+def test_kernel_window_key_table():
+    """The key of the window a node adds is a function of its last six moves
+    (12 bits of ``hist``), which the kernel tabulates; the key's arithmetic
+    inverts to the two vectors, from which a fresh angle is computed."""
+    dr, dc = (0, 0, 1, -1), (1, -1, 0, 0)
+    seen = set()
+    for h in range(1 << 12):
+        key = _window_key(h)
+        if key is None:
+            continue
+        assert 0 <= key < device_astar.CACHE_SIZE - 1
+        m = [h >> s & 3 for s in (0, 2, 4, 6, 8, 10)]
+        vectors = (dc[m[3]] + dc[m[4]] + dc[m[5]], dr[m[3]] + dr[m[4]] + dr[m[5]],
+                   dc[m[0]] + dc[m[1]], dr[m[0]] + dr[m[1]])
+        assert _key_vectors(key) == vectors
+        seen.add(key)
+    assert len(seen) > 100
 
 
 @pytest.mark.parametrize("bug", [True, False], ids=["radians_bug", "degrees"])

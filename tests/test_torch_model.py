@@ -151,3 +151,65 @@ def test_segmenter_random_init_is_seeded():
 
     assert torch.equal(weights(0), weights(0))
     assert not torch.equal(weights(0), weights(1))
+
+
+# -- the stream dimension -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("what", ["model", "frame_chain"])
+def test_batched_equals_stack_of_singles(what):
+    """Three different frames as one batch against the three on their own,
+    float32 on the CPU. The chain after the model is held bit for bit, on the
+    model's batched outputs; the model itself (one batch of 3 through the
+    convolutions against three batches of 1) within 1e-5 of the largest
+    logit, because the convolution library may pick another algorithm for
+    another batch size."""
+    from test_torch_ops import assert_batched_equals_singles
+    from vision_assist_tpu_torch.config import ModelConfig
+    from vision_assist_tpu_torch.models import decode
+    from vision_assist_tpu_torch.models.inference import Segmenter
+    from vision_assist_tpu_torch.ops.letterbox import (
+        letterbox,
+        sample_mask_logits_at_points,
+    )
+    from vision_assist_tpu_torch.utils.streams import stream
+
+    def _heads(o):
+        return [*o.box_logits, *o.cls_logits, *o.coeffs, o.protos]
+
+    cfg = ModelConfig(imgsz=64, dtype="float32", conf_threshold=0.3)
+    seg = Segmenter(cfg, generator=torch.Generator().manual_seed(3),
+                    example_hw=(320, 240), device="cpu")
+    frames = np.full((3, 320, 240, 3), 30, np.uint8)
+    for i in range(3):
+        frames[i, 60 + 30 * i:310, 40 + 25 * i:140 + 25 * i] = 180
+    frames = torch.from_numpy(frames)
+    with torch.no_grad():
+        img = letterbox(frames, dst=cfg.imgsz).permute(0, 3, 1, 2)
+        outs = seg.model(img)
+        if what == "model":
+            for s in range(3):
+                single = seg.model(img[s:s + 1])
+                for a, b in zip(_heads(outs), _heads(single)):
+                    scale = float(b.abs().max())
+                    np.testing.assert_allclose(a[s].numpy(), b[0].numpy(),
+                                               atol=1e-5 * scale, rtol=0)
+            return
+        boxes, cls_logits, coeffs = decode.decode_boxes(outs, cfg.reg_max)
+
+    def after_model(boxes, cls_logits, coeffs, protos):
+        dets = decode.nms(boxes, cls_logits, coeffs,
+                          conf_threshold=cfg.conf_threshold, max_det=cfg.max_detections)
+        masks = decode.assemble_masks(protos, dets, (cfg.imgsz, cfg.imgsz))
+        return dets, masks, sample_mask_logits_at_points(
+            masks, seg._centres, dst=cfg.imgsz)
+
+    assert_batched_equals_singles(after_model,
+                                  (boxes, cls_logits, coeffs, outs.protos))
+    # The chain as a whole: a stack of 3 gives every field a stream dimension,
+    # and stream s is frame s's own result up to the model's tolerance.
+    batched = seg._frame_chain(frames)
+    assert batched.occupancy.shape == (3, 16, 12) and batched.winner.shape == (3,)
+    single = seg._frame_chain(frames[1])
+    assert single.occupancy.shape == (16, 12) and single.winner.shape == ()
+    assert torch.equal(stream(batched, 1).occupancy, single.occupancy)

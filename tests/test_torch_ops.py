@@ -243,3 +243,126 @@ def test_laplacian_variance_matches(seed):
     ref = float(jblur.laplacian_variance(jnp.asarray(frame)))
     out = float(blur.laplacian_variance(_t(frame)))
     assert out == pytest.approx(ref, rel=1e-4)
+
+
+# --- the stream dimension: a stack of S inputs equals the stack of the singles -------
+
+
+def assert_batched_equals_singles(fn, batched_args, n_streams=3):
+    """fn on stacked inputs against fn on each stream's own inputs, every
+    leaf of the result bit for bit (NaN patterns included)."""
+    from vision_assist_tpu_torch.utils.streams import map_tensors, stream
+
+    def leaves(result):
+        found = []
+        map_tensors(found.append, result)
+        return found
+
+    batched = fn(*batched_args)
+    for s in range(n_streams):
+        single = fn(*stream(batched_args, s))
+        got, ref = list(leaves(stream(batched, s))), list(leaves(single))
+        assert len(got) == len(ref) > 0
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and a.dtype == b.dtype, (s, a.shape, b.shape)
+            np.testing.assert_array_equal(
+                np.atleast_1d(a.numpy()).view(np.uint8),
+                np.atleast_1d(b.numpy()).view(np.uint8), err_msg=str(s))
+
+
+def _nms_inputs():
+    """Three streams: no candidate over the threshold, exactly one, and many
+    that overlap (so the greedy loop suppresses some)."""
+    rng = np.random.default_rng(5)
+    a = 300
+    xy = rng.uniform(0, 200, (3, a, 2)).astype(np.float32)
+    wh = rng.uniform(20, 80, (3, a, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    logits = rng.normal(-4, 1, (3, a, 2)).astype(np.float32)       # all below 0.5
+    logits[1, 17, 1] = 3.0
+    logits[2, :120] = rng.normal(1.5, 1, (120, 2))
+    coeffs = rng.normal(0, 1, (3, a, 8)).astype(np.float32)
+    return _t(boxes), _t(logits), _t(coeffs)
+
+
+def _lattices():
+    occ = np.stack([load_scenario(n) for n in
+                    ("right_turn", "insane_case", "two_global_peaks")])
+    occ[1, :, :] &= np.random.default_rng(2).random(occ.shape[1:]) < 0.9
+    return _t(occ)
+
+
+def _walkables():
+    return lattice.inject_artificial_cells(
+        _lattices(), frame_width=720, frame_height=1280)[0]
+
+
+def _batched_op_cases():
+    rng = np.random.default_rng(9)
+    frames = _t(rng.integers(0, 256, (3, 80, 60, 3), dtype=np.uint8))
+    planes = _t(np.stack([yuv.bgr_to_i420_host(f) for f in frames.numpy()]))
+    logits = _t(rng.normal(0, 2, (3, 5, 16, 16)).astype(np.float32))
+    points = _t(rng.uniform(-2, 66, (40, 2)).astype(np.float32))
+    protos = _t(rng.normal(0, 1, (3, 8, 16, 16)).astype(np.float32))
+    feet = _t(np.array([[360, 1280]] * 3))
+    goals = _t(rng.integers(0, 720, (3, 8, 2)))
+    return {
+        "i420_to_bgr": (lambda p: yuv.i420_to_bgr(p, 80, 60), (planes,)),
+        "letterbox": (lambda f: letterbox.letterbox(f, dst=64), (frames,)),
+        "sample_mask_logits_at_points": (
+            lambda m: letterbox.sample_mask_logits_at_points(m, points, dst=64),
+            (logits,)),
+        "sample_mask_logits_values": (
+            lambda m: letterbox.sample_mask_logits_at_points(
+                m, points, dst=64, threshold=False), (logits,)),
+        "nms": (lambda b, c, k: decode.nms(b, c, k, max_det=16), _nms_inputs()),
+        "assemble_masks": (
+            lambda p, b, c, k: decode.assemble_masks(
+                p, decode.nms(b, c, k, max_det=16), (64, 64)),
+            (protos, *_nms_inputs())),
+        "inject_artificial_cells": (
+            lambda o: lattice.inject_artificial_cells(
+                o, frame_width=720, frame_height=1280), (_lattices(),)),
+        "rasterize_cells": (lambda w: lattice.rasterize_cells(w, 20), (_walkables(),)),
+        "penalty_field": (penalty.penalty_field, (_walkables(),)),
+        "find_peaks": (
+            lambda w: peaks.find_peaks(lattice.rasterize_cells(w, 20), 20),
+            (_walkables(),)),
+        "laplacian_variance": (blur.laplacian_variance, (frames,)),
+        "closest_walkable_cell_start": (wavefront.closest_walkable_cell,
+                                        (_walkables(), feet)),
+        "closest_walkable_cell_goals": (wavefront.closest_walkable_cell,
+                                        (_walkables(), goals)),
+        "enter_cost": (
+            lambda w: wavefront.enter_cost(w, penalty.penalty_field(w), 20, 0.5),
+            (_walkables(),)),
+    }
+
+
+BATCHED_OPS = ["i420_to_bgr", "letterbox", "sample_mask_logits_at_points",
+               "sample_mask_logits_values", "nms", "assemble_masks",
+               "inject_artificial_cells", "rasterize_cells", "penalty_field",
+               "find_peaks", "laplacian_variance", "closest_walkable_cell_start",
+               "closest_walkable_cell_goals", "enter_cost"]
+
+
+@pytest.mark.parametrize("op", BATCHED_OPS)
+def test_batched_op_equals_stack_of_singles(op):
+    cases = _batched_op_cases()
+    assert sorted(cases) == sorted(BATCHED_OPS)
+    fn, args = cases[op]
+    assert_batched_equals_singles(fn, args)
+
+
+def test_nms_streams_have_none_one_and_many():
+    dets = decode.nms(*_nms_inputs(), max_det=16)
+    kept = dets.valid.sum(dim=-1).tolist()
+    assert kept[0] == 0 and kept[1] == 1 and 1 < kept[2] <= 16
+    # many candidates, fewer kept: the greedy loop suppressed some of them
+    n_cand = int((torch.sigmoid(_nms_inputs()[1][2]).max(-1).values > 0.5).sum())
+    assert n_cand > 16
+
+
+def test_closest_walkable_cell_rejects_points_without_streams():
+    with pytest.raises(ValueError, match="streams"):
+        wavefront.closest_walkable_cell(_walkables(), _t(np.zeros((2, 2), np.int64)))

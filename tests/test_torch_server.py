@@ -14,6 +14,12 @@ which carry the instruction memory's view of the order, peaks and path
 cells) is equal frame by frame, path costs agree within rtol 1e-5, and for
 ``exact_device`` the angle cache left on the device after the last frame has
 the same NaN pattern and values within rtol 1e-5.
+
+``BatchedStreamingServer`` over ``MultiStreamProcessor`` (2 streams a step):
+depth 1, 2 and 4 equal to the synchronous ``process_frames`` loop, step by
+step and stream by stream; and against the JAX ``BatchedStreamingServer``
+over the JAX ``MultiStreamProcessor`` at depth 2 with the same tolerances,
+the per-stream caches included.
 """
 
 from __future__ import annotations
@@ -29,6 +35,12 @@ from vision_assist_tpu.models.inference import Segmenter as JaxSegmenter  # noqa
 from vision_assist_tpu.pipeline.frame_processor import (  # noqa: E402
     FrameProcessor as JaxFrameProcessor,
 )
+from vision_assist_tpu.pipeline.multi_stream import (  # noqa: E402
+    MultiStreamProcessor as JaxMultiStreamProcessor,
+)
+from vision_assist_tpu.pipeline.server import (  # noqa: E402
+    BatchedStreamingServer as JaxBatchedStreamingServer,
+)
 from vision_assist_tpu.pipeline.server import (  # noqa: E402
     StreamingServer as JaxStreamingServer,
 )
@@ -37,7 +49,11 @@ from vision_assist_tpu_torch.io.synthetic import walkway_frames  # noqa: E402
 from vision_assist_tpu_torch.models import flagship  # noqa: E402
 from vision_assist_tpu_torch.models.inference import Segmenter  # noqa: E402
 from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor  # noqa: E402
-from vision_assist_tpu_torch.pipeline.server import StreamingServer  # noqa: E402
+from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor  # noqa: E402
+from vision_assist_tpu_torch.pipeline.server import (  # noqa: E402
+    BatchedStreamingServer,
+    StreamingServer,
+)
 
 torch.set_num_threads(2)
 
@@ -175,3 +191,102 @@ def test_keep_frames_waits_for_the_visualiser():
     fp = FrameProcessor(config.PipelineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="visualiser"):
         StreamingServer(fp, depth=2, keep_frames=True)
+
+
+# -- the batched server ---------------------------------------------------------------------
+
+N_STREAMS = 2
+N_STEPS = 4
+
+
+def _multi(segmenter, engine, **kw):
+    cfg = config.PipelineConfig(frame_height=H, frame_width=W, num_streams=N_STREAMS,
+                                pathfinder=ENGINES[engine], **kw)
+    return MultiStreamProcessor(cfg, segmenter=segmenter, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def steps(frames):
+    """N_STEPS steps of N_STREAMS frames: stream s sees frames s, s+2, ..."""
+    return [np.stack(frames[i * N_STREAMS:(i + 1) * N_STREAMS])
+            for i in range(N_STEPS)]
+
+
+def _serve_batched(server, steps):
+    out = []
+    for i, step in enumerate(steps):
+        out.extend(server.feed(step, now_ms=i * 33))
+    out.extend(server.drain())
+    return out
+
+
+@pytest.fixture(scope="module")
+def sync_steps(segmenter, steps):
+    """engine -> the synchronous process_frames loop's guidance a step."""
+    done = {}
+
+    def get(engine):
+        if engine not in done:
+            msp = _multi(segmenter, engine)
+            done[engine] = [_guidance(msp.process_frames(step, now_ms=i * 33))
+                            for i, step in enumerate(steps)]
+        return done[engine]
+    return get
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_batched_server_matches_sync_loop(segmenter, steps, sync_steps, engine, depth):
+    expected = sync_steps(engine)
+    assert any(paths for step in expected for _, paths in step)
+    srv = BatchedStreamingServer(_multi(segmenter, engine), depth=depth)
+    got = [_guidance(step) for step in _serve_batched(srv, steps)]
+    assert got == expected
+    assert srv.in_flight == 0
+
+
+def test_batched_feed_retires_oldest_once_depth_in_flight(segmenter, steps):
+    srv = BatchedStreamingServer(_multi(segmenter, "exact_device"), depth=3)
+    due = [len(srv.feed(step, now_ms=i * 33)) for i, step in enumerate(steps)]
+    assert due == [0, 0, 1, 1]
+    assert srv.in_flight == 2
+    drained = srv.drain()
+    assert [len(step) for step in drained] == [N_STREAMS] * 2 and srv.in_flight == 0
+
+
+@pytest.mark.parametrize("depth", [0, -1])
+def test_batched_depth_validation(depth):
+    msp = MultiStreamProcessor(config.PipelineConfig(num_streams=2), device="cpu")
+    with pytest.raises(ValueError, match="depth"):
+        BatchedStreamingServer(msp, depth=depth)
+
+
+def test_batched_served_sequence_matches_jax_server(segmenter, jax_segmenter, steps):
+    pf = ENGINES["exact_device"]
+    jcfg = jconfig.PipelineConfig(
+        frame_height=H, frame_width=W, num_streams=N_STREAMS,
+        pathfinder=jconfig.PathFinderConfig(engine=pf.engine))
+    jsrv = JaxBatchedStreamingServer(
+        JaxMultiStreamProcessor(jcfg, segmenter=jax_segmenter), depth=2)
+    tsrv = BatchedStreamingServer(_multi(segmenter, "exact_device"), depth=2)
+    jres = _serve_batched(jsrv, steps)
+    tres = _serve_batched(tsrv, steps)
+    assert len(tres) == len(jres) == N_STEPS
+    assert any(r.paths for step in tres for r in step)
+    for i, (tstep, jstep) in enumerate(zip(tres, jres)):
+        assert len(tstep) == len(jstep) == N_STREAMS
+        for s, (tr, jr) in enumerate(zip(tstep, jstep)):
+            np.testing.assert_array_equal(tr.occupancy, jr.occupancy, err_msg=str((i, s)))
+            assert tr.final_answer == jr.final_answer, (i, s)
+            assert _guidance([tr]) == _guidance([jr]), (i, s)
+            assert [(p.centre.x, p.centre.y, p.orientation) for p in tr.peaks] == \
+                [(p.centre.x, p.centre.y, p.orientation) for p in jr.peaks], (i, s)
+            np.testing.assert_allclose([p.total_cost for p in tr.paths],
+                                       [p.total_cost for p in jr.paths], rtol=1e-5)
+    tcache = tsrv.msp._stream_caches.numpy()
+    jcache = np.asarray(jsrv.msp._stream_caches)
+    assert tcache.shape == jcache.shape == (N_STREAMS, 1226)
+    assert np.isfinite(tcache).any(axis=1).all()
+    np.testing.assert_array_equal(np.isnan(tcache), np.isnan(jcache))
+    np.testing.assert_allclose(tcache, jcache, rtol=1e-5)
+    jsrv.msp.close()

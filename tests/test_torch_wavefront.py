@@ -321,3 +321,80 @@ def test_relax_kernel_bit_equal_to_twin_on_card(cuda, shape):
     assert torch.equal(got, ref)
     # the kernel counts its own line passes: never more than Jacobi sweeps
     assert bool((sweeps >= 1).all()) and bool((sweeps <= ref_sweeps).all())
+
+
+# -- the stream dimension -----------------------------------------------------------------
+
+STREAMS = ("insane_case", "left_turn", "two_global_peaks")
+_KW = dict(angle_weight=TURN_WEIGHT)
+
+
+def _stacked(inputs):
+    """The five inputs of STREAMS, each stacked along a leading stream axis."""
+    return tuple(_t(np.stack([inputs[n][i] for n in STREAMS])) for i in range(5))
+
+
+def _sweep_passes(walk, pen, start):
+    """Passes relax_sweep needs on one lattice: the least cap that already
+    gives the converged field."""
+    done = wavefront.relax_sweep(walk, pen, start, **_KW)
+    return next(k for k in range(1, 200) if torch.equal(
+        wavefront.relax_sweep(walk, pen, start, max_passes=k, **_KW), done))
+
+
+def _batched_planning_cases(inputs):
+    from vision_assist_tpu_torch.planning import device_astar
+
+    walk, pen, start, goals, valid = _stacked(inputs)
+    dist = wavefront.relax_sweep(walk, pen, start, **_KW)
+    caches = device_astar.empty_cache().repeat(len(STREAMS), 1)
+
+    def paths(**flags):
+        return lambda w, p, s, g, v: wavefront.find_paths(
+            w, p, s, g, v, max_len=256, **_KW, **flags)
+
+    return {
+        "relax": (lambda w, p, s: wavefront.relax(w, p, s, **_KW), (walk, pen, start)),
+        "relax_cuda": (lambda w, p, s: cuda_wavefront.relax_cuda(w, p, s, **_KW),
+                       (walk, pen, start)),
+        "relax_sweep": (lambda w, p, s: wavefront.relax_sweep(w, p, s, **_KW),
+                        (walk, pen, start)),
+        "backtrace": (lambda d, s, g: wavefront.backtrace(d, s, g, max_len=256, **_KW),
+                      (dist, start, goals)),
+        "find_paths_sweep": (paths(), (walk, pen, start, goals, valid)),
+        "find_paths_kernel": (paths(use_pallas=True), (walk, pen, start, goals, valid)),
+        "find_paths_plain": (paths(use_sweep=False), (walk, pen, start, goals, valid)),
+        "device_astar_paths": (
+            lambda w, p, s, g, v, c: device_astar.device_astar_paths(
+                w, p, s, g, v, c, max_len=256),
+            (walk, pen, start, goals, valid, caches)),
+    }
+
+
+BATCHED_PLANNING = ["relax", "relax_cuda", "relax_sweep", "backtrace",
+                    "find_paths_sweep", "find_paths_kernel", "find_paths_plain",
+                    "device_astar_paths"]
+
+
+@pytest.mark.parametrize("op", BATCHED_PLANNING)
+def test_batched_planning_equals_stack_of_singles(inputs, op):
+    from test_torch_ops import assert_batched_equals_singles
+
+    cases = _batched_planning_cases(inputs)
+    assert sorted(cases) == sorted(BATCHED_PLANNING)
+    fn, args = cases[op]
+    assert_batched_equals_singles(fn, args, n_streams=len(STREAMS))
+
+
+def test_relax_sweep_streams_converge_in_different_pass_counts(inputs):
+    """The batched sweep runs until no stream changes, so the streams that
+    converged earlier sit through extra passes: those must not move their
+    fields (held bit for bit by the parametrised test above; here, that the
+    chosen streams really need different pass counts)."""
+    walk, pen, start, _, _ = _stacked(inputs)
+    passes = [_sweep_passes(walk[s], pen[s], start[s]) for s in range(len(STREAMS))]
+    assert len(set(passes)) > 1, passes
+    capped = wavefront.relax_sweep(walk, pen, start, max_passes=min(passes), **_KW)
+    full = wavefront.relax_sweep(walk, pen, start, **_KW)
+    assert torch.equal(capped[int(np.argmin(passes))], full[int(np.argmin(passes))])
+    assert not torch.equal(capped[int(np.argmax(passes))], full[int(np.argmax(passes))])

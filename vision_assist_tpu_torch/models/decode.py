@@ -63,20 +63,21 @@ def decode_boxes(outputs: YoloSegOutputs, reg_max: int
 
 
 def _box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of xyxy boxes a (N,4) x b (M,4) -> (N,M)."""
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    """Pairwise IoU of xyxy boxes a (..., N, 4) x b (..., M, 4) -> (..., N, M)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = torch.clamp(rb - lt, min=0)
     inter = wh[..., 0] * wh[..., 1]
-    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
-    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
-    union = area_a[:, None] + area_b[None, :] - inter
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-9)
 
 
 @dataclasses.dataclass
 class Detections:
-    """Padded, fixed-size detection set for one image."""
+    """Padded, fixed-size detection set for one image, or for S images with
+    a leading stream dimension on every field."""
 
     boxes: torch.Tensor    # (D, 4) xyxy, letterboxed-image pixels
     scores: torch.Tensor   # (D,)
@@ -91,48 +92,56 @@ def nms(boxes: torch.Tensor, cls_logits: torch.Tensor, coeffs: torch.Tensor,
     """Greedy class-aware NMS with static shapes (torchvision.ops.nms
     semantics as ultralytics uses them, best-class-only path).
 
-    boxes (A, 4), cls_logits (A, nc), coeffs (A, nm) for ONE image.
+    boxes (A, 4), cls_logits (A, nc), coeffs (A, nm) for one image, or each
+    with a leading stream dimension for S images: every step then serves all
+    the images at once, the greedy loop included.
     Candidates are the top max_candidates by best-class confidence; equal
     scores keep index order (a stable sort), as the reference's top_k does.
     """
     dev = boxes.device
+    lead = boxes.shape[:-2]
     scores_all = torch.sigmoid(cls_logits)
     best, cls = torch.max(scores_all, dim=-1)
     cls = cls.to(torch.int32)
 
     cand = torch.where(best > conf_threshold, best, NEG)
-    k = min(max_candidates, cand.shape[0])
-    top_scores, idx = torch.sort(cand, descending=True, stable=True)
-    top_scores, idx = top_scores[:k], idx[:k]
+    k = min(max_candidates, cand.shape[-1])
+    top_scores, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+    top_scores, idx = top_scores[..., :k], idx[..., :k]
     if k < max_candidates:
         top_scores = torch.cat([top_scores, torch.full(
-            (max_candidates - k,), NEG, device=dev)])
-        idx = torch.cat([idx, torch.zeros(max_candidates - k, dtype=idx.dtype,
-                                          device=dev)])
+            (*lead, max_candidates - k), NEG, device=dev)], dim=-1)
+        idx = torch.cat([idx, torch.zeros((*lead, max_candidates - k),
+                                          dtype=idx.dtype, device=dev)], dim=-1)
     cand_valid = top_scores > conf_threshold
-    cand_boxes = boxes[idx]
-    cand_cls = cls[idx]
+    cand_boxes = torch.take_along_dim(boxes, idx[..., None], dim=-2)
+    cand_cls = torch.take_along_dim(cls, idx, dim=-1)
 
     # Class-aware: offset boxes per class (the max_wh trick).
-    offs = cand_cls.float()[:, None] * 7680.0
+    offs = cand_cls.float()[..., None] * 7680.0
     iou = _box_iou(cand_boxes + offs, cand_boxes + offs)
 
     order = torch.arange(max_candidates, device=dev)
     suppress = (iou > iou_threshold) & (order[None, :] > order[:, None])
     keep = cand_valid.clone()
     for i in range(max_candidates):
-        keep &= ~(suppress[i] & keep[i])
+        keep &= ~(suppress[..., i, :] & keep[..., i, None])
 
     # The first max_det kept (already in descending score order).
     kept_rank = torch.where(keep, order, max_candidates)
-    sel = torch.argsort(kept_rank, stable=True)[:max_det]
-    valid = keep[sel] & (kept_rank[sel] < max_candidates)
+    sel = torch.argsort(kept_rank, dim=-1, stable=True)[..., :max_det]
+    valid = torch.take_along_dim(kept_rank, sel, dim=-1) < max_candidates
 
+    def picked(x):          # x (..., max_candidates[, n]) at the kept ranks
+        return torch.take_along_dim(x, sel if x.dim() == sel.dim()
+                                    else sel[..., None], dim=sel.dim() - 1)
+
+    cand_coeffs = torch.take_along_dim(coeffs, idx[..., None], dim=-2)
     return Detections(
-        boxes=torch.where(valid[:, None], cand_boxes[sel], 0.0),
-        scores=torch.where(valid, top_scores[sel], 0.0),
-        classes=torch.where(valid, cand_cls[sel], -1),
-        coeffs=torch.where(valid[:, None], coeffs[idx][sel], 0.0),
+        boxes=torch.where(valid[..., None], picked(cand_boxes), 0.0),
+        scores=torch.where(valid, picked(top_scores), 0.0),
+        classes=torch.where(valid, picked(cand_cls), -1),
+        coeffs=torch.where(valid[..., None], picked(cand_coeffs), 0.0),
         valid=valid,
     )
 
@@ -143,16 +152,18 @@ def assemble_masks(protos: torch.Tensor, dets: Detections,
 
     protos (nm, Hp, Wp); returns (D, Hp, Wp) float32: coeff @ proto, then a
     multiplicative box crop (zeros outside), as ultralytics' crop_mask does.
+    With a leading stream dimension on protos and on the detections,
+    (S, D, Hp, Wp).
     """
-    _, hp, wp = protos.shape
+    hp, wp = protos.shape[-2:]
     ih, iw = input_hw
-    masks = torch.einsum("dn,nhw->dhw", dets.coeffs.float(), protos.float())
+    masks = torch.einsum("...dn,...nhw->...dhw", dets.coeffs.float(), protos.float())
 
     scale = torch.tensor([wp / iw, hp / ih, wp / iw, hp / ih],
                          dtype=torch.float32, device=protos.device)
-    b = dets.boxes * scale[None]
-    xs = torch.arange(wp, dtype=torch.float32, device=protos.device)[None, None, :]
-    ys = torch.arange(hp, dtype=torch.float32, device=protos.device)[None, :, None]
-    inside = ((xs >= b[:, 0, None, None]) & (xs < b[:, 2, None, None])
-              & (ys >= b[:, 1, None, None]) & (ys < b[:, 3, None, None]))
-    return masks * (inside & dets.valid[:, None, None]).to(masks.dtype)
+    b = (dets.boxes * scale)[..., None, None]              # (..., D, 4, 1, 1)
+    xs = torch.arange(wp, dtype=torch.float32, device=protos.device)[None, :]
+    ys = torch.arange(hp, dtype=torch.float32, device=protos.device)[:, None]
+    inside = ((xs >= b[..., 0, :, :]) & (xs < b[..., 2, :, :])
+              & (ys >= b[..., 1, :, :]) & (ys < b[..., 3, :, :]))
+    return masks * (inside & dets.valid[..., None, None]).to(masks.dtype)

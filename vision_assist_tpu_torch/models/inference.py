@@ -33,10 +33,13 @@ from vision_assist_tpu_torch.ops.letterbox import (
     letterbox,
     sample_mask_logits_at_points,
 )
+from vision_assist_tpu_torch.utils.streams import stream
 
 
 @dataclasses.dataclass
 class SegFrameResult:
+    """One frame's segmentation; for a stack of S frames every field (those
+    of ``detections`` too) has a leading stream dimension."""
     occupancy: torch.Tensor      # (R, C) bool — winning mask sampled at centres
     detections: Detections
     mask_logits: torch.Tensor    # (D, Hp, Wp) cropped logits
@@ -102,35 +105,42 @@ class Segmenter:
 
     @torch.no_grad()
     def _frame_chain(self, frame_bgr: torch.Tensor) -> SegFrameResult:
+        """The chain on one (H, W, 3) frame, or on a stack (S, H, W, 3) as
+        one batch through the model and one pass of every later step."""
         cfg = self.cfg
-        img = letterbox(frame_bgr, dst=cfg.imgsz)
-        outs = self.model(img.permute(2, 0, 1)[None])
+        single = frame_bgr.dim() == 3
+        img = letterbox(frame_bgr[None] if single else frame_bgr, dst=cfg.imgsz)
+        outs = self.model(img.permute(0, 3, 1, 2))
         boxes, cls_logits, coeffs = decode_boxes(outs, cfg.reg_max)
-        dets = nms(boxes[0], cls_logits[0], coeffs[0],
+        dets = nms(boxes, cls_logits, coeffs,
                    conf_threshold=cfg.conf_threshold,
                    iou_threshold=cfg.iou_threshold,
                    max_det=cfg.max_detections)
-        mask_logits = assemble_masks(outs.protos[0], dets, (cfg.imgsz, cfg.imgsz))
+        mask_logits = assemble_masks(outs.protos, dets, (cfg.imgsz, cfg.imgsz))
 
-        areas = torch.sum(mask_logits > 0, dim=(-1, -2))
+        areas = torch.sum(mask_logits > 0, dim=(-1, -2))            # (S, D)
         areas = torch.where(dets.valid, areas, -1)
-        any_det = torch.any(dets.valid)
-        winner = torch.where(any_det, torch.argmax(areas), -1).to(torch.int32)
+        any_det = torch.any(dets.valid, dim=-1)                     # (S,)
+        winner = torch.where(any_det, torch.argmax(areas, dim=-1),
+                             -1).to(torch.int32)
 
         samples = sample_mask_logits_at_points(
             mask_logits, self._centres, dst=cfg.imgsz, threshold=True)
         rows = self.frame_h // self.grid_size
         cols = self.frame_w // self.grid_size
-        win_occ = samples[torch.clamp(winner, min=0)].reshape(rows, cols) & any_det
-        return SegFrameResult(
+        won = torch.take_along_dim(
+            samples, torch.clamp(winner, min=0).long()[:, None, None], dim=1)
+        win_occ = won.reshape(-1, rows, cols) & any_det[:, None, None]
+        result = SegFrameResult(
             occupancy=win_occ, detections=dets, mask_logits=mask_logits,
             winner=winner, any_detection=any_det)
+        return stream(result, 0) if single else result
 
     def __call__(self, frame_bgr) -> SegFrameResult:
         frame = torch.as_tensor(frame_bgr).to(self.device)
-        if tuple(frame.shape[:2]) != (self.frame_h, self.frame_w):
+        if tuple(frame.shape[-3:-1]) != (self.frame_h, self.frame_w):
             raise ValueError(
-                f"frame shape {tuple(frame.shape[:2])} != Segmenter example_hw "
+                f"frame shape {tuple(frame.shape[-3:-1])} != Segmenter example_hw "
                 f"({self.frame_h}, {self.frame_w}); build the Segmenter "
                 "with example_hw matching the camera")
         return self._frame_chain(frame)

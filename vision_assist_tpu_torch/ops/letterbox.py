@@ -41,35 +41,39 @@ class LetterboxSpec:
 
 def letterbox(image: torch.Tensor, dst: int = 640, bgr_to_rgb: bool = True,
               pad_value: float = 114.0) -> torch.Tensor:
-    """uint8 (H, W, 3) frame -> float32 (dst, dst, 3) in [0, 1].
+    """uint8 (H, W, 3) frame -> float32 (dst, dst, 3) in [0, 1]; a stack of
+    frames (S, H, W, 3) -> (S, dst, dst, 3).
 
     Bilinear without antialiasing, as cv2.resize(INTER_LINEAR) does — the
     resize the model was trained behind."""
-    h, w = image.shape[0], image.shape[1]
+    single = image.dim() == 3
+    img = (image[None] if single else image).float()
+    s, h, w = img.shape[:3]
     spec = LetterboxSpec.create(h, w, dst)
-    img = image.float()
     if bgr_to_rgb:
         img = img.flip(-1)
-    resized = F.interpolate(img.permute(2, 0, 1)[None], (spec.new_h, spec.new_w),
+    resized = F.interpolate(img.permute(0, 3, 1, 2), (spec.new_h, spec.new_w),
                             mode="bilinear", align_corners=False,
-                            antialias=False)[0].permute(1, 2, 0)
-    out = torch.full((dst, dst, 3), pad_value, dtype=torch.float32,
+                            antialias=False).permute(0, 2, 3, 1)
+    out = torch.full((s, dst, dst, 3), pad_value, dtype=torch.float32,
                      device=image.device)
-    out[spec.pad_top:spec.pad_top + spec.new_h,
+    out[:, spec.pad_top:spec.pad_top + spec.new_h,
         spec.pad_left:spec.pad_left + spec.new_w] = resized
-    return out / 255.0
+    out = out / 255.0
+    return out[0] if single else out
 
 
 def sample_mask_logits_at_points(mask_logits: torch.Tensor,
                                  points_dst: torch.Tensor, dst: int = 640,
                                  threshold: bool = True) -> torch.Tensor:
-    """Bilinearly sample (D, Hp, Wp) mask logits at continuous letterboxed
-    coordinates points_dst (N, 2) and (optionally) threshold at 0.
+    """Bilinearly sample (..., D, Hp, Wp) mask logits at continuous
+    letterboxed coordinates points_dst (N, 2) -> (..., D, N), and
+    (optionally) threshold at 0.
 
     Sampling the prototype-resolution logits at the mapped point is the
     bilinear upsample evaluated there, so full-resolution masks never exist.
     """
-    d, hp, wp = mask_logits.shape
+    hp, wp = mask_logits.shape[-2:]
     sx = wp / dst
     sy = hp / dst
     # align_corners=False, source coordinate clamped into [0, n-1] before the
@@ -79,15 +83,15 @@ def sample_mask_logits_at_points(mask_logits: torch.Tensor,
 
     x0 = torch.floor(px)
     y0 = torch.floor(py)
-    fx = (px - x0)[None, :]
-    fy = (py - y0)[None, :]
+    fx = px - x0
+    fy = py - y0
     x0i = torch.clamp(x0.long(), 0, wp - 1)
     x1i = torch.clamp(x0i + 1, 0, wp - 1)
     y0i = torch.clamp(y0.long(), 0, hp - 1)
     y1i = torch.clamp(y0i + 1, 0, hp - 1)
 
     def g(yy, xx):
-        return mask_logits[:, yy, xx]                        # (D, N)
+        return mask_logits[..., yy, xx]                      # (..., D, N)
 
     val = (g(y0i, x0i) * (1 - fx) * (1 - fy) + g(y0i, x1i) * fx * (1 - fy)
            + g(y1i, x0i) * (1 - fx) * fy + g(y1i, x1i) * fx * fy)

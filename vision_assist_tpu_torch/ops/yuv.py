@@ -55,16 +55,18 @@ def bgr_to_i420_host(frame_bgr: np.ndarray) -> np.ndarray:
 
 
 def i420_to_bgr(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Device-side (H*3/2, W) uint8 I420 -> (H, W, 3) uint8 BGR."""
-    y = plane[:h].float()
+    """Device-side (..., H*3/2, W) uint8 I420 -> (..., H, W, 3) uint8 BGR;
+    any leading stream dimensions pass through."""
+    lead = plane.shape[:-2]
+    y = plane[..., :h, :].float()
     # The U and V planes are contiguous h*w/4-byte runs after Y; split the
     # flattened chroma bytes, never rows (h % 4 != 0 breaks row alignment).
-    chroma = plane[h:].reshape(-1)
+    chroma = plane[..., h:, :].flatten(-2)
     q = (h // 2) * (w // 2)
-    u = chroma[:q].reshape(h // 2, w // 2).float()
-    v = chroma[q:].reshape(h // 2, w // 2).float()
-    u = u.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
-    v = v.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    u = chroma[..., :q].reshape(*lead, h // 2, w // 2).float()
+    v = chroma[..., q:].reshape(*lead, h // 2, w // 2).float()
+    u = u.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    v = v.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
     c = (y - 16.0) * _CY
     d = u - 128.0

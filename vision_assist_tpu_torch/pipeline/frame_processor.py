@@ -40,6 +40,7 @@ from vision_assist_tpu_torch.planning.device_astar import empty_cache
 from vision_assist_tpu_torch.semantics.analyser import InstructionEngine
 from vision_assist_tpu_torch.semantics.sections import AnalysedPath, build_path
 from vision_assist_tpu_torch.types import Coordinate, Peak
+from vision_assist_tpu_torch.utils.streams import to_numpy
 
 
 @dataclasses.dataclass
@@ -56,19 +57,19 @@ class FrameResult:
     best_conf: float = 0.0
 
 
-def _numpy(tensors):
-    """A dataclass of tensors (PeakSet, PathBatch) with numpy leaves."""
-    return dataclasses.replace(tensors, **{
-        f.name: getattr(tensors, f.name).cpu().numpy()
-        for f in dataclasses.fields(tensors)})
-
-
 @dataclasses.dataclass
 class _Handle:
-    """A submitted frame: its payload on the host (filled asynchronously on
-    the card) and the event that marks the copy done."""
+    """A submitted frame, or a submitted step of S frames: the payload on
+    the host (filled asynchronously on the card) and the event that marks
+    the copy done."""
     host: torch.Tensor
     done: torch.cuda.Event | None
+
+    def payload(self) -> np.ndarray:
+        """Wait for the copy; the payload, (N,) or (S, N) int32."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
 
 
 class FrameProcessor:
@@ -205,6 +206,27 @@ class FrameProcessor:
 
     # -- entry points ----------------------------------------------------------------
 
+    def _guidance_from_plan(self, plan, exact_engine=None):
+        """(paths, peaks, penalty) of one lattice's PlanResult (numpy leaves)."""
+        return self._paths_from_arrays(
+            walkable=plan.walkable, artificial=plan.artificial, peaks=plan.peaks,
+            penalty_f32=plan.penalty, paths_batch=plan.paths,
+            exact_engine=exact_engine)
+
+    def _result_from_plan(self, plan, occupancy: np.ndarray, guidance, analyser,
+                          now_ms: int) -> FrameResult:
+        """One lattice's result from its PlanResult (numpy leaves) and its
+        guidance."""
+        paths, peaks, _ = guidance
+        answer = analyser(self.cfg.frame_height, self.cfg.frame_width, paths,
+                          now_ms)
+        # The result reports the device's float32 field, as the JAX package
+        # does, whichever field priced the paths.
+        return FrameResult(
+            final_answer=answer, paths=paths, peaks=peaks, occupancy=occupancy,
+            walkable=plan.walkable, artificial=plan.artificial,
+            penalty=plan.penalty.astype(np.float64))
+
     def process_occupancy(self, occupancy: np.ndarray,
                           now_ms: int | None = None) -> FrameResult:
         """Model-bypassed entry point (the reference's saved-grid replay).
@@ -214,24 +236,16 @@ class FrameProcessor:
         occ = np.asarray(occupancy, dtype=bool)
         plan = self._plan(torch.from_numpy(occ).to(self.device),
                           self._astar_cache)
-        self._astar_cache = plan.astar_cache
-        walkable = plan.walkable.cpu().numpy()
-        artificial = plan.artificial.cpu().numpy()
-        penalty_f32 = plan.penalty.cpu().numpy()
-        paths, peaks, _ = self._paths_from_arrays(
-            walkable=walkable, artificial=artificial, peaks=_numpy(plan.peaks),
-            penalty_f32=penalty_f32,
-            paths_batch=None if plan.paths is None else _numpy(plan.paths))
-        answer = self.analyser(self.cfg.frame_height, self.cfg.frame_width,
-                               paths, now_ms)
-        # The result reports the device's float32 field, as the JAX package
-        # does, whichever field priced the paths.
-        return FrameResult(
-            final_answer=answer, paths=paths, peaks=peaks, occupancy=occ,
-            walkable=walkable, artificial=artificial,
-            penalty=penalty_f32.astype(np.float64))
+        self._astar_cache, plan.astar_cache = plan.astar_cache, None
+        plan = to_numpy(plan)
+        return self._result_from_plan(plan, occ, self._guidance_from_plan(plan),
+                                      self.analyser, now_ms)
 
     def _ensure_program(self):
+        if self.segmenter is None:
+            raise ValueError(
+                "FrameProcessor was built without a segmenter; use "
+                "process_occupancy() for replay mode or pass a Segmenter.")
         if self._device_fn is None:
             from vision_assist_tpu_torch.pipeline.frame_program import (
                 make_frame_program,
@@ -240,6 +254,39 @@ class FrameProcessor:
             self._device_fn, self._unpack = make_frame_program(
                 self.cfg, self.segmenter, replay_rounding=self._replay_rounding)
 
+    def _pack_frame(self, frame_bgr) -> np.ndarray:
+        """One frame as it goes up: I420 when cfg.transfer_format says so,
+        packed on the host."""
+        frame = np.asarray(frame_bgr)
+        if self.cfg.transfer_format == "i420":
+            from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
+            frame = bgr_to_i420_host(frame)
+        return frame
+
+    def _run_program(self, frames: np.ndarray, astar_cache):
+        """Run the device program on one packed frame, or on a stack of S,
+        WITHOUT waiting for it: the frames go up once, and the payload comes
+        back once, into pinned host memory, asynchronously on the current
+        stream, with one event. Returns (handle, the cache for the next
+        submit)."""
+        self._ensure_program()
+        cuda = self.device.type == "cuda"
+        src = torch.from_numpy(np.ascontiguousarray(frames))
+        if cuda:
+            src = src.pin_memory()
+        dev_frames = src.to(self.device, non_blocking=cuda)
+        if astar_cache is not None:
+            payload, astar_cache = self._device_fn(dev_frames, astar_cache)
+        else:
+            payload = self._device_fn(dev_frames)
+        if not cuda:
+            return _Handle(host=payload, done=None), astar_cache
+        host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+        host.copy_(payload, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return _Handle(host=host, done=done), astar_cache
+
     def submit_frame(self, frame_bgr: np.ndarray) -> _Handle:
         """Run the device program for one frame WITHOUT waiting for it.
 
@@ -247,55 +294,26 @@ class FrameProcessor:
         packed on the host), and the payload comes back once, into pinned
         host memory, asynchronously on the current stream. Pass the handle
         to retire_frame()."""
-        if self.segmenter is None:
-            raise ValueError(
-                "FrameProcessor was built without a segmenter; use "
-                "process_occupancy() for replay mode or pass a Segmenter.")
-        self._ensure_program()
-        frame = np.asarray(frame_bgr)
-        if self.cfg.transfer_format == "i420":
-            from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
-            frame = bgr_to_i420_host(frame)
-        cuda = self.device.type == "cuda"
-        src = torch.from_numpy(np.ascontiguousarray(frame))
-        if cuda:
-            src = src.pin_memory()
-        dev_frame = src.to(self.device, non_blocking=cuda)
-        if self._astar_cache is not None:
-            payload, self._astar_cache = self._device_fn(dev_frame,
-                                                         self._astar_cache)
-        else:
-            payload = self._device_fn(dev_frame)
-        if not cuda:
-            return _Handle(host=payload, done=None)
-        host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
-        host.copy_(payload, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return _Handle(host=host, done=done)
+        handle, self._astar_cache = self._run_program(
+            self._pack_frame(frame_bgr), self._astar_cache)
+        return handle
 
-    def retire_frame(self, handle: _Handle,
-                     now_ms: int | None = None) -> FrameResult | None:
-        """Wait for a submitted frame's payload and run the host half.
-        Returns None if the blur gate rejects the frame."""
-        if now_ms is None:
-            now_ms = int(time.time() * 1000)
-        if handle.done is not None:
-            handle.done.synchronize()
-        payload = self._unpack(handle.host.numpy())
-        if self.cfg.blur.enabled and \
-                payload.blur_var < self.cfg.blur.laplacian_var_threshold:
-            return None
+    def _guidance(self, payload, exact_engine=None):
+        """(paths, peaks, penalty) of one unpacked payload, with the
+        no-detection gate."""
+        if payload.n_detections == 0:
+            return self._empty_guidance(payload)
+        return self._paths_from_arrays(
+            walkable=payload.walkable, artificial=payload.artificial,
+            peaks=payload.peaks, penalty_f32=payload.penalty,
+            paths_batch=payload.paths, exact_engine=exact_engine)
+
+    def _result(self, payload, guidance, analyser, now_ms: int) -> FrameResult:
+        """One frame's result from its payload and its guidance."""
+        paths, peaks, penalty = guidance
+        answer = analyser(self.cfg.frame_height, self.cfg.frame_width, paths,
+                          now_ms)
         empty = payload.n_detections == 0
-        if empty:
-            paths, peaks, penalty = self._empty_guidance(payload)
-        else:
-            paths, peaks, penalty = self._paths_from_arrays(
-                walkable=payload.walkable, artificial=payload.artificial,
-                peaks=payload.peaks, penalty_f32=payload.penalty,
-                paths_batch=payload.paths)
-        answer = self.analyser(self.cfg.frame_height, self.cfg.frame_width,
-                               paths, now_ms)
         zeros = np.zeros_like(payload.walkable, dtype=bool)
         return FrameResult(
             final_answer=answer, paths=paths, peaks=peaks,
@@ -306,6 +324,19 @@ class FrameProcessor:
             n_detections=payload.n_detections,
             best_conf=payload.best_conf,
         )
+
+    def retire_frame(self, handle: _Handle,
+                     now_ms: int | None = None) -> FrameResult | None:
+        """Wait for a submitted frame's payload and run the host half.
+        Returns None if the blur gate rejects the frame."""
+        if now_ms is None:
+            now_ms = int(time.time() * 1000)
+        payload = self._unpack(handle.payload())
+        if self.cfg.blur.enabled and \
+                payload.blur_var < self.cfg.blur.laplacian_var_threshold:
+            return None
+        return self._result(payload, self._guidance(payload), self.analyser,
+                            now_ms)
 
     def __call__(self, frame_bgr: np.ndarray,
                  now_ms: int | None = None) -> FrameResult | None:

@@ -66,8 +66,10 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
     ``frame`` is (H, W, 3) uint8 BGR, or the packed (H*3/2, W) uint8 I420
     plane when cfg.transfer_format == "i420". With ``engine="exact_device"``
     it is device_fn(frame, astar_cache) -> (payload, cache_out): the angle
-    cache stays on the device from frame to frame. unpack(np_payload) ->
-    FramePayload.
+    cache stays on the device from frame to frame. A stack of S frames
+    (and caches (S, 1226)) gives an (S, N) payload, one row a stream in the
+    same layout, from one pass of the program. unpack(np_payload) ->
+    FramePayload, of one row.
     """
     if (segmenter.frame_h, segmenter.frame_w) != (cfg.frame_height,
                                                   cfg.frame_width) or \
@@ -102,12 +104,16 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
     i420 = cfg.transfer_format == "i420"
 
     @torch.no_grad()
-    def device_fn(frame: torch.Tensor, astar_cache: torch.Tensor | None = None):
-        frame_bgr = (i420_to_bgr(frame, cfg.frame_height, cfg.frame_width)
-                     if i420 else frame)
-        seg = segmenter._frame_chain(frame_bgr)
+    def device_fn(frames: torch.Tensor, astar_cache: torch.Tensor | None = None):
+        single = frames.dim() == (2 if i420 else 3)
+        if single:
+            frames = frames[None]
+            astar_cache = None if astar_cache is None else astar_cache[None]
+        frames_bgr = (i420_to_bgr(frames, cfg.frame_height, cfg.frame_width)
+                      if i420 else frames)
+        seg = segmenter._frame_chain(frames_bgr)
         pr = plan(seg.occupancy, astar_cache)
-        blur = laplacian_variance(frame_bgr)
+        blur = laplacian_variance(frames_bgr)                    # (S,)
 
         i32 = torch.int32
         flags = (pr.walkable.to(i32) | (pr.artificial.to(i32) << 1)
@@ -116,33 +122,35 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
             [pr.peaks.centre_x, pr.peaks.centre_y, pr.peaks.left_x,
              pr.peaks.right_x, pr.peaks.orientation,
              pr.peaks.valid.to(i32)], dim=-1).to(i32)
-        n_det = seg.detections.valid.sum().to(i32)
+        n_det = seg.detections.valid.sum(dim=-1).to(i32)
         best_conf = torch.where(seg.any_detection,
-                                seg.detections.scores.max(), 0.0)
-        meta = torch.stack([_bits(blur), n_det, _bits(best_conf)])
-        parts = [flags.reshape(-1), peaks.reshape(-1), meta]
+                                seg.detections.scores.max(dim=-1).values, 0.0)
+        meta = torch.stack([_bits(blur), n_det, _bits(best_conf)], dim=-1)
+        parts = [flags.flatten(1), peaks.flatten(1), meta]
         if include_paths:
             parts += [
-                _bits(pr.penalty).reshape(-1),
-                pr.paths.cells.to(i32).reshape(-1),
+                _bits(pr.penalty).flatten(1),
+                pr.paths.cells.to(i32).flatten(1),
                 pr.paths.lengths.to(i32),
                 _bits(pr.paths.costs),
                 pr.paths.valid.to(i32),
             ]
-        packed = torch.cat(parts)
-        assert packed.shape == (total,), (packed.shape, total)
+        packed = torch.cat(parts, dim=1)
+        assert packed.shape[1:] == (total,), (packed.shape, total)
+        if single:
+            packed = packed[0]
         if not exact_device:
             return packed
         cache_out = pr.astar_cache
         if cfg.blur.enabled:
             # A blur-rejected frame must not change the cross-frame angle
             # cache: the reference's blur gate rejects the frame BEFORE
-            # planning runs. Decided on the device, with no host read,
-            # because the cache feeds the next submit before the host sees
-            # this frame's blur metric.
+            # planning runs. Decided on the device, per stream, with no host
+            # read, because the cache feeds the next submit before the host
+            # sees this frame's blur metric.
             keep = blur >= cfg.blur.laplacian_var_threshold
-            cache_out = torch.where(keep, pr.astar_cache, astar_cache)
-        return packed, cache_out
+            cache_out = torch.where(keep[:, None], pr.astar_cache, astar_cache)
+        return packed, (cache_out[0] if single else cache_out)
 
     def unpack(buf: np.ndarray) -> FramePayload:
         buf = np.asarray(buf)

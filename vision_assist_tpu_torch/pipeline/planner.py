@@ -26,6 +26,8 @@ from vision_assist_tpu_torch.planning.wavefront import (
 
 @dataclasses.dataclass
 class PlanResult:
+    """One lattice's plan; for S lattices every field (those of ``peaks``
+    and ``paths`` too) has a leading stream dimension."""
     walkable: torch.Tensor     # (R, C) bool
     artificial: torch.Tensor   # (R, C) bool
     penalty: torch.Tensor      # (R, C) f32
@@ -45,7 +47,9 @@ def make_plan_step(cfg: PipelineConfig, replay_rounding: bool = False,
     Returned fn: occupancy (R, C) bool -> PlanResult, on the occupancy's
     device; for ``engine="exact_device"`` it is
     ``plan(occupancy, astar_cache)`` and the result carries the updated
-    cache. The wavefront engine relaxes by fast sweeping by default, by the
+    cache. A stack of S lattices (S, R, C), with caches (S, 1226), is
+    planned in one pass of every op: one relax launch or one A* launch for
+    all the streams. The wavefront engine relaxes by fast sweeping by default, by the
     relax kernel (``use_pallas_relax``) or by the plain per-cell relaxation
     (``use_sweep_relax=False``).
 
@@ -75,9 +79,9 @@ def make_plan_step(cfg: PipelineConfig, replay_rounding: bool = False,
         peaks = find_peaks(rasterize_cells(walkable, g), g,
                            max_peaks=cfg.peaks.max_peaks)
         dev = walkable.device
+        feet = torch.tensor([cfg.frame_width // 2, cfg.frame_height], device=dev)
         start = closest_walkable_cell(
-            walkable, torch.tensor([cfg.frame_width // 2, cfg.frame_height],
-                                   device=dev), g)
+            walkable, feet.expand(*walkable.shape[:-2], 2), g)
         result = PlanResult(walkable=walkable, artificial=artificial,
                             penalty=penalty, peaks=peaks, start_rc=start,
                             paths=None)

@@ -7,9 +7,12 @@ newer frames overlap the host half of older ones. With
 ``engine="exact_device"`` the angle cache chains from submit to submit on the
 device, so frames in flight still see the cache in frame order.
 
+``BatchedStreamingServer`` is the same pipeline over
+``MultiStreamProcessor.submit_frames``/``retire_frames``: one step of S
+streams a feed, the per-stream caches chained on the device.
+
 The reference processes frames strictly synchronously; this is the serving
-shape of the device pipeline. The batched multi-stream server waits for the
-multi-stream processor.
+shape of the device pipeline.
 """
 
 from __future__ import annotations
@@ -87,3 +90,47 @@ class StreamingServer:
             yield from self.feed(f, now_ms=now_ms_start
                                  + i * frame_interval_ms)
         yield from self.drain()
+
+
+class BatchedStreamingServer:
+    """Depth-N pipelined batched serving over a MultiStreamProcessor.
+
+    Each feed() submits one (num_streams, H, W, 3) step; once `depth` steps
+    are in flight the oldest retires, so the device program of newer steps
+    overlaps the host half of older ones. Steps retire in submit order;
+    each retired step yields its per-stream FrameResult list.
+    """
+
+    def __init__(self, msp, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self.msp = msp
+        self.depth = depth
+        self._inflight: collections.deque = collections.deque()
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._inflight)
+
+    def feed(self, frames: np.ndarray,
+             now_ms=None) -> list[list[FrameResult]]:
+        """Submit one step; retire due steps (a list per step)."""
+        if now_ms is None:
+            now_ms = int(time.time() * 1000)
+        self._inflight.append((self.msp.submit_frames(frames), now_ms))
+        out = []
+        while len(self._inflight) >= self.depth:
+            out.append(self._retire_one())
+        return out
+
+    def drain(self, now_ms=None) -> list[list[FrameResult]]:
+        """Retire every in-flight step (end of stream)."""
+        out = []
+        while self._inflight:
+            out.append(self._retire_one(now_ms))
+        return out
+
+    def _retire_one(self, now_ms=None) -> list[FrameResult]:
+        handle, submit_now = self._inflight.popleft()
+        return self.msp.retire_frames(
+            handle, now_ms=now_ms if now_ms is not None else submit_now)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from vision_assist_tpu_torch.planning.wavefront import PathBatch
+from vision_assist_tpu_torch.utils.streams import stream
 
 INF = float("inf")
 DEG_PER_RAD = float(np.float32(180.0 / np.pi))
@@ -337,13 +338,19 @@ def device_astar_paths(walkable: torch.Tensor, penalty: torch.Tensor,
     without touching the cache and masked out of the result. Nothing is read
     back to the host on the card: the cache feeds the next frame's search
     before the host sees this frame's result.
+
+    With a leading stream dimension on every tensor (walkable (S, R, C) ...
+    cache (S, 1226)) the S streams search side by side, each with its own
+    cache, in one launch on the card.
     """
     # The wrapper decides by the tensors' device: kernel or plain version.
     from vision_assist_tpu_torch.ops.cuda_astar import astar_paths_cuda
 
-    cells, lengths, costs, cache_out, _ = astar_paths_cuda(
-        walkable[None], penalty[None], start_rc[None], goals_rc[None],
-        goals_valid[None], cache[None], **kwargs)
-    return (PathBatch(cells=cells[0], lengths=lengths[0], costs=costs[0],
-                      valid=goals_valid.bool() & (lengths[0] > 0)),
-            cache_out[0])
+    single = walkable.dim() == 2
+    args = (walkable, penalty, start_rc, goals_rc, goals_valid, cache)
+    if single:
+        args = tuple(x[None] for x in args)
+    cells, lengths, costs, cache_out, _ = astar_paths_cuda(*args, **kwargs)
+    batch = PathBatch(cells=cells, lengths=lengths, costs=costs,
+                      valid=args[4].bool() & (lengths > 0))
+    return (stream(batch, 0), cache_out[0]) if single else (batch, cache_out)

@@ -63,7 +63,8 @@ def enter_cost(walkable: torch.Tensor, penalty: torch.Tensor, grid_size: float,
 
 @dataclasses.dataclass
 class PathBatch:
-    """K padded paths over the lattice (forward order, (row, col) cells)."""
+    """K padded paths over the lattice (forward order, (row, col) cells);
+    with a leading stream dimension on every field for S streams."""
 
     cells: Any    # (K, L, 2) int32, -1 padded
     lengths: Any  # (K,) int32
@@ -75,7 +76,10 @@ def closest_walkable_cell(walkable: torch.Tensor, point_xy: torch.Tensor,
                           grid_size: int = 20) -> torch.Tensor:
     """(..., 2) (row, col) of the walkable cell whose centre is nearest each
     pixel point (..., 2); row-major first-minimum tie-breaking. Squared
-    integer distances keep the comparison exact."""
+    integer distances keep the comparison exact.
+
+    walkable (R, C) serves every point; walkable (S, R, C) takes points
+    (S, 2) or (S, K, 2), stream s's points looked up in stream s's lattice."""
     rows, cols = walkable.shape[-2], walkable.shape[-1]
     half = grid_size // 2
     dev = walkable.device
@@ -85,7 +89,13 @@ def closest_walkable_cell(walkable: torch.Tensor, point_xy: torch.Tensor,
     dx = p[..., 0, None, None] - cx[None, :]
     dy = p[..., 1, None, None] - cy[:, None]
     d2 = dx * dx + dy * dy
-    d2 = torch.where(walkable.bool(), d2, 1 << 30)
+    lead = walkable.shape[:-2]
+    if p.shape[:len(lead)] != lead:
+        raise ValueError(f"closest_walkable_cell: points {tuple(p.shape)} do not "
+                         f"carry the lattices' streams {tuple(lead)}")
+    walk = walkable.bool().reshape(*lead, *(1,) * (p.dim() - 1 - len(lead)),
+                                   rows, cols)
+    d2 = torch.where(walk, d2, 1 << 30)
     flat = torch.argmin(d2.flatten(-2), dim=-1)  # first occurrence: row-major
     return torch.stack([flat // cols, flat % cols], dim=-1).to(torch.int32)
 
@@ -139,12 +149,15 @@ def relax(walkable: torch.Tensor, penalty: torch.Tensor, start_rc: torch.Tensor,
           angle_exponent: float = 1.5, angle_denominator: float = 90.0,
           max_iters: int | None = None) -> torch.Tensor:
     """Single-source cost-to-come field dist (R, C, 4) over (cell, incoming
-    direction) states, computed by the plain twin."""
+    direction) states, computed by the plain twin; (S, R, C) lattices with
+    (S, 2) starts give (S, R, C, 4)."""
+    single = walkable.dim() == 2
     turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
                         angle_exponent, angle_denominator, walkable.device)
     enter = enter_cost(walkable, penalty, grid_size, penalty_weight)
-    dist, _ = relax_field(enter[None], start_rc.reshape(1, 2), turn, max_iters)
-    return dist[0]
+    dist, _ = relax_field(enter[None] if single else enter,
+                          start_rc.reshape(-1, 2), turn, max_iters)
+    return dist[0] if single else dist
 
 
 def _ahead_behind(x: torch.Tensor, s: int, reverse: bool
@@ -187,37 +200,45 @@ def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
                 angle_denominator: float = 90.0,
                 max_passes: int | None = None) -> torch.Tensor:
     """Fast-sweeping form of :func:`relax`: the same min-plus fixed point in
-    far fewer iterations, dist (R, C, 4).
+    far fewer iterations, dist (R, C, 4); (S, R, C) lattices with (S, 2)
+    starts give (S, R, C, 4).
 
     Each pass runs four directional scans in Gauss-Seidel order (right,
     left, down, up). One scan relaxes every straight run of its direction
     at once: with h the best cost of standing at the parent cell ready to
     step in direction d, ``x[c] = min(A[c], x[c-1] + enter[c])`` where
     ``A = min(old, h_parent + enter)``, solved for all lines together by
-    :func:`_min_plus_scan`. A pass that changes nothing ends the loop (one
-    host sync per pass); at most ``R*C`` passes run. The scan re-associates
-    the float32 sums along a run, so the field agrees with :func:`relax`
-    to round-off on reachable states, not bit for bit.
+    :func:`_min_plus_scan`. A pass that changes nothing in any stream ends
+    the loop (one host sync per pass); at most ``R*C`` passes run. A pass
+    is a function of the field alone, so the passes a stream sits through
+    after it has converged leave its field as it is, bit for bit. The scan
+    re-associates the float32 sums along a run, so the field agrees with
+    :func:`relax` to round-off on reachable states, not bit for bit.
     """
-    rows, cols = walkable.shape
+    single = walkable.dim() == 2
+    if single:
+        walkable, penalty = walkable[None], penalty[None]
+    n_streams, rows, cols = walkable.shape
+    dev = walkable.device
     turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
-                        angle_exponent, angle_denominator, walkable.device)
+                        angle_exponent, angle_denominator, dev)
     enter = enter_cost(walkable, penalty, grid_size, penalty_weight)
-    start = start_rc.to(walkable.device).long()
-    dist = torch.full((4, rows, cols), INF, dtype=torch.float32,
-                      device=walkable.device)
-    dist[:, start[0], start[1]] = 0.0
+    start = start_rc.to(dev).long().reshape(n_streams, 2)
+    dist = torch.full((n_streams, 4, rows, cols), INF, dtype=torch.float32,
+                      device=dev)
+    dist[torch.arange(n_streams, device=dev), :, start[:, 0], start[:, 1]] = 0.0
     # Scans run along the last axis: vertical moves see transposed views.
     across = [bool(dc) for _, dc in MOVES]
     reverse = [int(dr + dc) < 0 for dr, dc in MOVES]
-    ent = [enter if across[d] else enter.t() for d in range(4)]
+    ent = [enter if across[d] else enter.transpose(-1, -2) for d in range(4)]
     levels = [_scan_levels(ent[d], reverse[d]) for d in range(4)]
 
     for _ in range(rows * cols if max_passes is None else max_passes):
         new = dist.clone()
         for d in range(4):  # Gauss-Seidel: later scans see earlier updates
-            h = torch.min(new + turn[:, d, None, None], dim=0).values
-            a, h = (new[d], h) if across[d] else (new[d].t(), h.t())
+            h = torch.min(new + turn[:, d, None, None], dim=1).values
+            a, h = (new[:, d], h) if across[d] else (
+                new[:, d].transpose(-1, -2), h.transpose(-1, -2))
             here, _ = _ahead_behind(a, 1, reverse[d])
             torch.minimum(here, _ahead_behind(h, 1, reverse[d])[1]
                           + _ahead_behind(ent[d], 1, reverse[d])[0], out=here)
@@ -226,7 +247,8 @@ def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
         dist = new
         if not changed:
             break
-    return dist.permute(1, 2, 0).contiguous()
+    dist = dist.permute(0, 2, 3, 1).contiguous()
+    return dist[0] if single else dist
 
 
 def backtrace(dist: torch.Tensor, start_rc: torch.Tensor, goals_rc: torch.Tensor,
@@ -243,14 +265,19 @@ def backtrace(dist: torch.Tensor, start_rc: torch.Tensor, goals_rc: torch.Tensor
     output is the full fixed-length walk with no early exit.
 
     Returns (cells (K, max_len, 2) int32 padded with -1, lengths (K,),
-    costs (K,) f32, valid (K,) bool).
+    costs (K,) f32, valid (K,) bool). With a leading stream dimension on
+    dist (S, R, C, 4), start_rc (S, 2) and goals_rc (S, K, 2), on each
+    result too.
     """
-    rows, cols, _ = dist.shape
+    single = dist.dim() == 3
+    if single:
+        dist, start_rc, goals_rc = dist[None], start_rc[None], goals_rc[None]
+    n_streams, rows, cols, _ = dist.shape
     dev = dist.device
     turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
                         angle_exponent, angle_denominator, dev)
     moves = torch.from_numpy(MOVES).to(dev).long()
-    sr, sc = start_rc.to(dev).long().unbind(-1)
+    sr, sc = start_rc.to(dev).long().unbind(-1)              # (S,) each
 
     # Parent-state table over all R*C*4 states, flat index (r*C + c)*4 + d.
     r = torch.arange(rows, device=dev)[:, None, None]
@@ -258,41 +285,46 @@ def backtrace(dist: torch.Tensor, start_rc: torch.Tensor, goals_rc: torch.Tensor
     d = torch.arange(4, device=dev)[None, None, :]
     pr = torch.clamp(r - moves[:, 0][d], 0, rows - 1)
     pc = torch.clamp(c - moves[:, 1][d], 0, cols - 1)
-    parent_costs = dist[pr, pc] + turn.t()[d]            # (R, C, 4, 4 d')
+    parent_costs = dist[:, pr, pc] + turn.t()[d]         # (S, R, C, 4, 4 d')
     pd = torch.argmin(parent_costs, dim=-1)
     nxt = (pr * cols + pc) * 4 + pd
     here = (r * cols + c) * 4 + d
-    nxt = torch.where((r == sr) & (c == sc), here, nxt).reshape(-1)
+    at = (r == sr[:, None, None, None]) & (c == sc[:, None, None, None])
+    nxt = torch.where(at, here, nxt).reshape(n_streams, -1)
 
     goals = goals_rc.to(dev).long()
-    goal_dists = dist[goals[:, 0], goals[:, 1]]          # (K, 4)
+    streams = torch.arange(n_streams, device=dev)[:, None]
+    goal_dists = dist[streams, goals[..., 0], goals[..., 1]]   # (S, K, 4)
     d0 = torch.argmin(goal_dists, dim=-1)
-    cost = goal_dists.gather(1, d0[:, None])[:, 0]
+    cost = goal_dists.gather(-1, d0[..., None])[..., 0]
     valid = cost < INF / 2
 
-    k = goals.shape[0]
-    walk = torch.empty((k, max_len), dtype=torch.int64, device=dev)
-    walk[:, 0] = (goals[:, 0] * cols + goals[:, 1]) * 4 + d0
+    k = goals.shape[1]
+    walk = torch.empty((n_streams, k, max_len), dtype=torch.int64, device=dev)
+    walk[..., 0] = (goals[..., 0] * cols + goals[..., 1]) * 4 + d0
     jump, filled = nxt, 1
     while filled < max_len:
         n = min(filled, max_len - filled)
-        walk[:, filled:filled + n] = jump[walk[:, :n]]
-        jump = jump[jump]
+        walk[..., filled:filled + n] = jump.gather(
+            1, walk[..., :n].reshape(n_streams, -1)).reshape(n_streams, k, n)
+        jump = jump.gather(1, jump)
         filled += n
 
     cell = walk // 4
-    rc = torch.stack([cell // cols, cell % cols], dim=-1)   # (K, L, 2)
-    at_start = (rc[..., 0] == sr) & (rc[..., 1] == sc)
-    reached = at_start.any(dim=1)
-    first = torch.argmax(at_start.to(torch.uint8), dim=1)   # first arrival
+    rc = torch.stack([cell // cols, cell % cols], dim=-1)   # (S, K, L, 2)
+    at_start = (rc[..., 0] == sr[:, None, None]) & (rc[..., 1] == sc[:, None, None])
+    reached = at_start.any(dim=-1)
+    first = torch.argmax(at_start.to(torch.uint8), dim=-1)  # first arrival
     valid = valid & reached
     length = torch.where(valid, first + 1, 0)
-    pos = first[:, None] - torch.arange(max_len, device=dev)[None, :]
-    keep = valid[:, None] & (pos >= 0)
-    cells = torch.gather(rc, 1, torch.clamp(pos, min=0)[..., None].expand(-1, -1, 2))
+    pos = first[..., None] - torch.arange(max_len, device=dev)
+    keep = valid[..., None] & (pos >= 0)
+    cells = torch.gather(rc, 2, torch.clamp(pos, min=0)[..., None].expand(
+        -1, -1, -1, 2))
     cells = torch.where(keep[..., None], cells, -1).to(torch.int32)
     cost = torch.where(valid, cost, INF)
-    return cells, length.to(torch.int32), cost, valid
+    out = (cells, length.to(torch.int32), cost, valid)
+    return tuple(x[0] for x in out) if single else out
 
 
 def find_paths(walkable: torch.Tensor, penalty: torch.Tensor,
@@ -302,7 +334,9 @@ def find_paths(walkable: torch.Tensor, penalty: torch.Tensor,
                angle_weight: float = 1.5, angle_grace_deg: float = 30.0,
                angle_exponent: float = 1.5, angle_denominator: float = 90.0,
                use_pallas: bool = False, use_sweep: bool = True) -> PathBatch:
-    """Paths from one start to K goal cells sharing a single relaxation.
+    """Paths from one start to K goal cells sharing a single relaxation;
+    with a leading stream dimension on every tensor, S starts to their K
+    goals each, the relaxation of all streams in one call.
 
     The relaxation defaults to the fast-sweeping form (:func:`relax_sweep`);
     ``use_sweep=False`` selects the plain per-cell relaxation, and
