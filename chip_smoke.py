@@ -84,6 +84,23 @@ result line:
              behind a device-side sleep, so the host's call overhead is not
              what is timed; the time of back-to-back calls from the host is
              printed beside them.
+11. train    the segmenter's train step: the flagship arch at its imgsz, batch
+             16, bf16 compute with float32 parameters, params and EMA from the
+             flagship weights; 10 steps on synthetic walkway batches from
+             BatchLoader(augment=False) with the bgr wire, then 10 with the
+             i420 wire: every loss component finite, foreground anchors
+             assigned, params, EMA and batch statistics moved; ms a step (CUDA
+             events, median), images/s, peak memory; one more step under
+             torch.profiler for its launches and device time; the state saved,
+             reloaded into a fresh model, and the next step equal bit for bit;
+             a float32 step (TF32 off) of yolov8n-seg@64 batch 2 on the card
+             against the CPU. No planning kernel runs (counts zeroed before,
+             read after).
+12. eval     evaluate() on 32 held-out synthetic walkways with the flagship and
+             with the trained EMA weights: mask and box mAP, ms a batch of the
+             evaluation step and of its NMS alone; the EMA weights written by
+             save_variables and read by load_variables give the same
+             detections.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -98,6 +115,7 @@ lattices) and timings; ``--astar-source FILE`` builds the A* kernel from
 another source with the same C interface (another commit's
 ``csrc/astar.cu``), to time it on the same inputs:
 ``python3 chip_smoke.py --astar-only --astar-source <file>``.
+``--train-only`` runs phases 11 and 12 alone.
 """
 
 from __future__ import annotations
@@ -249,6 +267,224 @@ def path_cells(res):
     return [[(c.row, c.col) for c in p.cells] for p in res.paths]
 
 
+TRAIN_WEIGHTS_V8 = "v8n_256_study_best.msgpack"     # a yolov8n-seg checkpoint
+
+
+def train_phase(torch, dev, arch, variables, imgsz=256, batch=16, steps=10,
+                n_images=64, frame_hw=(640, 640)):
+    """Phase 11: the segmenter's train step on the card. ``arch`` at
+    ``imgsz`` with float32 parameters and bf16 compute, params and EMA from
+    ``variables`` (the resume path); ``steps`` steps on batches of the
+    synthetic walkway set from the loader's bgr wire, then as many from its
+    i420 wire; the launches and device time of one step under the profiler;
+    save and resume bit for bit; a float32 step on the card against the CPU.
+    Returns (model, state, cfg) for phase 12."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_assist_tpu_torch.data.loader import BatchLoader
+    from vision_assist_tpu_torch.io.synthetic import WalkwaySet
+    from vision_assist_tpu_torch.models import checkpoint, train
+    from vision_assist_tpu_torch.models.losses import LossConfig
+    from vision_assist_tpu_torch.models.yolo import YoloSeg, convert_flax_variables
+
+    def build(arch_, variables_, dtype, device):
+        model = YoloSeg(arch_, dtype=dtype, param_dtype=torch.float32)
+        model.load_state_dict(convert_flax_variables(variables_, model))
+        return model.to(device)
+
+    ds = WalkwaySet(n_images, *frame_hw, seed=100)
+    cfg = train.TrainConfig(imgsz=imgsz, batch_size=batch)
+    loaders = {w: BatchLoader(ds, batch_size=batch, imgsz=imgsz, augment=False,
+                              seed=0, wire_format=w) for w in ("bgr", "i420")}
+    steps_per_epoch = len(loaders["bgr"])
+    model = build(arch, variables, torch.bfloat16, dev)
+    state = train.create_train_state(model, cfg, steps_per_epoch, device=dev)
+    before = {name: {k: v.detach().clone() for k, v in getattr(state, name).items()}
+              for name in ("params", "batch_stats", "ema_params")}
+    loss_cfg = LossConfig()
+    steppers = {w: train.make_train_step(model, loss_cfg,
+                                         dataclasses.replace(cfg, wire_format=w))
+                for w in ("bgr", "i420")}
+
+    def batches(loader):
+        while True:
+            yield from loader.epoch(workers=4)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed, last = {}, {}
+    for wire, loader in loaders.items():
+        ms, wall = [], []
+        source = batches(loader)
+        for _ in range(steps):
+            b = next(source)
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            h0 = time.perf_counter()
+            t0.record()
+            state, metrics = steppers[wire](state, b)
+            t1.record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - h0) * 1e3)
+            ms.append(t0.elapsed_time(t1))
+            vals = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in vals.values()) or vals["fg_per_img"] <= 0:
+                raise AssertionError(f"train {wire} step {state.step}: {vals}")
+            log(f"phase train {wire} step {state.step}: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in vals.items()) + f"; {ms[-1]:.3f} ms")
+        last[wire] = b
+        # The first step of a wire sets up cuDNN for its shapes: not timed.
+        timed[wire] = (statistics.median(ms[1:]), statistics.median(wall[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    for name, old in before.items():
+        moved = max(float((getattr(state, name)[k].detach() - v).abs().max())
+                    for k, v in old.items())
+        if not moved > 0:
+            raise AssertionError(f"train: {name} did not move in {state.step} steps")
+        log(f"phase train: {name} moved, largest change {moved:.6g}")
+
+    # One step under the profiler: its launches and device time.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        state, _ = steppers["bgr"](state, last["bgr"])
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - h0) * 1e3
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in on_device if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
+    for wire, (ms, wall) in timed.items():
+        log(f"phase train {wire}: {arch}@{imgsz} batch {batch}, bf16 compute, float32 "
+            f"params, {ms:.3f} ms a step (CUDA events, median of {steps - 1}), "
+            f"{batch / ms * 1e3:.1f} images/s, host clock {wall:.3f} ms a step")
+    log(f"phase train launches: {len(kernels)} kernels and {len(on_device) - len(kernels)} "
+        f"copies/memsets a step, device busy {busy:.3f} ms of {prof_wall:.3f} ms under the "
+        f"profiler (idle share {1 - busy / prof_wall:.3f}); peak memory "
+        f"{peak} B ({peak / 2 ** 30:.3f} GiB) torch.cuda.max_memory_allocated")
+
+    # Save, resume, and the next step bit for bit (deterministic cuDNN).
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "state.pt"
+        checkpoint.save_train_state(path, state)
+        model2 = build(arch, variables, torch.bfloat16, dev)
+        state2 = checkpoint.load_train_state(
+            path, train.create_train_state(model2, cfg, steps_per_epoch, device=dev))
+    step2 = train.make_train_step(model2, loss_cfg, cfg)
+    state, m1 = steppers["bgr"](state, last["bgr"])
+    state2, m2 = step2(state2, last["bgr"])
+    for name in ("params", "batch_stats", "ema_params"):
+        for k, v in getattr(state, name).items():
+            if not torch.equal(v, getattr(state2, name)[k]):
+                raise AssertionError(f"resume: {name} {k} differs by "
+                                     f"{float((v - getattr(state2, name)[k]).abs().max())}")
+    if not (torch.equal(state.trace, state2.trace) and state.step == state2.step
+            and float(m1["loss"]) == float(m2["loss"])):
+        raise AssertionError("resume: momentum, step or loss differ")
+    torch.backends.cudnn.deterministic = False
+    log(f"phase train resume: saved at step {state.step - 1}, reloaded into a fresh "
+        "model, the next step equal bit for bit (params, batch stats, EMA, momentum, "
+        "loss)")
+
+    # float32 (TF32 off): one step on the card against the same step on the CPU.
+    from vision_assist_tpu_torch.models.checkpoint import load_variables
+
+    v8 = load_variables(REPO / "assets" / "weights" / TRAIN_WEIGHTS_V8)
+    cfg64 = train.TrainConfig(imgsz=64, batch_size=2, lr0=0.01, warmup_epochs=0)
+    small = BatchLoader(WalkwaySet(4, 160, 160, seed=1), batch_size=2, imgsz=64,
+                        augment=False)._pack(np.arange(2))
+    after = []
+    for device in (dev, torch.device("cpu")):
+        m = build("yolov8n-seg", v8, torch.float32, device)
+        s = train.create_train_state(m, cfg64, 10, device=device)
+        s, met = train.make_train_step(m, LossConfig(mask_topk=16), cfg64)(s, small)
+        after.append((float(met["loss"]), s))
+    (loss_card, card), (loss_cpu, cpu) = after
+    diffs = {name: max(float((v.detach().cpu() - getattr(cpu, name)[k].detach()).abs().max())
+                       for k, v in getattr(card, name).items())
+             for name in ("params", "batch_stats", "ema_params")}
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    if rel > 1e-4 or diffs["params"] > 1e-5 or diffs["ema_params"] > 1e-5 \
+            or diffs["batch_stats"] > 1e-4:
+        raise AssertionError(f"float32 step card vs CPU: loss {loss_card} vs {loss_cpu}, "
+                             f"largest differences {diffs}")
+    log(f"phase train check: float32 yolov8n-seg@64 batch 2 ({TRAIN_WEIGHTS_V8}), one step "
+        f"on the card against the CPU: loss {loss_card:.6f} vs {loss_cpu:.6f} (relative "
+        f"{rel:.3g}, limit 1e-4), largest differences params {diffs['params']:.3g} (limit "
+        f"1e-5), EMA {diffs['ema_params']:.3g} (1e-5), batch stats "
+        f"{diffs['batch_stats']:.3g} (1e-4)")
+    return model, state, cfg
+
+
+def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
+               n_images=32, frame_hw=(640, 640)):
+    """Phase 12: evaluate() over held-out synthetic walkways with the
+    flagship and with the trained EMA weights (training batch stats); the
+    evaluation step and its NMS alone timed on one batch; the EMA weights
+    through save_variables and load_variables give the same detections."""
+    import tempfile
+
+    import numpy as np
+
+    from vision_assist_tpu_torch.data.augment import letterbox_np
+    from vision_assist_tpu_torch.io.synthetic import WalkwaySet
+    from vision_assist_tpu_torch.models.checkpoint import load_variables, save_variables
+    from vision_assist_tpu_torch.models.decode import decode_boxes, nms
+    from vision_assist_tpu_torch.models.evaluate import evaluate, make_eval_step
+    from vision_assist_tpu_torch.models.yolo import (
+        YoloSeg,
+        convert_flax_variables,
+        to_flax_variables,
+    )
+
+    def eval_model(state_dict=None, flax=None):
+        m = YoloSeg(arch, dtype=torch.bfloat16, param_dtype=torch.float32)
+        m.load_state_dict(state_dict if flax is None else convert_flax_variables(flax, m))
+        return m.to(dev).eval()
+
+    ds = WalkwaySet(n_images, *frame_hw, seed=200)
+    imgs = torch.from_numpy(np.stack([
+        letterbox_np(ds.load_image(i), [], imgsz)[0][..., ::-1]
+        for i in range(batch)])).to(dev)
+    models = {"flagship": eval_model(flax=variables),
+              "ema": eval_model(state.eval_state_dict(model))}
+    for label, m in models.items():
+        t0 = time.perf_counter()
+        maps = evaluate(m, ds, imgsz=imgsz, batch_size=batch, device=dev)
+        wall = time.perf_counter() - t0
+        step = make_eval_step(m, imgsz)
+        step_ms = cuda_ms(torch, lambda: step(imgs), reps=3, warmup=1)
+        with torch.no_grad():
+            outs = m(imgs.float().permute(0, 3, 1, 2) / 255.0)
+            boxes, cls_logits, coeffs = decode_boxes(outs, 16)
+        nms_ms = cuda_ms(torch, lambda: nms(boxes, cls_logits, coeffs, conf_threshold=0.001,
+                                             iou_threshold=0.7, max_candidates=1024,
+                                             max_det=300), reps=3, warmup=1)
+        if not 0.0 <= maps["map50_mask"] <= 1.0 or (
+                label == "flagship" and maps["map50_mask"] <= 0.0):
+            raise AssertionError(f"eval {label}: {maps}")
+        log(f"phase eval {label}: {n_images} images, mask mAP50 {maps['map50_mask']:.4f} "
+            f"mAP50-95 {maps['map50_95_mask']:.4f}, box mAP50 {maps['map50_box']:.4f} "
+            f"mAP50-95 {maps['map50_95_box']:.4f}; evaluate() {wall:.3f} s; eval step "
+            f"{step_ms:.3f} ms a batch of {batch} (CUDA events), NMS alone {nms_ms:.3f} ms "
+            f"({nms_ms / step_ms:.3f} of it)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "ema.msgpack"
+        save_variables(path, to_flax_variables(models["ema"]))
+        reloaded = eval_model(flax=load_variables(path))
+    (d1, k1), (d2, k2) = (make_eval_step(m, imgsz)(imgs) for m in (models["ema"], reloaded))
+    if not (all(torch.equal(getattr(d1, f), getattr(d2, f))
+                for f in ("boxes", "scores", "classes", "valid")) and torch.equal(k1, k2)):
+        raise AssertionError("eval: the EMA weights through msgpack detect differently")
+    log(f"phase eval msgpack: EMA weights written by save_variables and read back by "
+        f"load_variables give the same detections ({int(d1.valid.sum())} on {batch} "
+        "images) and masks, bit for bit")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
@@ -260,6 +496,8 @@ def main() -> int:
                          "port's csrc/astar.cu (same C interface)")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this directory instead")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the train and eval phases (11, 12)")
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
@@ -314,6 +552,33 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t_start = time.perf_counter()
+
+    def print_card():
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        log(f"nvidia-smi: {smi}")
+
+    def train_and_eval():
+        """Phases 11 and 12 with the flagship; no kernel of the port runs."""
+        rec = flagship.flagship()
+        variables = flagship.load_flagship_variables()
+        if variables is None:
+            raise FileNotFoundError("flagship weights missing from assets/weights")
+        t0 = time.perf_counter()
+        model, state, _ = train_phase(torch, dev, rec["arch"], variables,
+                                      imgsz=int(rec["imgsz"]))
+        t1 = time.perf_counter()
+        eval_phase(torch, dev, rec["arch"], variables, model, state,
+                   imgsz=int(rec["imgsz"]))
+        log(f"phase train took {t1 - t0:.1f} s, phase eval "
+            f"{time.perf_counter() - t1:.1f} s")
+
+    if args.train_only:
+        train_and_eval()
+        print_card()
+        return 0
 
     # -- 1. build ------------------------------------------------------------------
     # One compiler process a source, all started together.
@@ -528,13 +793,6 @@ def main() -> int:
                 f"({bounds['n_bytes']} B, {bounds['n_ops']} operations), one-SM bound "
                 f"{bounds['one_sm_ms']:.6f} ms; latency-bound")
         return astar_timed
-
-    def print_card():
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip()
-        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-        log(f"nvidia-smi: {smi}")
 
     if args.relax_only:
         time_relax()
@@ -1013,6 +1271,13 @@ def main() -> int:
         f"{statistics.median(sweep_lat):.3f} ms, exact "
         f"{statistics.median(exact_lat):.3f} ms, exact_device "
         f"{statistics.median(ed_lat):.3f} ms")
+
+    # -- 11. train, 12. eval: no planning kernel runs on this path ---------------------
+    cuda_wavefront.reset_launches()
+    cuda_astar.reset_launches()
+    train_and_eval()
+    if cuda_wavefront.launches or cuda_astar.launches:
+        raise AssertionError("the train and eval phases launched a planning kernel")
 
     print_card()
     print(json.dumps({"kernels": [{

@@ -1,0 +1,250 @@
+"""YOLO-seg labels: polygon label parsing and fixed-shape target packing.
+
+Counterpart of the label half of ``vision_assist_tpu/data/dataset.py``
+(polygon labels "cls x1 y1 x2 y2 ..." normalised to [0, 1]; one overlap-index
+mask at imgsz / mask_ratio, ultralytics overlap_mask semantics). The
+rasteriser is numpy: :func:`fill_poly` follows OpenCV's ``cv2.fillPoly``
+(8-connected outline, then even-odd scanline spans in 16.16 fixed point), so
+the masks equal the JAX package's pixel for pixel where the two were compared
+(``tests/test_torch_data.py``). Reading images from a dataset directory is not
+here yet: a dataset is any object with ``records``, ``load_image(i)`` and
+``__len__``, such as ``io/synthetic.py::WalkwaySet``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+
+import numpy as np
+
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+
+
+@dataclasses.dataclass
+class ImageRecord:
+    image_path: pathlib.Path
+    polygons: list[np.ndarray]      # each (Ni, 2) float32, normalised [0,1]
+    classes: np.ndarray             # (N,) int32
+
+
+def parse_label_file(path: pathlib.Path) -> tuple[list[np.ndarray], np.ndarray]:
+    polygons: list[np.ndarray] = []
+    classes: list[int] = []
+    if not path.exists():
+        return polygons, np.zeros((0,), np.int32)
+    for line in path.read_text().strip().splitlines():
+        parts = line.split()
+        if len(parts) < 7 or len(parts) % 2 == 0:
+            # class + at least 3 points; an odd coordinate count (even token
+            # total) is a malformed line: skipped like a short one.
+            continue
+        classes.append(int(float(parts[0])))
+        pts = np.array(parts[1:], dtype=np.float32).reshape(-1, 2)
+        polygons.append(pts)
+    return polygons, np.asarray(classes, np.int32)
+
+
+def _clip_line(w: int, h: int, p1: list[int], p2: list[int]) -> bool:
+    """OpenCV's ``clipLine`` on an image of w x h, in place on p1 and p2;
+    False when the segment misses the image."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(*p1), code(*p2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        # The second endpoint is moved with the first one's new value, as
+        # OpenCV does; the quotient truncates toward zero.
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            p1[0] += int((a - p1[1]) * (p2[0] - p1[0]) / (p2[1] - p1[1]))
+            p1[1] = a
+            c1 = (p1[0] < 0) + (p1[0] > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            p2[0] += int((a - p2[1]) * (p2[0] - p1[0]) / (p2[1] - p1[1]))
+            p2[1] = a
+            c2 = (p2[0] < 0) + (p2[0] > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                p1[1] += int((a - p1[0]) * (p2[1] - p1[1]) / (p2[0] - p1[0]))
+                p1[0] = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                p2[1] += int((a - p2[0]) * (p2[1] - p1[1]) / (p2[0] - p1[0]))
+                p2[0] = a
+                c2 = 0
+    return (c1 | c2) == 0
+
+
+def _line8(mask: np.ndarray, p1: list[int], p2: list[int], value: int) -> None:
+    """OpenCV's 8-connected ``Line`` (Bresenham, drawn left to right)."""
+    h, w = mask.shape
+    p1, p2 = list(p1), list(p2)
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
+            and 0 <= p2[1] < h) and not _clip_line(w, h, p1, p2):
+        return
+    if p2[0] < p1[0]:
+        p1, p2 = p2, p1
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    err = major - 2 * minor
+    x, y = p1
+    for _ in range(major + 1):
+        mask[y, x] = value
+        step_minor = err < 0
+        err += -2 * minor + (2 * major if step_minor else 0)
+        if vert:
+            y += sy
+            x += 1 if step_minor else 0
+        else:
+            x += 1
+            y += sy if step_minor else 0
+
+
+class _Edge:
+    __slots__ = ("y0", "y1", "x", "dx", "next")
+
+    def __init__(self, y0=0, y1=0, x=0, dx=0):
+        self.y0, self.y1, self.x, self.dx, self.next = y0, y1, x, dx, None
+
+
+def _int_div(a: int, b: int) -> int:
+    """C's integer division (truncation toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int) -> None:
+    """``cv2.fillPoly(mask, [pts], value)`` for one contour of integer
+    vertices on a 2-D uint8 mask (8-connected, no shift), in place."""
+    h, w = mask.shape
+    pts = [(int(x), int(y)) for x, y in pts]
+    edges: list[_Edge] = []
+    x0, y0 = pts[-1]
+    for x1, y1 in pts:
+        t0, t1 = [x0, y0], [x1, y1]
+        _line8(mask, t0, t1, value)
+        c0x, c0y, c1x, c1y = x0 << _XY_SHIFT, y0, x1 << _XY_SHIFT, y1
+        if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
+            # The edge starts from its clipped endpoints.
+            _clip_line(w, h, t0, t1)
+            if t0[1] != t1[1]:
+                c0x, c0y = t0[0] << _XY_SHIFT, t0[1]
+                c1x, c1y = t1[0] << _XY_SHIFT, t1[1]
+        if y0 != y1:
+            dx = _int_div(c1x - c0x, c1y - c0y)
+            if y0 < y1:
+                edges.append(_Edge(y0, y1, c0x + (y0 - c0y) * dx, dx))
+            else:
+                edges.append(_Edge(y1, y0, c1x + (y1 - c1y) * dx, dx))
+        x0, y0 = x1, y1
+    _fill_edges(mask, edges, value)
+
+
+def _fill_edges(mask: np.ndarray, edges: list[_Edge], value: int) -> None:
+    """OpenCV's ``FillEdgeCollection``: an active edge list walked row by
+    row, spans drawn between alternate edges."""
+    h, w = mask.shape
+    total = len(edges)
+    if total < 2:
+        return
+    y_min = min(e.y0 for e in edges)
+    y_max = max(e.y1 for e in edges)
+    xs = [e.x for e in edges] + [e.x + (e.y1 - e.y0) * e.dx for e in edges]
+    if y_max < 0 or y_min >= h or max(xs) < 0 or min(xs) >= (w << _XY_SHIFT):
+        return
+    edges = sorted(edges, key=lambda e: (e.y0, e.x, e.dx))
+    edges.append(_Edge(y0=2 ** 31 - 1))          # sentinel
+    head = _Edge()
+    i = 0
+    e = edges[0]
+    y_max = min(y_max, h)
+    for y in range(e.y0, y_max):
+        prelast, last, draw = head, head.next, False
+        while last is not None or e.y0 == y:
+            if last is not None and last.y1 == y:
+                prelast.next = last.next          # the edge ends here
+                last = last.next
+                continue
+            keep_prelast = prelast
+            if last is not None and (e.y0 > y or last.x < e.x):
+                prelast, last = last, last.next
+            elif i < total:
+                prelast.next, e.next = e, last    # the edge starts here
+                prelast = e
+                i += 1
+                e = edges[i]
+            else:
+                break
+            if draw:
+                if y >= 0:
+                    a, b = keep_prelast.x, prelast.x
+                    lo, hi = (b, a) if a > b else (a, b)
+                    x1, x2 = (lo + _XY_ONE - 1) >> _XY_SHIFT, hi >> _XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        mask[y, max(x1, 0):min(x2, w - 1) + 1] = value
+                keep_prelast.x += keep_prelast.dx
+                prelast.x += prelast.dx
+            draw = not draw
+        # Keep the active list ordered by x (a stable bubble sort).
+        active = []
+        node = head.next
+        while node is not None:
+            active.append(node)
+            node = node.next
+        active.sort(key=lambda n: n.x)
+        head.next = None
+        for node in reversed(active):
+            node.next, head.next = head.next, node
+
+
+def polygons_to_overlap_mask(polygons: list[np.ndarray], classes: np.ndarray,
+                             hw: tuple[int, int], mask_hw: tuple[int, int],
+                             max_instances: int
+                             ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Rasterise polygons (in PIXEL coords of an hw-sized image) to the
+    overlap-index mask + packed boxes, ultralytics overlap_mask semantics:
+    instances sorted by area descending, drawn with values 1..N so smaller
+    instances overwrite larger ones.
+
+    Returns (index_mask (mh, mw) uint8, boxes_xyxy (max_instances, 4) pixels,
+    classes (max_instances,), valid (max_instances,)).
+    """
+    h, w = hw
+    mh, mw = mask_hw
+    sx, sy = mw / w, mh / h
+
+    # Rank all instances by bbox area, then keep the largest max_instances;
+    # the kept list is area-descending, the paint order.
+    areas = []
+    for p in polygons:
+        x1, y1 = p.min(axis=0)
+        x2, y2 = p.max(axis=0)
+        areas.append(max(x2 - x1, 0) * max(y2 - y1, 0))
+    order = (np.argsort(-np.asarray(areas))[:max_instances]
+             if polygons else np.zeros(0, np.int64))
+
+    mask = np.zeros((mh, mw), np.uint8)
+    boxes = np.zeros((max_instances, 4), np.float32)
+    cls_out = np.zeros((max_instances,), np.int32)
+    valid = np.zeros((max_instances,), bool)
+
+    for slot, inst in enumerate(order):
+        p = polygons[inst]
+        fill_poly(mask, np.round(p * [sx, sy]).astype(np.int32), slot + 1)
+        x1, y1 = p.min(axis=0)
+        x2, y2 = p.max(axis=0)
+        boxes[slot] = [x1, y1, x2, y2]
+        cls_out[slot] = classes[inst] if inst < len(classes) else 0
+        valid[slot] = (x2 > x1) and (y2 > y1)
+
+    return mask, boxes, cls_out, valid

@@ -5,19 +5,29 @@ The flagship segmenter finds the walkway in most of these frames, so they
 drive the whole frame path (detections, lattice, peaks and paths) without
 any image file or decoder. The walkway's far end shifts left or right from
 frame to frame, so the answers vary.
+
+The walkway is a trapezoid known exactly, so :class:`WalkwaySet` also serves
+the frames as a labelled segmentation set (the walkway as one class-0
+polygon), for training and evaluation without a dataset on disk.
 """
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 
+from vision_assist_tpu_torch.data.dataset import ImageRecord
 
-def walkway_frames(n: int, h: int = 640, w: int = 640,
-                   seed: int = 0) -> np.ndarray:
-    """(n, h, w, 3) uint8 BGR frames, reproducible from ``seed``."""
+
+def _walkway_scenes(n: int, h: int, w: int, seed: int
+                    ) -> tuple[np.ndarray, list[np.ndarray]]:
+    """(n, h, w, 3) uint8 BGR frames and each frame's walkway trapezoid,
+    (4, 2) float32 in pixels: far left, far right, near right, near left."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = np.empty((n, h, w, 3), np.uint8)
+    polygons = []
     for i in range(n):
         horizon = h * rng.uniform(0.2, 0.3)
         top_w = w * rng.uniform(0.1, 0.2)
@@ -32,4 +42,35 @@ def walkway_frames(n: int, h: int = 640, w: int = 640,
         f[yy <= horizon] = (200, 170, 140)                    # sky
         f += rng.integers(-25, 26, f.shape)
         frames[i] = np.clip(f, 0, 255)
-    return frames
+        far = w / 2 + shift
+        polygons.append(np.array(
+            [[far - top_w / 2, horizon], [far + top_w / 2, horizon],
+             [w / 2 + bot_w / 2, h], [w / 2 - bot_w / 2, h]], np.float32))
+    return frames, polygons
+
+
+def walkway_frames(n: int, h: int = 640, w: int = 640,
+                   seed: int = 0) -> np.ndarray:
+    """(n, h, w, 3) uint8 BGR frames, reproducible from ``seed``."""
+    return _walkway_scenes(n, h, w, seed)[0]
+
+
+class WalkwaySet:
+    """The frames of :func:`walkway_frames` as a labelled segmentation set:
+    each frame's walkway is one class-0 polygon, normalised to [0, 1]. It
+    has what the batch loader and the evaluator read from a dataset:
+    ``records``, ``load_image(i)`` (BGR uint8) and ``len()``."""
+
+    def __init__(self, n: int, h: int = 640, w: int = 640, seed: int = 0):
+        self.frames, polygons = _walkway_scenes(n, h, w, seed)
+        self.records = [
+            ImageRecord(pathlib.Path(f"walkway_{seed}_{i}.png"),
+                        [p / np.array([w, h], np.float32)],
+                        np.zeros(1, np.int32))
+            for i, p in enumerate(polygons)]
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def load_image(self, idx: int) -> np.ndarray:
+        return self.frames[idx]

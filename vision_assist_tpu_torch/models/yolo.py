@@ -11,6 +11,13 @@ Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution where
 ``nn.Conv2d(padding=1)`` would pad (1, 1); :func:`_pad_same` pads explicitly.
 Flax's ``ConvTranspose`` does not flip its kernel, PyTorch's does: the bridge
 flips the spatial taps.
+
+Serving stores every weight in the compute dtype. Training builds the model
+with ``param_dtype=torch.float32`` (the Flax ``param_dtype``): the weights stay
+float32 and each convolution casts its weight to the compute dtype, because an
+SGD update of lr * g ~ 1e-5 is lost in a bf16 weight. In train mode
+(``model.train()``) BatchNorm follows Flax, not ``nn.BatchNorm2d``: see
+:func:`_flax_batch_norm_train`.
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ SCALES_11 = {
 }
 
 
+# Flax's BatchNorm keeps 0.97 of the running statistics a step.
+FLAX_BN_MOMENTUM = 0.97
+
+
 def _round_ch(c: float) -> int:
     return max(int(round(c)), 1)
 
@@ -58,8 +69,24 @@ def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def _flax_batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Flax ``BatchNorm(use_running_average=False)`` on float32 ``y``:
+    normalise by the batch mean and the biased batch variance over (N, H, W),
+    and move the running statistics 0.03 of the way to them. The running
+    variance takes the biased variance too; ``nn.BatchNorm2d`` would take the
+    unbiased one and drift by n / (n - 1) a step."""
+    out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True,
+                       eps=bn.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+        bn.running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
+        bn.running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
+    return out
+
+
 class ConvBNAct(nn.Module):
-    """Conv (no bias, compute dtype) + BatchNorm (float32) + optional SiLU."""
+    """Conv (no bias, compute dtype) + BatchNorm (float32) + optional SiLU.
+    The weight is cast to the compute dtype where it is stored in another."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
                  groups: int = 1, act: bool = True,
@@ -71,8 +98,11 @@ class ConvBNAct(nn.Module):
         self.bn = nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(_pad_same(x, self.kernel, self.stride))
-        y = self.bn(y.float())
+        conv = self.conv
+        y = F.conv2d(_pad_same(x, self.kernel, self.stride),
+                     conv.weight.to(self.dtype), None, conv.stride, 0, 1,
+                     conv.groups).float()
+        y = _flax_batch_norm_train(y, self.bn) if self.training else self.bn(y)
         return (F.silu(y) if self.act else y).to(self.dtype)
 
 
@@ -245,7 +275,11 @@ class Proto(nn.Module):
         self.cv3 = ConvBNAct(hidden, out, 1, dtype=dtype)
 
     def forward(self, x):
-        return self.cv3(self.cv2(self.up(self.cv1(x))))
+        x = self.cv1(x)
+        up = self.up
+        x = F.conv_transpose2d(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
+                               up.stride)
+        return self.cv3(self.cv2(x))
 
 
 @dataclasses.dataclass
@@ -260,13 +294,19 @@ class YoloSegOutputs:
 
 
 class YoloSeg(nn.Module):
-    """YOLOv8/11 segmentation model; images (B, 3, H, W) float in [0, 1]."""
+    """YOLOv8/11 segmentation model; images (B, 3, H, W) float in [0, 1].
+
+    ``dtype`` is the compute dtype of the convolutions; ``param_dtype`` (the
+    compute dtype when None) the dtype their weights are stored in. The head's
+    1x1 convolutions and BatchNorm are float32 either way."""
 
     def __init__(self, arch: str = "yolov8n-seg", num_classes: int = 1,
                  reg_max: int = 16, num_masks: int = 32,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.arch, self.reg_max, self.dtype = arch, reg_max, dtype
+        self.param_dtype = dtype if param_dtype is None else param_dtype
         is_v11 = "11" in arch
         legacy = is_v11 and arch.endswith("-legacy")
         letter = arch.replace("-legacy", "").replace("-seg", "")[-1]
@@ -359,6 +399,11 @@ class YoloSeg(nn.Module):
                 [nn.ModuleList(box), nn.ModuleList(cls), nn.ModuleList(mask)]))
         self.heads = nn.ModuleList(heads)
         self.proto = Proto(ch(256), ch(256), num_masks, dtype=dt)
+        if self.param_dtype != dtype:
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+                        and m.weight.dtype == dtype:
+                    m.to(self.param_dtype)
 
     def forward(self, images: torch.Tensor) -> YoloSegOutputs:
         x = images.to(self.dtype)
@@ -415,6 +460,52 @@ def _flax_children(module: nn.Module):
     return out
 
 
+def flax_leaves(model: YoloSeg) -> list[tuple[str, tuple[str, ...], str]]:
+    """(``state_dict`` key, Flax path, layout) of every tensor that has a Flax
+    leaf, in the Flax module's creation order. Layout "conv" is a kernel stored
+    HWIO in Flax and OIHW here (depthwise (3,3,1,C) <-> (C,1,3,3));
+    "conv_transpose" a kernel (kh,kw,in,out) in Flax and (in,out,kh,kw) with
+    both spatial axes flipped here; "same" the same array on both sides."""
+    names = {id(m): n for n, m in model.named_modules()}
+    out = []
+
+    def walk(module, path):
+        for fname, child in _flax_children(module):
+            p, s = ("params",) + path + (fname,), ("batch_stats",) + path + (fname,)
+            name = names[id(child)]
+            if isinstance(child, (nn.Conv2d, nn.ConvTranspose2d)):
+                layout = "conv" if isinstance(child, nn.Conv2d) else "conv_transpose"
+                out.append((f"{name}.weight", p + ("kernel",), layout))
+                if child.bias is not None:
+                    out.append((f"{name}.bias", p + ("bias",), "same"))
+            elif isinstance(child, nn.BatchNorm2d):
+                out.extend([(f"{name}.weight", p + ("scale",), "same"),
+                            (f"{name}.bias", p + ("bias",), "same"),
+                            (f"{name}.running_mean", s + ("mean",), "same"),
+                            (f"{name}.running_var", s + ("var",), "same")])
+            else:
+                walk(child, path + (fname,))
+
+    walk(model, ())
+    return out
+
+
+def _from_flax(value: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "conv":
+        return value.transpose(3, 2, 0, 1)
+    if layout == "conv_transpose":
+        return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    return value
+
+
+def _to_flax(value: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "conv":
+        value = value.transpose(2, 3, 1, 0)
+    elif layout == "conv_transpose":
+        value = value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return np.ascontiguousarray(value)
+
+
 def convert_flax_variables(variables, model: YoloSeg) -> dict[str, torch.Tensor]:
     """Flax ``{"params", "batch_stats"}`` tree -> ``model.state_dict()`` keys.
 
@@ -423,7 +514,7 @@ def convert_flax_variables(variables, model: YoloSeg) -> dict[str, torch.Tensor]
     spatial axes flipped. Raises if a Flax leaf is left unconsumed or a
     model tensor is left unfilled, or if any shape disagrees."""
     consumed: set[tuple[str, ...]] = set()
-    names = {id(m): n for n, m in model.named_modules()}
+    want = model.state_dict()
     state: dict[str, torch.Tensor] = {}
 
     def take(path: tuple[str, ...]) -> np.ndarray:
@@ -436,34 +527,15 @@ def convert_flax_variables(variables, model: YoloSeg) -> dict[str, torch.Tensor]
         consumed.add(path)
         return np.asarray(node)
 
-    def put(module, key, value):
-        name = f"{names[id(module)]}.{key}"
-        want = tuple(getattr(module, key).shape)
-        if tuple(value.shape) != want:
-            raise ValueError(f"{name}: flax shape {value.shape} != {want}")
-        state[name] = torch.from_numpy(np.array(value))
-
-    def walk(module, path):
-        for fname, child in _flax_children(module):
-            p, s = ("params",) + path + (fname,), ("batch_stats",) + path + (fname,)
-            if isinstance(child, nn.Conv2d):
-                put(child, "weight", take(p + ("kernel",)).transpose(3, 2, 0, 1))
-                if child.bias is not None:
-                    put(child, "bias", take(p + ("bias",)))
-            elif isinstance(child, nn.ConvTranspose2d):
-                k = take(p + ("kernel",)).transpose(2, 3, 0, 1)
-                put(child, "weight", k[:, :, ::-1, ::-1])
-                put(child, "bias", take(p + ("bias",)))
-            elif isinstance(child, nn.BatchNorm2d):
-                put(child, "weight", take(p + ("scale",)))
-                put(child, "bias", take(p + ("bias",)))
-                put(child, "running_mean", take(s + ("mean",)))
-                put(child, "running_var", take(s + ("var",)))
-                state[f"{names[id(child)]}.num_batches_tracked"] = torch.tensor(0)
-            else:
-                walk(child, path + (fname,))
-
-    walk(model, ())
+    for key, path, layout in flax_leaves(model):
+        value = _from_flax(take(path), layout)
+        if tuple(value.shape) != tuple(want[key].shape):
+            raise ValueError(f"{key}: flax shape {value.shape} != "
+                             f"{tuple(want[key].shape)}")
+        state[key] = torch.from_numpy(np.array(value))
+    for key in want:
+        if key.endswith(".num_batches_tracked"):
+            state[key] = torch.tensor(0)
 
     def leaves(tree, path=()):
         if isinstance(tree, dict):
@@ -475,7 +547,31 @@ def convert_flax_variables(variables, model: YoloSeg) -> dict[str, torch.Tensor]
     left = [p for p in leaves(variables) if p not in consumed]
     if left:
         raise ValueError(f"{len(left)} flax leaves not consumed, e.g. {left[:3]}")
-    missing = set(model.state_dict()) - set(state)
+    missing = set(want) - set(state)
     if missing:
         raise ValueError(f"model tensors not filled: {sorted(missing)[:5]}")
     return state
+
+
+def to_flax_variables(model: YoloSeg,
+                      state: dict[str, torch.Tensor] | None = None) -> dict:
+    """The inverse of :func:`convert_flax_variables`: ``state`` (the model's
+    own ``state_dict()`` when None) as the Flax ``{"params", "batch_stats"}``
+    tree of float32 numpy arrays, the tree Flax's ``param_dtype=float32``
+    model holds."""
+    state = model.state_dict() if state is None else state
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, path, layout in flax_leaves(model):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        value = state[key].detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = _to_flax(value, layout)
+    return tree
+
+
+def weight_decay_mask(model: YoloSeg) -> list[bool]:
+    """For each of ``model.parameters()``: whether the JAX optimizer decays it,
+    i.e. whether its Flax leaf is a convolution's "kernel"."""
+    kernels = {key for key, path, _ in flax_leaves(model) if path[-1] == "kernel"}
+    return [name in kernels for name, _ in model.named_parameters()]
