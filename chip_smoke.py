@@ -10,8 +10,9 @@ result line:
 
 1. build     nvcc compiles the relax kernel (csrc/relax.cu) and the A* kernel
              (csrc/astar.cu) for sm_90a and g++ compiles the host engine of
-             engine="exact" (planning/native/engine.cpp), all three at once,
-             into .torch_ext_build/, and loads them.
+             engine="exact" (planning/native/engine.cpp) and the PNG reader's
+             unfilter (io/png_unfilter.cpp), all four at once, into
+             .torch_ext_build/, and loads them.
 2. kernel    the relax kernel against its plain PyTorch twin, both on the
              card, on the 13 scenario lattices (one batched launch), on seeded
              random 32x32 and 64x36 lattices with 8 streams and on an odd
@@ -84,7 +85,17 @@ result line:
              behind a device-side sleep, so the host's call overhead is not
              what is timed; the time of back-to-back calls from the host is
              printed beside them.
-11. train    the segmenter's train step: the flagship arch at its imgsz, batch
+11. demo     the six real frames of assets/demo (640x640 PNG, read with the
+             port's read_png; ms a frame, and with the Paeth filter on every
+             row through the native unfilter and through its numpy twin,
+             read back equal) through FrameProcessor with the flagship, on the
+             default engine "exact" and on the kernel wavefront path: launch
+             counts zeroed just before and read just after (one relax launch a
+             frame, none for exact); with the model in float32 (TF32 off) the
+             card against the CPU, as phase 5: detections equal, at most 3
+             occupancy cells differing, and with none, answers and path cells
+             equal. Served answers, detections and median latency printed.
+12. train    the segmenter's train step: the flagship arch at its imgsz, batch
              16, bf16 compute with float32 parameters, params and EMA from the
              flagship weights; 10 steps on synthetic walkway batches from
              BatchLoader(augment=False) with the bgr wire, then 10 with the
@@ -94,13 +105,27 @@ result line:
              torch.profiler for its launches and device time; the state saved,
              reloaded into a fresh model, and the next step equal bit for bit;
              a float32 step (TF32 off) of yolov8n-seg@64 batch 2 on the card
-             against the CPU. No planning kernel runs (counts zeroed before,
-             read after).
-12. eval     evaluate() on 32 held-out synthetic walkways with the flagship and
-             with the trained EMA weights: mask and box mAP, ms a batch of the
-             evaluation step and of its NMS alone; the EMA weights written by
-             save_variables and read by load_variables give the same
-             detections.
+             against the CPU.
+13. eval     evaluate_dataset() on 32 held-out synthetic walkways with the
+             flagship and with the trained EMA weights: mask and box mAP, ms a
+             batch of the evaluation step and of its NMS alone; the EMA weights
+             written by save_variables and read by load_variables give the
+             same detections.
+14. train_model  the training driver (python -m
+             vision_assist_tpu_torch.train_model) at the flagship arch and
+             imgsz, batch 16: 64 train and 32 valid synthetic walkways
+             (640x640) written as a PNG dataset under runs/ and read back
+             equal; 4 epochs from the flagship weights (--resume) with
+             close-mosaic 1, an evaluation and a saved state every epoch, the
+             bgr wire; then a 5th epoch from --resume-state. Mosaic closes
+             before the last epoch, history.json holds 5 finite records,
+             best/last read back, the resumed run starts at epoch 5 and its
+             collapse guard (the first epoch it judges) did what the pure
+             rule train_model.collapse_decision says on those records; seconds
+             and images/s an epoch, the step's wait on the loader, the final
+             EMA mask mAP50; then the augmenting loader alone, ms a batch at
+             the driver's worker count and at 1, the card idle. No planning
+             kernel runs in 12-14 (counts zeroed before, read after).
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -115,7 +140,7 @@ lattices) and timings; ``--astar-source FILE`` builds the A* kernel from
 another source with the same C interface (another commit's
 ``csrc/astar.cu``), to time it on the same inputs:
 ``python3 chip_smoke.py --astar-only --astar-source <file>``.
-``--train-only`` runs phases 11 and 12 alone.
+``--train-only`` runs phases 12, 13 and 14 alone.
 """
 
 from __future__ import annotations
@@ -124,10 +149,15 @@ import argparse
 import concurrent.futures
 import json
 import pathlib
+import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import unittest.mock
+import zlib
 
 REPO = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -263,8 +293,43 @@ def relax_bounds(enter, n_passes: int) -> dict:
             "one_sm_ms": ops_ms * N_SMS}
 
 
+def card_name_and_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def with_seconds(fn):
+    """(fn(), its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
 def path_cells(res):
     return [[(c.row, c.col) for c in p.cells] for p in res.paths]
+
+
+def paeth_png(bgr) -> bytes:
+    """An 8-bit RGB PNG of the (H, W, 3) uint8 BGR image ``bgr`` with the
+    Paeth filter on every row, the filter as the PNG specification writes it."""
+    import numpy as np
+
+    x = bgr[..., ::-1].astype(np.int16)
+    h, w, _ = x.shape
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8),
+                           ((x - pred) & 255).astype(np.uint8).reshape(h, w * 3)], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
 TRAIN_WEIGHTS_V8 = "v8n_256_study_best.msgpack"     # a yolov8n-seg checkpoint
@@ -272,13 +337,13 @@ TRAIN_WEIGHTS_V8 = "v8n_256_study_best.msgpack"     # a yolov8n-seg checkpoint
 
 def train_phase(torch, dev, arch, variables, imgsz=256, batch=16, steps=10,
                 n_images=64, frame_hw=(640, 640)):
-    """Phase 11: the segmenter's train step on the card. ``arch`` at
+    """Phase 12: the segmenter's train step on the card. ``arch`` at
     ``imgsz`` with float32 parameters and bf16 compute, params and EMA from
     ``variables`` (the resume path); ``steps`` steps on batches of the
     synthetic walkway set from the loader's bgr wire, then as many from its
     i420 wire; the launches and device time of one step under the profiler;
     save and resume bit for bit; a float32 step on the card against the CPU.
-    Returns (model, state, cfg) for phase 12."""
+    Returns (model, state, cfg) for phase 13."""
     import dataclasses
     import tempfile
 
@@ -421,7 +486,7 @@ def train_phase(torch, dev, arch, variables, imgsz=256, batch=16, steps=10,
 
 def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
                n_images=32, frame_hw=(640, 640)):
-    """Phase 12: evaluate() over held-out synthetic walkways with the
+    """Phase 13: evaluate_dataset() over held-out synthetic walkways with the
     flagship and with the trained EMA weights (training batch stats); the
     evaluation step and its NMS alone timed on one batch; the EMA weights
     through save_variables and load_variables give the same detections."""
@@ -433,7 +498,7 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
     from vision_assist_tpu_torch.io.synthetic import WalkwaySet
     from vision_assist_tpu_torch.models.checkpoint import load_variables, save_variables
     from vision_assist_tpu_torch.models.decode import decode_boxes, nms
-    from vision_assist_tpu_torch.models.evaluate import evaluate, make_eval_step
+    from vision_assist_tpu_torch.models.evaluate import evaluate_dataset, make_eval_step
     from vision_assist_tpu_torch.models.yolo import (
         YoloSeg,
         convert_flax_variables,
@@ -453,7 +518,7 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
               "ema": eval_model(state.eval_state_dict(model))}
     for label, m in models.items():
         t0 = time.perf_counter()
-        maps = evaluate(m, ds, imgsz=imgsz, batch_size=batch, device=dev)
+        maps = evaluate_dataset(m, ds, imgsz=imgsz, batch_size=batch, device=dev)
         wall = time.perf_counter() - t0
         step = make_eval_step(m, imgsz)
         step_ms = cuda_ms(torch, lambda: step(imgs), reps=3, warmup=1)
@@ -468,7 +533,7 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
             raise AssertionError(f"eval {label}: {maps}")
         log(f"phase eval {label}: {n_images} images, mask mAP50 {maps['map50_mask']:.4f} "
             f"mAP50-95 {maps['map50_95_mask']:.4f}, box mAP50 {maps['map50_box']:.4f} "
-            f"mAP50-95 {maps['map50_95_box']:.4f}; evaluate() {wall:.3f} s; eval step "
+            f"mAP50-95 {maps['map50_95_box']:.4f}; evaluate_dataset() {wall:.3f} s; eval step "
             f"{step_ms:.3f} ms a batch of {batch} (CUDA events), NMS alone {nms_ms:.3f} ms "
             f"({nms_ms / step_ms:.3f} of it)")
 
@@ -485,6 +550,157 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
         "images) and masks, bit for bit")
 
 
+class _Tee:
+    """A stdout that prints and keeps what it is given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+EPOCH_LINE = re.compile(r"^epoch (\d+)/(\d+) .*\[([\d.]+)s, ([\d.]+) img/s, "
+                        r"loader wait ([\d.]+)s\]$", re.M)      # the driver's epoch line
+
+
+def train_model_phase(torch, rec, n_train=64, n_valid=32, frame_hw=(640, 640),
+                      batch=16, epochs=4):
+    """Phase 14: the training driver, python -m vision_assist_tpu_torch.train_model,
+    on the card. ``n_train`` + ``n_valid`` synthetic walkways written as a
+    PNG dataset directory under runs/ (git-ignored) and read back equal; the
+    flagship arch at its imgsz, batch 16, from the flagship weights
+    (--resume), ``epochs`` epochs with close-mosaic 1, an evaluation and a
+    saved state every epoch, then one more epoch from the saved state
+    (--resume-state). Then the augmenting loader alone, the card idle."""
+    import contextlib
+
+    import numpy as np
+
+    from vision_assist_tpu_torch import train_model
+    from vision_assist_tpu_torch.data.augment import AugmentConfig
+    from vision_assist_tpu_torch.data.dataset import SegDataset
+    from vision_assist_tpu_torch.data.loader import BatchLoader
+    from vision_assist_tpu_torch.io.png import read_png
+    from vision_assist_tpu_torch.io.synthetic import WalkwaySet, write_split
+    from vision_assist_tpu_torch.models import flagship
+    from vision_assist_tpu_torch.models.checkpoint import load_variables
+
+    work = REPO / "runs" / "chip_smoke_train_model"
+    shutil.rmtree(work, ignore_errors=True)
+    data, out = work / "data", work / "out"
+    t0 = time.perf_counter()
+    sets = {"train": WalkwaySet(n_train, *frame_hw, seed=300),
+            "valid": WalkwaySet(n_valid, *frame_hw, seed=301)}
+    for split, ds in sets.items():
+        write_split(ds, data, split)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for split, ds in sets.items():
+        for i in range(len(ds)):
+            if not np.array_equal(read_png(data / split / "images" / f"{i:04d}.png"),
+                                  ds.load_image(i)):
+                raise AssertionError(f"train_model: {split} image {i} reads back unequal")
+    t_read = time.perf_counter() - t0
+    n_files = n_train + n_valid
+    log(f"phase train_model data: {n_files} walkways of {frame_hw[0]}x{frame_hw[1]} "
+        f"written as PNG in {t_write:.3f} s ({t_write / n_files * 1e3:.3f} ms a file), "
+        f"read back equal by read_png in {t_read:.3f} s ({t_read / n_files * 1e3:.3f} "
+        "ms a file)")
+
+    weights = flagship.weights_path()
+    imgsz = int(rec["imgsz"])
+    argv = ["--data", str(data), "--arch", rec["arch"], "--imgsz", str(imgsz),
+            "--batch", str(batch), "--close-mosaic", "1", "--eval-every", "1",
+            "--save-state-every", "1", "--wire-format", "bgr", "--out", str(out),
+            "--device", "cuda"]
+
+    def run(extra):
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = train_model.main(argv + extra)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"train_model exited {rc}")
+        return "".join(tee.parts), wall
+
+    log1, wall1 = run(["--epochs", str(epochs), "--resume", str(weights)])
+    lines = log1.splitlines()
+    closed = [i for i, ln in enumerate(lines) if ln == "mosaic closed"]
+    last = [i for i, ln in enumerate(lines) if ln.startswith(f"epoch {epochs}/{epochs} ")]
+    before_last = [i for i, ln in enumerate(lines)
+                   if ln.startswith(f"epoch {epochs - 1}/{epochs} ")]
+    if not (len(closed) == 1 and before_last and last
+            and before_last[0] < closed[0] < last[0]):
+        raise AssertionError("train_model: mosaic did not close just before the last epoch")
+    log2, wall2 = run(["--epochs", str(epochs + 1), "--resume-state", str(out / "state")])
+    if f"continuing at epoch {epochs + 1}" not in log2:
+        raise AssertionError(f"train_model: the resumed run did not start at epoch "
+                             f"{epochs + 1}")
+    history = json.loads((out / "history.json").read_text())
+    if [h["epoch"] for h in history] != list(range(1, epochs + 2)):
+        raise AssertionError(f"train_model: history epochs {[h['epoch'] for h in history]}")
+    for h in history:
+        bad = {k: v for k, v in h.items() if isinstance(v, float) and not np.isfinite(v)}
+        if bad or h["fg_per_img"] <= 0:
+            raise AssertionError(f"train_model: epoch {h['epoch']} {h}")
+    for name in ("best.msgpack", "last.msgpack"):
+        tree = load_variables(out / name)
+        if set(tree) != {"params", "batch_stats"}:
+            raise AssertionError(f"train_model: {name} holds {set(tree)}")
+    # The resumed epoch is the first the collapse guard judges (4 healthy
+    # epochs before it, a saved state): the driver must have done what the
+    # rule decides on these records, reverting or not.
+    collapsed, med_loss, med_fg = train_model.collapse_decision(
+        history[:epochs], history[epochs], True)
+    if history[epochs].get("reverted", False) != collapsed:
+        raise AssertionError(f"train_model: epoch {epochs + 1} reverted "
+                             f"{history[epochs].get('reverted', False)}, the rule says "
+                             f"{collapsed}")
+    log(f"phase train_model guard: epoch {epochs + 1} loss {history[epochs]['loss']:.3f}, "
+        f"fg/img {history[epochs]['fg_per_img']:.3f} against the medians {med_loss:.3f} "
+        f"and {med_fg:.3f} of epochs 1-{epochs}: collapse {collapsed}, "
+        f"{'reverted to the saved state' if collapsed else 'kept'}")
+    waits = {int(m[1]): float(m[5]) for m in EPOCH_LINE.finditer(log1 + log2)}
+    on = card_name_and_limit()
+    steps = n_train // batch
+    for h in history:
+        ep, secs, wait = h["epoch"], h["time_s"], waits[h["epoch"]]
+        log(f"phase train_model epoch {ep}: {secs:.3f} s, {steps * batch / secs:.3f} "
+            f"images/s with "
+            f"augmentation, the step waited {wait:.3f} s on the loader "
+            f"({wait / steps * 1e3:.3f} ms a step), {(secs - wait) / steps * 1e3:.3f} ms "
+            f"a step otherwise; mask mAP50 {history[ep - 1]['map50_mask']:.4f}; {on}")
+    final = history[-1]
+    log(f"phase train_model: {rec['arch']}@{imgsz} batch {batch}, {n_train} train / "
+        f"{n_valid} valid images, {epochs} epochs ({wall1:.3f} s in all, the start, "
+        f"evaluations and saves included) then 1 from --resume-state ({wall2:.3f} s); "
+        f"final EMA mask mAP50 {final['map50_mask']:.4f} mAP50-95 "
+        f"{final['map50_95_mask']:.4f}, box mAP50 {final['map50_box']:.4f}; {on}")
+
+    # The augmenting loader alone, the card idle: ms a batch at the driver's
+    # worker count and at one worker, over two epochs each.
+    ds = SegDataset(data, "train", cache_images=imgsz)
+    workers = train_model._parser().get_default("workers")
+    per_batch = {}
+    for n_workers in (workers, 1):
+        loader = BatchLoader(ds, batch_size=batch, imgsz=imgsz, augment=True,
+                             aug=AugmentConfig(), seed=0)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in range(2) for _ in loader.epoch(workers=n_workers))
+        per_batch[n_workers] = (time.perf_counter() - t0) * 1e3 / n
+    log(f"phase train_model loader: the augmenting loader alone (mosaic, affine, "
+        f"masks, bgr) at {rec['arch']}@{imgsz} from the cached set, "
+        f"{per_batch[workers]:.3f} ms a batch of {batch} at {workers} workers, "
+        f"{per_batch[1]:.3f} ms at 1 worker, the card idle; {on}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
@@ -497,7 +713,7 @@ def main() -> int:
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this directory instead")
     ap.add_argument("--train-only", action="store_true",
-                    help="run only the train and eval phases (11, 12)")
+                    help="run only the train, eval and train_model phases (12-14)")
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
@@ -534,6 +750,7 @@ def main() -> int:
             from vision_assist_tpu_torch.pipeline.server import StreamingServer
             from vision_assist_tpu_torch.planning import device_astar, native
         if not (args.relax_only or args.astar_only):
+            from vision_assist_tpu_torch.io import png
             from vision_assist_tpu_torch.pipeline.multi_stream import (
                 MultiStreamProcessor,
             )
@@ -554,14 +771,11 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def print_card():
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip()
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-        log(f"nvidia-smi: {smi}")
+        log(f"nvidia-smi: {card_name_and_limit()}")
 
     def train_and_eval():
-        """Phases 11 and 12 with the flagship; no kernel of the port runs."""
+        """Phases 12, 13 and 14 with the flagship; no kernel of the port runs."""
         rec = flagship.flagship()
         variables = flagship.load_flagship_variables()
         if variables is None:
@@ -572,8 +786,10 @@ def main() -> int:
         t1 = time.perf_counter()
         eval_phase(torch, dev, rec["arch"], variables, model, state,
                    imgsz=int(rec["imgsz"]))
-        log(f"phase train took {t1 - t0:.1f} s, phase eval "
-            f"{time.perf_counter() - t1:.1f} s")
+        t2 = time.perf_counter()
+        train_model_phase(torch, rec)
+        log(f"phase train took {t1 - t0:.1f} s, phase eval {t2 - t1:.1f} s, phase "
+            f"train_model {time.perf_counter() - t2:.1f} s")
 
     if args.train_only:
         train_and_eval()
@@ -582,10 +798,12 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------------
     # One compiler process a source, all started together.
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(cuda_wavefront.build)]
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
+        if not (args.relax_only or args.astar_only):
+            builds.append(pool.submit(with_seconds, png.native_available))
         built = [b.result() for b in builds]
     def how(mod):       # another commit's port (--root) may not say
         return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
@@ -600,6 +818,10 @@ def main() -> int:
             raise AssertionError("the native exact engine did not build (g++)")
         log(f"phase build {native.SOURCE.name}: {how(native)} in "
             f"{native.build_seconds:.3f} s")
+    if not (args.relax_only or args.astar_only):
+        if not built[3][0]:
+            raise AssertionError(f"{png.SOURCE.name} did not build (g++)")
+        log(f"phase build {png.SOURCE.name}: built or loaded in {built[3][1]:.3f} s")
 
     # -- 2. kernel against its twin ----------------------------------------------------
     turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
@@ -1272,7 +1494,79 @@ def main() -> int:
         f"{statistics.median(exact_lat):.3f} ms, exact_device "
         f"{statistics.median(ed_lat):.3f} ms")
 
-    # -- 11. train, 12. eval: no planning kernel runs on this path ---------------------
+    # -- 11. demo: the real frames of assets/demo ------------------------------------------
+    from vision_assist_tpu_torch.io.png import read_png
+
+    t0 = time.perf_counter()
+    demo = [read_png(p) for p in sorted((REPO / "assets" / "demo").glob("*.png"))]
+    read_ms = (time.perf_counter() - t0) * 1e3 / max(len(demo), 1)
+    if len(demo) != 6 or any(f.shape != (h, w, 3) for f in demo):
+        raise AssertionError(f"demo: {len(demo)} frames {[f.shape for f in demo]}")
+    # The reader's other path: the same frames with the Paeth filter on
+    # every row, undone along anti-diagonals.
+    paeth_dir = REPO / "runs" / "chip_smoke_demo"
+    paeth_dir.mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(demo):
+        (paeth_dir / f"{i}.png").write_bytes(paeth_png(frame))
+    t0 = time.perf_counter()
+    paeth_back = [read_png(paeth_dir / f"{i}.png") for i in range(len(demo))]
+    paeth_ms = (time.perf_counter() - t0) * 1e3 / len(demo)
+    # The unfilter's numpy twin (no compiler) on the same files.
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(png, "_load", lambda: None):
+        twin_back = [read_png(paeth_dir / f"{i}.png") for i in range(len(demo))]
+    twin_ms = (time.perf_counter() - t0) * 1e3 / len(demo)
+    shutil.rmtree(paeth_dir)
+    if not all(np.array_equal(a, b) and np.array_equal(t, b)
+               for a, t, b in zip(paeth_back, twin_back, demo)):
+        raise AssertionError("demo: a Paeth-filtered copy reads back unequal")
+    log(f"phase demo png: read_png {read_ms:.3f} ms a 640x640 frame (the demo files, Sub on "
+        f"every row), {paeth_ms:.3f} ms with Paeth on every row, {twin_ms:.3f} ms through "
+        "the numpy twin of the unfilter (both read back equal)")
+    demo_launches = {}
+    for label, pfc in (("exact", exact_pf), ("wavefront_kernel", cfg.pathfinder)):
+        dcfg = cfg.replace(pathfinder=pfc)
+        proc = FrameProcessor(dcfg, segmenter=seg, device=dev)
+        proc(demo[0], now_ms=0)                  # this configuration's first call
+        torch.cuda.synchronize()
+        cuda_wavefront.reset_launches()
+        cuda_astar.reset_launches()
+        served, ms = [], []
+        for i, frame in enumerate(demo):
+            t0 = time.perf_counter()
+            served.append(proc(frame, now_ms=1000 + i * 33))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = (cuda_wavefront.launches, cuda_astar.launches)
+        want = (len(demo), 0) if label == "wavefront_kernel" else (0, 0)
+        if got != want:
+            raise AssertionError(f"demo {label}: (relax, A*) launches {got}, not {want}")
+        demo_launches[label] = got
+        if any(r is None or r.final_answer not in ANSWERS for r in served):
+            raise AssertionError(f"demo {label}: bad result")
+        # float32 (TF32 off), as phase check: the card against the CPU.
+        card = FrameProcessor(dcfg, segmenter=fp32_card.segmenter, device=dev)
+        cpu = FrameProcessor(dcfg, segmenter=fp32_cpu.segmenter, device="cpu")
+        rows = []
+        for i, frame in enumerate(demo):
+            a, b = card(frame, now_ms=i * 33), cpu(frame, now_ms=i * 33)
+            flips = int((a.occupancy != b.occupancy).sum())
+            if a.n_detections != b.n_detections or flips > 3 or (flips == 0 and (
+                    a.final_answer != b.final_answer or path_cells(a) != path_cells(b))):
+                raise AssertionError(
+                    f"demo {label} frame {i}: card {a.final_answer} {a.n_detections} "
+                    f"detections {path_cells(a)} vs cpu {b.final_answer} "
+                    f"{b.n_detections} detections {path_cells(b)}, {flips} occupancy "
+                    "cells differ")
+            rows.append((a.final_answer, a.n_detections, len(a.paths), flips))
+        log(f"phase demo {label}: {len(demo)} real frames (640x640 PNG, read_png "
+            f"{read_ms:.3f} ms a frame), served bf16 answers "
+            f"{[r.final_answer for r in served]}, detections "
+            f"{[r.n_detections for r in served]}, relax launches {got[0]}, A* launches "
+            f"{got[1]}, median latency {statistics.median(ms):.3f} ms; float32 card "
+            f"against the CPU (answer, detections, paths, occupancy cells differing) "
+            f"{rows}")
+
+    # -- 12. train, 13. eval, 14. train_model: no planning kernel runs -----------------
     cuda_wavefront.reset_launches()
     cuda_astar.reset_launches()
     train_and_eval()
@@ -1287,6 +1581,7 @@ def main() -> int:
         "replaces": "vision_assist_tpu/ops/pallas_wavefront.py:121",
         "launches": launches,
         "launches_batch": batch_launches["wavefront_kernel"][0],
+        "launches_demo": demo_launches["wavefront_kernel"][0],
         "max_abs_err": max_abs_err,
         "ms": main_shape["ms"],
         "plain_ms": plain_ms,

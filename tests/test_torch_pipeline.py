@@ -372,3 +372,50 @@ def test_cuda_without_card_raises():
     _, tc = _pipeline_cfgs(640, 640)
     with pytest.raises(RuntimeError, match="CUDA"):
         FrameProcessor(tc)
+
+
+DEMO = sorted((pathlib.Path(__file__).resolve().parents[1] / "assets" / "demo").glob("*.png"))
+
+
+@pytest.fixture(scope="module")
+def demo_frames(frame_slice):
+    """Two of the real demo frames (640x640 PNG) through both packages with
+    the default engine "exact" and the float32 flagship: the JAX side reads
+    them with cv2.imread, the port with read_png. The two are those in which
+    the flagship finds the walkway through the overlay drawn on the frames.
+    Per frame (JAX image, port image, JAX result, port result)."""
+    import cv2
+
+    from vision_assist_tpu_torch.io.png import read_png
+
+    jfp0, tfp0, jseg, _ = frame_slice
+    jc, tc = _exact_cfgs("exact")
+    jfp = JaxFrameProcessor(jc, segmenter=jseg)
+    tfp = FrameProcessor(tc, segmenter=tfp0.segmenter, device="cpu")
+    out = []
+    for i, path in enumerate([DEMO[2], DEMO[5]]):
+        jimg, timg = cv2.imread(str(path)), read_png(path)
+        out.append((jimg, timg, jfp(jimg, now_ms=i * 100), tfp(timg, now_ms=i * 100)))
+    return out
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_demo_frames_match_jax(frame_slice, demo_frames, i):
+    """Detections within the frame path's tolerances (best_conf 1e-5,
+    occupancy flags only where the logit is within 1e-3 of 0); where the
+    flags agree, answers, paths and peaks equal."""
+    jimg, timg, ja, ta = demo_frames[i]
+    np.testing.assert_array_equal(timg, jimg)
+    assert ta.n_detections == ja.n_detections > 0
+    assert ta.best_conf == pytest.approx(ja.best_conf, abs=1e-5)
+    flips = ta.occupancy != ja.occupancy
+    if flips.any():
+        _, _, jseg, winner_logits = frame_slice
+        logits = np.asarray(winner_logits(jseg.variables, jnp.asarray(jimg)))
+        assert np.abs(logits[flips]).max() < 1e-3, int(flips.sum())
+        pytest.fail(f"{int(flips.sum())} occupancy cells at the threshold differ: "
+                    "the guidance cannot be compared on this frame")
+    assert ta.final_answer == ja.final_answer in ANSWERS
+    assert _paths(ta) == _paths(ja)
+    assert _peaks(ta) == _peaks(ja)
+    np.testing.assert_array_equal(ta.penalty, ja.penalty)

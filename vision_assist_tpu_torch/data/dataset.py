@@ -1,22 +1,27 @@
-"""YOLO-seg labels: polygon label parsing and fixed-shape target packing.
+"""YOLO-seg dataset: the split directories, polygon label parsing and
+fixed-shape target packing.
 
-Counterpart of the label half of ``vision_assist_tpu/data/dataset.py``
-(polygon labels "cls x1 y1 x2 y2 ..." normalised to [0, 1]; one overlap-index
-mask at imgsz / mask_ratio, ultralytics overlap_mask semantics). The
+Counterpart of ``vision_assist_tpu/data/dataset.py``: the Roboflow layout
+(``{train,valid,test}/{images,labels}``, polygon labels "cls x1 y1 x2 y2 ..."
+normalised to [0, 1]); one overlap-index mask at imgsz / mask_ratio,
+ultralytics overlap_mask semantics. Images are read with the port's PNG
+reader (``io/png.py``); a JPEG record is listed but raises when it is read,
+since the port has no JPEG decoder. The
 rasteriser is numpy: :func:`fill_poly` follows OpenCV's ``cv2.fillPoly``
-(8-connected outline, then even-odd scanline spans in 16.16 fixed point), so
-the masks equal the JAX package's pixel for pixel where the two were compared
-(``tests/test_torch_data.py``). Reading images from a dataset directory is not
-here yet: a dataset is any object with ``records``, ``load_image(i)`` and
-``__len__``, such as ``io/synthetic.py::WalkwaySet``.
+(8-connected outline, then even-odd scanline spans in 16.16 fixed point, edges
+clipped to the image as OpenCV 5 clips them), so the masks equal the JAX
+package's pixel for pixel (``tests/test_torch_data.py``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import pathlib
 
 import numpy as np
+
+from vision_assist_tpu_torch.io.png import read_png
 
 _XY_SHIFT = 16
 _XY_ONE = 1 << _XY_SHIFT
@@ -44,6 +49,83 @@ def parse_label_file(path: pathlib.Path) -> tuple[list[np.ndarray], np.ndarray]:
         pts = np.array(parts[1:], dtype=np.float32).reshape(-1, 2)
         polygons.append(pts)
     return polygons, np.asarray(classes, np.int32)
+
+
+def _area_weights(n_dst: int, n_src: int) -> np.ndarray:
+    """(n_dst, n_src) weights of an area downscale along one axis: each
+    output pixel is the mean of the source span it covers, partial pixels
+    weighed by the part covered."""
+    scale = n_src / n_dst
+    edges = np.arange(n_dst + 1) * scale
+    lo, hi = edges[:-1, None], edges[1:, None]
+    src = np.arange(n_src)[None, :]
+    cover = np.clip(np.minimum(hi, src + 1) - np.maximum(lo, src), 0, None)
+    return cover / scale
+
+
+def resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W, C) uint8 downscaled to (h, w, C) by area averaging, the
+    sampling of ``cv2.resize(..., INTER_AREA)``; cv2 sums in float32 (or in
+    integers at an integer factor) and this in float64, so a pixel may
+    differ from cv2's by one grey level."""
+    wy = _area_weights(h, img.shape[0])
+    wx = _area_weights(w, img.shape[1])
+    out = np.einsum("yh,hwc,xw->yxc", wy, img.astype(np.float64), wx,
+                    optimize=True)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+class SegDataset:
+    """Index of (image, polygons) records for one split, or several joined
+    by "+" ("train+test").
+
+    ``cache_images=N`` reads every image once (in a thread pool) and keeps a
+    copy whose longer side is at most N in memory, area-resized, so the
+    training loop decodes nothing (a mosaic batch reads 4 x batch_size
+    images a step).
+    """
+
+    def __init__(self, root: str | pathlib.Path, split: str = "train",
+                 cache_images: int | None = None):
+        root = pathlib.Path(root)
+        self.records: list[ImageRecord] = []
+        for part in split.split("+"):
+            img_dir = root / part / "images"
+            lbl_dir = root / part / "labels"
+            before = len(self.records)
+            for img_path in (sorted(img_dir.glob("*.jpg"))
+                             + sorted(img_dir.glob("*.png"))):
+                polys, classes = parse_label_file(
+                    lbl_dir / (img_path.stem + ".txt"))
+                self.records.append(ImageRecord(img_path, polys, classes))
+            # A part after the first that is missing or empty must not be
+            # ignored: the run would claim data it never trained on.
+            if len(self.records) == before:
+                raise FileNotFoundError(f"no images under {img_dir}")
+
+        self._cache: list[np.ndarray] | None = None
+        if cache_images:
+            def load_resized(i: int) -> np.ndarray:
+                img = self._read(i)
+                h, w = img.shape[:2]
+                r = cache_images / max(h, w)
+                if r < 1.0:
+                    img = resize_area(img, round(h * r), round(w * r))
+                return np.ascontiguousarray(img)
+
+            with concurrent.futures.ThreadPoolExecutor(16) as ex:
+                self._cache = list(ex.map(load_resized, range(len(self.records))))
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def _read(self, idx: int) -> np.ndarray:
+        return read_png(self.records[idx].image_path)      # BGR uint8
+
+    def load_image(self, idx: int) -> np.ndarray:
+        if self._cache is not None:
+            return self._cache[idx]
+        return self._read(idx)
 
 
 def _clip_line(w: int, h: int, p1: list[int], p2: list[int]) -> bool:
@@ -135,11 +217,12 @@ def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int) -> None:
         _line8(mask, t0, t1, value)
         c0x, c0y, c1x, c1y = x0 << _XY_SHIFT, y0, x1 << _XY_SHIFT, y1
         if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
-            # The edge starts from its clipped endpoints.
+            # The edge runs between its clipped endpoints' columns, and their
+            # rows unless clipping left it flat (then the original rows).
             _clip_line(w, h, t0, t1)
             if t0[1] != t1[1]:
-                c0x, c0y = t0[0] << _XY_SHIFT, t0[1]
-                c1x, c1y = t1[0] << _XY_SHIFT, t1[1]
+                c0y, c1y = t0[1], t1[1]
+            c0x, c1x = t0[0] << _XY_SHIFT, t1[0] << _XY_SHIFT
         if y0 != y1:
             dx = _int_div(c1x - c0x, c1y - c0y)
             if y0 < y1:

@@ -1,4 +1,5 @@
-"""Batch loader: fixed-shape packing + ordered prefetch in worker threads.
+"""Batch loader: geometry augmentation, fixed-shape packing and ordered
+prefetch in worker threads.
 
 Counterpart of ``vision_assist_tpu/data/loader.py``: the train step consumes
 fully packed dense batches (BGR uint8 images or their I420 planes, overlap
@@ -6,9 +7,12 @@ masks, padded boxes, classes, valid flags, per-image HSV gains), so it never
 sees a dynamic shape. The dataset is any object with ``records``,
 ``load_image(i)`` (BGR uint8) and ``__len__``.
 
-Only the letterbox path (``augment=False``) is here. The augmenting loader
-(mosaic, random affine, copy-paste, the HSV gains it draws) comes with the
-next slice of the port; ``augment=True`` raises until then.
+The host does geometry only (mosaic, random affine, copy-paste, the flip of
+the polygons and the one strided copy that flips the pixels) and draws the
+HSV gains; the train step applies them on the device
+(``augment_device.py``). Every random draw comes from one
+``np.random.Generator`` a batch, in the JAX loader's order, so a seed gives
+the same polygons, masks, boxes, flips and gains as the JAX loader's.
 """
 
 from __future__ import annotations
@@ -19,7 +23,14 @@ from typing import Any
 
 import numpy as np
 
-from vision_assist_tpu_torch.data.augment import letterbox_np
+from vision_assist_tpu_torch.data.augment import (
+    AugmentConfig,
+    copy_paste,
+    flip_polys,
+    letterbox_np,
+    mosaic4,
+    random_affine,
+)
 from vision_assist_tpu_torch.data.dataset import polygons_to_overlap_mask
 from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
 
@@ -27,13 +38,8 @@ from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
 class BatchLoader:
     def __init__(self, dataset: Any, batch_size: int = 16, imgsz: int = 640,
                  mask_ratio: int = 4, max_instances: int = 32,
-                 augment: bool = True, seed: int = 0, prefetch: int = 4,
-                 wire_format: str = "bgr"):
-        if augment:
-            raise NotImplementedError(
-                "BatchLoader(augment=True) needs the augmentations (mosaic, "
-                "random affine, copy-paste), which slice 6 of the port brings; "
-                "pass augment=False")
+                 augment: bool = True, aug: AugmentConfig | None = None,
+                 seed: int = 0, prefetch: int = 4, wire_format: str = "bgr"):
         if wire_format not in ("bgr", "i420"):
             raise ValueError(f"wire_format must be 'bgr' or 'i420', got {wire_format!r}")
         self.ds = dataset
@@ -44,33 +50,76 @@ class BatchLoader:
         self.imgsz = imgsz
         self.mask_hw = (imgsz // mask_ratio, imgsz // mask_ratio)
         self.max_instances = max_instances
+        self.augment = augment
+        self.aug = aug or AugmentConfig()
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
+        # The training driver clears this for the last epochs (close-mosaic).
+        self.mosaic_enabled = augment and self.aug.mosaic > 0
 
     def __len__(self) -> int:
         return len(self.ds) // self.batch_size
 
     # -- single sample -------------------------------------------------------------
 
-    def _sample(self, idx: int) -> tuple[np.ndarray, list[np.ndarray], list[int]]:
-        """One letterboxed sample: (image BGR, polygons in pixels, classes)."""
-        rec = self.ds.records[idx]
+    def _pixel_polys(self, idx: int) -> tuple[np.ndarray, list[np.ndarray]]:
+        """Image ``idx`` and its polygons in pixels."""
         img = self.ds.load_image(idx)
         h, w = img.shape[:2]
-        polys = [p * [w, h] for p in rec.polygons]
-        img, polys = letterbox_np(img, polys, self.imgsz)
+        return img, [p * [w, h] for p in self.ds.records[idx].polygons]
+
+    def _sample(self, idx: int, rng: np.random.Generator
+                ) -> tuple[np.ndarray, list[np.ndarray], list[int],
+                           bool, np.ndarray]:
+        """One sample. Returns (image BGR, unflipped; polygons, flip already
+        applied; classes; flip flag; HSV gains)."""
+        img, polys = self._pixel_polys(idx)
+        classes = list(self.ds.records[idx].classes)
+        flip = False
+        gains = np.ones(3, np.float32)
+
+        if self.augment:
+            if self.mosaic_enabled and rng.random() < self.aug.mosaic:
+                extra = rng.integers(0, len(self.ds), 3)
+                imgs, plists, clists = [img], [polys], [classes]
+                for j in extra:
+                    ij, pj = self._pixel_polys(int(j))
+                    imgs.append(ij)
+                    plists.append(pj)
+                    clists.append(list(self.ds.records[int(j)].classes))
+                img, polys = mosaic4(imgs, plists, rng, self.imgsz)
+                classes = [c for cl in clists for c in cl]
+            else:
+                img, polys = letterbox_np(img, polys, self.imgsz)
+            img, polys = random_affine(img, polys, rng, self.aug, self.imgsz)
+            if self.aug.copy_paste > 0 and rng.random() < self.aug.copy_paste:
+                j = int(rng.integers(0, len(self.ds)))
+                dimg, dpolys = letterbox_np(*self._pixel_polys(j), self.imgsz)
+                img, polys, classes = copy_paste(
+                    img, polys, classes, dimg, dpolys,
+                    list(self.ds.records[j].classes), rng)
+            gains = (rng.uniform(-1, 1, 3)
+                     * [self.aug.hsv_h, self.aug.hsv_s, self.aug.hsv_v]
+                     + 1).astype(np.float32)
+            if rng.random() < self.aug.fliplr:
+                flip = True
+                polys = flip_polys(polys, img.shape[1])
+        else:
+            img, polys = letterbox_np(img, polys, self.imgsz)
 
         # Drop degenerate polygons (fully clipped away).
         kept_polys, kept_classes = [], []
-        for p, c in zip(polys, rec.classes):
+        for p, c in zip(polys, classes):
             x1, y1 = p.min(axis=0)
             x2, y2 = p.max(axis=0)
             if (x2 - x1) > 2 and (y2 - y1) > 2:
                 kept_polys.append(p)
                 kept_classes.append(c)
-        return img, kept_polys, kept_classes
+        return img, kept_polys, kept_classes, flip, gains
 
-    def _pack(self, idxs: np.ndarray) -> dict[str, np.ndarray]:
+    def _pack(self, idxs: np.ndarray,
+              rng: np.random.Generator | None = None) -> dict[str, np.ndarray]:
+        rng = rng if rng is not None else self.rng
         b = len(idxs)
         s = self.imgsz
         mh, mw = self.mask_hw
@@ -79,32 +128,34 @@ class BatchLoader:
         boxes = np.zeros((b, self.max_instances, 4), np.float32)
         classes = np.zeros((b, self.max_instances), np.int32)
         valid = np.zeros((b, self.max_instances), bool)
+        hsv_gains = np.ones((b, 3), np.float32)
         for i, idx in enumerate(idxs):
-            images[i], polys, cls = self._sample(int(idx))
+            img, polys, cls, flip, gains = self._sample(int(idx), rng)
+            # Images stay BGR: the train step flips channels on the device,
+            # with the HSV jitter. The lr-flip is one strided copy here (the
+            # polygons were flipped in _sample).
+            images[i] = img[:, ::-1] if flip else img
+            hsv_gains[i] = gains
             m, bx, cl, vd = polygons_to_overlap_mask(
                 polys, np.asarray(cls, np.int32), (s, s), (mh, mw),
                 self.max_instances)
             masks[i], boxes[i], classes[i], valid[i] = m, bx, cl, vd
         if self.wire_format == "i420":
             images = np.stack([bgr_to_i420_host(im) for im in images])
-        # Images stay BGR: the train step flips channels on the device, with
-        # the HSV jitter, whose gains are 1 without augmentation.
         return {"images": images, "masks": masks, "boxes": boxes,
-                "classes": classes, "valid": valid,
-                "hsv_gains": np.ones((b, 3), np.float32)}
+                "classes": classes, "valid": valid, "hsv_gains": hsv_gains}
 
     # -- iteration -------------------------------------------------------------------
 
     def epoch(self, shuffle: bool = True, workers: int = 4):
-        """Yield packed batches in deterministic order; packing is spread over
-        worker threads."""
+        """Yield packed batches in deterministic order; packing (decode,
+        augment, rasterise) is spread over worker threads, each batch with its
+        own Generator, so the result does not depend on scheduling."""
         order = np.arange(len(self.ds))
         if shuffle:
             self.rng.shuffle(order)
         n_batches = len(self)
-        # The augmenting loader seeds each batch from these; drawn here too so
-        # that the next epoch shuffles as the JAX loader's does.
-        self.rng.integers(0, 2 ** 63 - 1, size=n_batches)
+        batch_seeds = self.rng.integers(0, 2 ** 63 - 1, size=n_batches)
 
         results: dict[int, dict] = {}
         next_needed = [0]
@@ -122,7 +173,7 @@ class BatchLoader:
                 if stop.is_set():
                     return
                 idxs = order[bi * self.batch_size:(bi + 1) * self.batch_size]
-                packed = self._pack(idxs)
+                packed = self._pack(idxs, np.random.default_rng(batch_seeds[bi]))
                 with cond:
                     # Bounded reorder window relative to the flush head; the
                     # worker holding the head batch never waits, so this

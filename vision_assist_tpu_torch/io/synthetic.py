@@ -8,7 +8,8 @@ frame to frame, so the answers vary.
 
 The walkway is a trapezoid known exactly, so :class:`WalkwaySet` also serves
 the frames as a labelled segmentation set (the walkway as one class-0
-polygon), for training and evaluation without a dataset on disk.
+polygon), for training and evaluation without a dataset on disk, and
+:func:`write_split` writes such a set to disk as a dataset directory.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import pathlib
 import numpy as np
 
 from vision_assist_tpu_torch.data.dataset import ImageRecord
+from vision_assist_tpu_torch.io.png import write_png
 
 
 def _walkway_scenes(n: int, h: int, w: int, seed: int
@@ -74,3 +76,19 @@ class WalkwaySet:
 
     def load_image(self, idx: int) -> np.ndarray:
         return self.frames[idx]
+
+
+def write_split(ds: WalkwaySet, root: str | pathlib.Path, split: str) -> None:
+    """Write ``ds`` as the ``split`` of a dataset directory ``root`` (the
+    layout ``data/dataset.py::SegDataset`` reads): ``images/NNNN.png`` and
+    ``labels/NNNN.txt``, the polygon with every digit of its float32
+    coordinates, so the labels read back equal."""
+    images = pathlib.Path(root) / split / "images"
+    labels = pathlib.Path(root) / split / "labels"
+    images.mkdir(parents=True, exist_ok=True)
+    labels.mkdir(parents=True, exist_ok=True)
+    for i, rec in enumerate(ds.records):
+        write_png(images / f"{i:04d}.png", ds.load_image(i))
+        lines = [f"{int(c)} " + " ".join(f"{v:.9g}" for v in p.ravel())
+                 for p, c in zip(rec.polygons, rec.classes)]
+        (labels / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")

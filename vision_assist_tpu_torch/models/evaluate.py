@@ -2,7 +2,9 @@
 
 Counterpart of ``vision_assist_tpu/models/evaluate.py`` (ultralytics val):
 conf 0.001, IoU 0.7, the top 1024 candidates, at most 300 detections, mask IoU
-scored at prototype resolution (mask_ratio 4). Evaluate the EMA parameters
+scored at prototype resolution (mask_ratio 4). :func:`evaluate` has the JAX
+form (Flax-layout variables and a dataset directory); :func:`evaluate_dataset`
+scores a model's own weights on any labelled set. Evaluate the EMA parameters
 with the training batch statistics (``TrainState.eval_state_dict``). The
 greedy NMS loop runs its 1024 steps for every batch, each step serving the
 whole batch.
@@ -10,16 +12,18 @@ whole batch.
 
 from __future__ import annotations
 
+import copy
+import pathlib
 from typing import Any
 
 import numpy as np
 import torch
 
 from vision_assist_tpu_torch.data.augment import letterbox_np
-from vision_assist_tpu_torch.data.dataset import polygons_to_overlap_mask
+from vision_assist_tpu_torch.data.dataset import SegDataset, polygons_to_overlap_mask
 from vision_assist_tpu_torch.models.decode import assemble_masks, decode_boxes, nms
 from vision_assist_tpu_torch.models.metrics import MapAccumulator
-from vision_assist_tpu_torch.models.yolo import YoloSeg
+from vision_assist_tpu_torch.models.yolo import YoloSeg, convert_flax_variables
 
 
 def make_eval_step(model: YoloSeg, imgsz: int, reg_max: int = 16,
@@ -42,17 +46,40 @@ def make_eval_step(model: YoloSeg, imgsz: int, reg_max: int = 16,
     return eval_step
 
 
-def evaluate(model: YoloSeg, dataset: Any, imgsz: int = 640,
-             batch_size: int = 16, mask_ratio: int = 4,
-             max_images: int | None = None, max_det: int = 300,
-             verbose: bool = False,
-             device: str | torch.device = "cuda") -> dict[str, float]:
-    """mAP of ``model`` (its current weights, moved to ``device``) over
-    ``dataset`` (``records``, ``load_image(i)`` BGR uint8, ``len()``)."""
+def _device(device: str | torch.device, who: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("evaluate: CUDA requested but not available; pass "
+        raise RuntimeError(f"{who}: CUDA requested but not available; pass "
                            "device='cpu' to run on the CPU")
+    return device
+
+
+def evaluate(model: YoloSeg, variables: Any, root: str | pathlib.Path,
+             split: str = "valid", imgsz: int = 640, batch_size: int = 16,
+             mask_ratio: int = 4, max_images: int | None = None,
+             max_det: int = 300, verbose: bool = False,
+             device: str | torch.device = "cuda") -> dict[str, float]:
+    """mAP of ``variables`` (the Flax ``{"params", "batch_stats"}`` tree that
+    ``checkpoint.load_variables`` returns) over the ``split`` of the dataset
+    directory ``root``, the JAX ``evaluate``. The weights go into a copy of
+    ``model``, which is left as it is."""
+    device = _device(device, "evaluate")
+    scored = copy.deepcopy(model)
+    scored.load_state_dict(convert_flax_variables(variables, scored))
+    return evaluate_dataset(scored, SegDataset(root, split), imgsz=imgsz,
+                            batch_size=batch_size, mask_ratio=mask_ratio,
+                            max_images=max_images, max_det=max_det,
+                            verbose=verbose, device=device)
+
+
+def evaluate_dataset(model: YoloSeg, dataset: Any, imgsz: int = 640,
+                     batch_size: int = 16, mask_ratio: int = 4,
+                     max_images: int | None = None, max_det: int = 300,
+                     verbose: bool = False,
+                     device: str | torch.device = "cuda") -> dict[str, float]:
+    """mAP of ``model`` (its current weights, moved to ``device``) over
+    ``dataset`` (``records``, ``load_image(i)`` BGR uint8, ``len()``)."""
+    device = _device(device, "evaluate_dataset")
     model.to(device)
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     step = make_eval_step(model, imgsz, max_det=max_det)

@@ -1,15 +1,16 @@
-"""Deployed-model ("flagship") selection, read from
+"""Deployed-model ("flagship") selection, read from and written to
 ``assets/weights/FLAGSHIP.json``.
 
-The record names the checkpoint, its arch and its imgsz. Absent the file,
-the defaults name the historical flagship (yolov8n-seg @ imgsz 640,
-``v8n_640_best.msgpack``).
+The record names the checkpoint, its arch and its imgsz, with the promotion's
+provenance. Absent the file, the defaults name the historical flagship
+(yolov8n-seg @ imgsz 640, ``v8n_640_best.msgpack``).
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import time
 from typing import Any
 
 from vision_assist_tpu_torch.config import ModelConfig
@@ -56,3 +57,19 @@ def load_flagship_variables():
     from vision_assist_tpu_torch.models.checkpoint import load_variables
 
     return load_variables(p)
+
+
+def write_flagship(asset: str, arch: str, imgsz: int,
+                   path: str | pathlib.Path = FLAGSHIP_PATH,
+                   **provenance: Any) -> dict[str, Any]:
+    """Publish a new deployed-model record at ``path``, through a temporary
+    file and a rename, so a reader never sees a torn record."""
+    rec: dict[str, Any] = {"asset": asset, "arch": arch, "imgsz": int(imgsz),
+                           "switched_at": time.strftime(
+                               "%Y-%m-%dT%H:%M:%SZ", time.gmtime())}
+    rec.update(provenance)
+    path = pathlib.Path(path)
+    tmp = path.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps(rec, indent=1))
+    tmp.replace(path)
+    return rec

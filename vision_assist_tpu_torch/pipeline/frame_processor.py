@@ -52,6 +52,8 @@ class FrameResult:
     walkable: np.ndarray
     artificial: np.ndarray
     penalty: np.ndarray
+    # The rendered debug overlay; None until the visualiser is ported.
+    overlay: np.ndarray | None = None
     # Model-path metadata (frame path only; 0 for process_occupancy).
     n_detections: int = 0
     best_conf: float = 0.0
@@ -78,6 +80,8 @@ class FrameProcessor:
     Args:
         cfg: pipeline configuration (shapes, thresholds, engine choice).
         segmenter: optional segmentation model wrapper; omit for replay mode.
+        debug: results carry a rendered overlay frame. The renderer belongs
+            to the visualiser, which is not ported: True raises.
         replay_rounding: use the replay harness's artificial-row rounding
             instead of the live pipeline's.
         device: where the device half runs; "cuda" unless the caller asks
@@ -85,9 +89,13 @@ class FrameProcessor:
     """
 
     def __init__(self, cfg: PipelineConfig | None = None,
-                 segmenter: Segmenter | None = None,
+                 segmenter: Segmenter | None = None, debug: bool = False,
                  replay_rounding: bool = False,
                  device: str | torch.device = "cuda"):
+        if debug:
+            raise NotImplementedError(
+                "FrameProcessor(debug=True) renders overlays, which the "
+                "visualiser slice of the port brings")
         self.cfg = cfg or PipelineConfig()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -228,9 +236,11 @@ class FrameProcessor:
             penalty=plan.penalty.astype(np.float64))
 
     def process_occupancy(self, occupancy: np.ndarray,
-                          now_ms: int | None = None) -> FrameResult:
+                          now_ms: int | None = None,
+                          frame: np.ndarray | None = None) -> FrameResult:
         """Model-bypassed entry point (the reference's saved-grid replay).
-        ``occupancy`` is a bool (R, C) lattice."""
+        ``occupancy`` is a bool (R, C) lattice. ``frame`` is the camera frame
+        a debug overlay would be drawn on; without debug it is ignored."""
         if now_ms is None:
             now_ms = int(time.time() * 1000)
         occ = np.asarray(occupancy, dtype=bool)
@@ -325,10 +335,12 @@ class FrameProcessor:
             best_conf=payload.best_conf,
         )
 
-    def retire_frame(self, handle: _Handle,
-                     now_ms: int | None = None) -> FrameResult | None:
+    def retire_frame(self, handle: _Handle, now_ms: int | None = None,
+                     frame: np.ndarray | None = None) -> FrameResult | None:
         """Wait for a submitted frame's payload and run the host half.
-        Returns None if the blur gate rejects the frame."""
+        Returns None if the blur gate rejects the frame. ``frame`` is the
+        camera frame a debug overlay would be drawn on; without debug it is
+        ignored."""
         if now_ms is None:
             now_ms = int(time.time() * 1000)
         payload = self._unpack(handle.payload())
