@@ -87,8 +87,7 @@ result line:
              printed beside them.
 11. demo     the six real frames of assets/demo (640x640 PNG, read with the
              port's read_png; ms a frame, and with the Paeth filter on every
-             row through the native unfilter and through its numpy twin,
-             read back equal) through FrameProcessor with the flagship, on the
+             row, read back equal) through FrameProcessor with the flagship, on the
              default engine "exact" and on the kernel wavefront path: launch
              counts zeroed just before and read just after (one relax launch a
              frame, none for exact); with the model in float32 (TF32 off) the
@@ -123,8 +122,10 @@ result line:
              collapse guard (the first epoch it judges) did what the pure
              rule train_model.collapse_decision says on those records; seconds
              and images/s an epoch, the step's wait on the loader, the final
-             EMA mask mAP50; then the augmenting loader alone, ms a batch at
-             the driver's worker count and at 1, the card idle. No planning
+             EMA mask mAP50; then the augmenting loader alone over 32
+             batches, ms a batch at the driver's worker count, 3, 2 and 1,
+             the host CPU share, and each part of a sample timed
+             (utils/profile_loader.py), the card idle. No planning
              kernel runs in 12-14 (counts zeroed before, read after).
 
 It then prints the card's name and power limit, a JSON line describing each
@@ -148,6 +149,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -156,7 +158,6 @@ import struct
 import subprocess
 import sys
 import time
-import unittest.mock
 import zlib
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -582,13 +583,12 @@ def train_model_phase(torch, rec, n_train=64, n_valid=32, frame_hw=(640, 640),
     import numpy as np
 
     from vision_assist_tpu_torch import train_model
-    from vision_assist_tpu_torch.data.augment import AugmentConfig
     from vision_assist_tpu_torch.data.dataset import SegDataset
-    from vision_assist_tpu_torch.data.loader import BatchLoader
     from vision_assist_tpu_torch.io.png import read_png
     from vision_assist_tpu_torch.io.synthetic import WalkwaySet, write_split
     from vision_assist_tpu_torch.models import flagship
     from vision_assist_tpu_torch.models.checkpoint import load_variables
+    from vision_assist_tpu_torch.utils import profile_loader
 
     work = REPO / "runs" / "chip_smoke_train_model"
     shutil.rmtree(work, ignore_errors=True)
@@ -683,21 +683,27 @@ def train_model_phase(torch, rec, n_train=64, n_valid=32, frame_hw=(640, 640),
         f"final EMA mask mAP50 {final['map50_mask']:.4f} mAP50-95 "
         f"{final['map50_95_mask']:.4f}, box mAP50 {final['map50_box']:.4f}; {on}")
 
-    # The augmenting loader alone, the card idle: ms a batch at the driver's
-    # worker count and at one worker, over two epochs each.
+    # The augmenting loader alone, the card idle: an epoch of 8 passes of the
+    # cached set (32 batches, so each of the driver's workers packs several)
+    # at the driver's worker count, 3, 2 and 1, with each part of a sample
+    # timed (utils/profile_loader.py).
     ds = SegDataset(data, "train", cache_images=imgsz)
     workers = train_model._parser().get_default("workers")
-    per_batch = {}
-    for n_workers in (workers, 1):
-        loader = BatchLoader(ds, batch_size=batch, imgsz=imgsz, augment=True,
-                             aug=AugmentConfig(), seed=0)
-        t0 = time.perf_counter()
-        n = sum(1 for _ in range(2) for _ in loader.epoch(workers=n_workers))
-        per_batch[n_workers] = (time.perf_counter() - t0) * 1e3 / n
-    log(f"phase train_model loader: the augmenting loader alone (mosaic, affine, "
-        f"masks, bgr) at {rec['arch']}@{imgsz} from the cached set, "
-        f"{per_batch[workers]:.3f} ms a batch of {batch} at {workers} workers, "
-        f"{per_batch[1]:.3f} ms at 1 worker, the card idle; {on}")
+    counts = tuple(sorted({workers, 3, 2, 1}, reverse=True))
+    prof = profile_loader.profile(ds, imgsz, batch, counts, repeat=8)
+    cores = len(os.sched_getaffinity(0))
+    for w in counts:
+        r = prof[str(w)]
+        log(f"phase train_model loader: the augmenting loader alone (mosaic, affine, "
+            f"masks, bgr) at {rec['arch']}@{imgsz} from the cached set, {w} workers on "
+            f"{cores} host cores: {r['ms_a_batch']:.3f} ms a batch of {batch} over "
+            f"{r['batches']} batches ({r['ms_a_batch_after_first']:.3f} after the first, "
+            f"which took {r['first_batch_ms']:.3f}), host CPU over wall "
+            f"{r['cpu_over_wall']:.3f}, the card idle; {on}")
+        log(f"phase train_model loader parts at {w} workers, ms a batch (ms a call): "
+            + ", ".join(f"{p} {v['ms_a_batch']:.3f} ({v['ms_a_call']:.3f})"
+                        for p, v in r["parts"].items() if "calls" in v and v["calls"])
+            + f", rest of _pack {r['parts']['rest_of_pack']['ms_a_batch']:.3f}")
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -803,7 +809,7 @@ def main() -> int:
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
         if not (args.relax_only or args.astar_only):
-            builds.append(pool.submit(with_seconds, png.native_available))
+            builds.append(pool.submit(with_seconds, png.build))
         built = [b.result() for b in builds]
     def how(mod):       # another commit's port (--root) may not say
         return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
@@ -819,8 +825,6 @@ def main() -> int:
         log(f"phase build {native.SOURCE.name}: {how(native)} in "
             f"{native.build_seconds:.3f} s")
     if not (args.relax_only or args.astar_only):
-        if not built[3][0]:
-            raise AssertionError(f"{png.SOURCE.name} did not build (g++)")
         log(f"phase build {png.SOURCE.name}: built or loaded in {built[3][1]:.3f} s")
 
     # -- 2. kernel against its twin ----------------------------------------------------
@@ -1502,8 +1506,7 @@ def main() -> int:
     read_ms = (time.perf_counter() - t0) * 1e3 / max(len(demo), 1)
     if len(demo) != 6 or any(f.shape != (h, w, 3) for f in demo):
         raise AssertionError(f"demo: {len(demo)} frames {[f.shape for f in demo]}")
-    # The reader's other path: the same frames with the Paeth filter on
-    # every row, undone along anti-diagonals.
+    # The same frames with the Paeth filter on every row.
     paeth_dir = REPO / "runs" / "chip_smoke_demo"
     paeth_dir.mkdir(parents=True, exist_ok=True)
     for i, frame in enumerate(demo):
@@ -1511,18 +1514,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paeth_back = [read_png(paeth_dir / f"{i}.png") for i in range(len(demo))]
     paeth_ms = (time.perf_counter() - t0) * 1e3 / len(demo)
-    # The unfilter's numpy twin (no compiler) on the same files.
-    t0 = time.perf_counter()
-    with unittest.mock.patch.object(png, "_load", lambda: None):
-        twin_back = [read_png(paeth_dir / f"{i}.png") for i in range(len(demo))]
-    twin_ms = (time.perf_counter() - t0) * 1e3 / len(demo)
     shutil.rmtree(paeth_dir)
-    if not all(np.array_equal(a, b) and np.array_equal(t, b)
-               for a, t, b in zip(paeth_back, twin_back, demo)):
+    if not all(np.array_equal(a, b) for a, b in zip(paeth_back, demo)):
         raise AssertionError("demo: a Paeth-filtered copy reads back unequal")
     log(f"phase demo png: read_png {read_ms:.3f} ms a 640x640 frame (the demo files, Sub on "
-        f"every row), {paeth_ms:.3f} ms with Paeth on every row, {twin_ms:.3f} ms through "
-        "the numpy twin of the unfilter (both read back equal)")
+        f"every row), {paeth_ms:.3f} ms with Paeth on every row (read back equal)")
     demo_launches = {}
     for label, pfc in (("exact", exact_pf), ("wavefront_kernel", cfg.pathfinder)):
         dcfg = cfg.replace(pathfinder=pfc)

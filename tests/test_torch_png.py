@@ -4,7 +4,7 @@
 three channels) exactly, on the six demo frames (the Sub filter on every
 row), on files written by PIL (adaptive filters, Paeth among them), by
 ``cv2.imwrite`` and by an encoder written out from the specification with all
-five row filters, through the native unfilter and through its numpy twin;
+five row filters, in images down to one pixel wide or one row high;
 ``write_png`` must read back equal through ``cv2.imread``. The formats it
 does not read raise, naming what is missing.
 """
@@ -66,20 +66,9 @@ def _filters(path: pathlib.Path) -> set[int]:
     return set(raw[:, 0].tolist())
 
 
-@pytest.fixture(params=["native", "numpy"])
-def unfilter(request, monkeypatch):
-    """Which unfilter read_png runs: the C++ one or its numpy twin."""
-    if request.param == "native":
-        if not png.native_available():
-            pytest.skip("no C++ toolchain to build the unfilter")
-    else:
-        monkeypatch.setattr(png, "_load", lambda: None)
-    return request.param
-
-
 @pytest.mark.parametrize("mode", ["RGB", "RGBA", "L"])
 @pytest.mark.parametrize("make", [_frame, _smooth])
-def test_read_png_equals_imread_on_pil_files(tmp_path, mode, make, unfilter):
+def test_read_png_equals_imread_on_pil_files(tmp_path, mode, make):
     bgr = make(3)
     img = Image.fromarray(np.ascontiguousarray(bgr[..., ::-1]))
     if mode == "RGBA":
@@ -131,16 +120,22 @@ def _encode(samples: np.ndarray, types: list[int]) -> bytes:
             + chunk(b"IDAT", zlib.compress(bytes(lines))) + chunk(b"IEND", b""))
 
 
+TYPES = [0, 1, 2, 3, 4, 4, 3, 3, 2, 1, 0, 4, 1, 3, 0, 2, 4, 4, 4, 3, 1, 2, 0]
+
+
+@pytest.mark.parametrize("hw", [(23, 17), (23, 1), (1, 17), (1, 1)])
 @pytest.mark.parametrize("ch", [1, 3, 4])
-def test_read_png_undoes_every_filter(tmp_path, ch, unfilter):
+def test_read_png_undoes_every_filter(tmp_path, ch, hw):
     """Rows filtered with each of the five filters, in runs and alternating,
-    against cv2.imread and against the samples themselves."""
+    against cv2.imread and against the samples themselves; in images one
+    pixel wide (every row's left neighbour is the zero before it) and one row
+    high (every row above is zero) too."""
     rng = np.random.default_rng(ch)
-    samples = rng.integers(0, 256, (23, 17, ch), np.uint8)
-    types = [0, 1, 2, 3, 4, 4, 3, 3, 2, 1, 0, 4, 1, 3, 0, 2, 4, 4, 4, 3, 1, 2, 0]
+    samples = rng.integers(0, 256, (*hw, ch), np.uint8)
+    types = TYPES[:hw[0]] if hw[0] > 1 else [4]
     path = tmp_path / "filters.png"
     path.write_bytes(_encode(samples, types))
-    assert _filters(path) == {0, 1, 2, 3, 4}
+    assert _filters(path) == set(types)
     got = read_png(path)
     np.testing.assert_array_equal(got, cv2.imread(str(path)))
     want = np.repeat(samples, 3, 2) if ch == 1 else samples[..., 2::-1]
@@ -174,7 +169,7 @@ def _with_header(src: pathlib.Path, dst: pathlib.Path, **fields) -> None:
     dst.write_bytes(bytes(data))
 
 
-def test_unsupported_formats_raise(tmp_path, unfilter):
+def test_unsupported_formats_raise(tmp_path):
     rgb = np.ascontiguousarray(_frame(1)[..., ::-1])
     Image.fromarray(rgb).convert("P").save(tmp_path / "palette.png")
     Image.fromarray(rgb[..., 0].astype(np.uint16) * 257).save(tmp_path / "sixteen.png")
@@ -198,3 +193,33 @@ def test_unsupported_formats_raise(tmp_path, unfilter):
         read_png(tmp_path / "filter5.png")
     with pytest.raises(ValueError, match="uint8"):
         write_png(tmp_path / "x.png", np.zeros((4, 4, 3), np.float32))
+
+
+def test_image_data_split_over_several_idat_chunks(tmp_path):
+    """The compressed stream may be cut anywhere between IDAT chunks."""
+    bgr = _frame(4)
+    write_png(tmp_path / "one.png", bgr)
+    data = (tmp_path / "one.png").read_bytes()
+    (n,) = struct.unpack(">I", data[33:37])
+    assert data[37:41] == b"IDAT"
+    body = data[41:41 + n]
+    cuts = [0, 1, 2, n // 3, n - 1, n]
+
+    def chunk(kind, part):
+        return (struct.pack(">I", len(part)) + kind + part
+                + struct.pack(">I", zlib.crc32(kind + part)))
+
+    split = (data[:33] + b"".join(chunk(b"IDAT", body[a:b]) for a, b in zip(cuts, cuts[1:]))
+             + data[45 + n:])
+    (tmp_path / "split.png").write_bytes(split)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "split.png")), bgr)
+    np.testing.assert_array_equal(read_png(tmp_path / "split.png"), bgr)
+
+
+def test_reader_without_a_compiler_raises_naming_it(tmp_path, monkeypatch):
+    """No slower path runs in its place: without g++ the reader says so."""
+    write_png(tmp_path / "x.png", _frame(2))
+    monkeypatch.setattr(png, "_lib", None)
+    monkeypatch.setattr(png.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="needs g\\+\\+ to build png_unfilter.cpp"):
+        read_png(tmp_path / "x.png")

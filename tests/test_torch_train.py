@@ -109,27 +109,30 @@ def test_optimizer_chain_matches_optax(case):
 
 # -- the train step against JAX ---------------------------------------------------------
 
-def _batch(wire: str = "bgr", n: int = 4, seed: int = 3):
-    # Seed 3: a batch on which six steps from the trained start stay within
-    # the stated tolerances; on the batches of seeds 1 and 2 the JAX run and
-    # the port's, within 1e-4 for five steps, part at the sixth.
+def _batch(wire: str = "bgr", n: int = 4, seed: int = 1):
     loader = BatchLoader(WalkwaySet(n, 160, 160, seed=seed), batch_size=2, imgsz=S,
                          augment=False, wire_format=wire)
     return loader._pack(np.arange(2))
 
 
+SEEDS = (1, 2, 3)      # the batches the six-step test runs on
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
-    """JAX states after 0, 1 and 6 steps on one batch, from the random init
-    of create_train_state and from a trained checkpoint through the resume
-    path (params and EMA take it, and the batch stats)."""
+    """JAX states after 0 to 6 steps on one batch, with the loss of each
+    step: from the random init of create_train_state on the batch of seed 1,
+    under ``("init", 1)``, and from a trained checkpoint through the resume
+    path (params and EMA take it, and the batch stats) on the batch of each
+    seed in SEEDS, under ``("trained", seed)``. A state holds the optimizer's
+    momentum trace beside the parameters."""
     model = JaxYoloSeg(arch="yolov8n-seg", num_classes=1, dtype=jnp.float32)
     step = jt.make_train_step(model, JaxLossConfig(mask_topk=TOPK), JCFG)
-    batch = {k: jnp.asarray(v) for k, v in _batch().items()}
     restored = jax_load_variables(REPO / "assets" / "weights" / TRAINED)
     created = jt.create_train_state(model, jax.random.PRNGKey(0), JCFG, 10)
     runs = {}
-    for start in ("init", "trained"):
+    for start, seed in [("init", 1)] + [("trained", s) for s in SEEDS]:
+        batch = {k: jnp.asarray(v) for k, v in _batch(seed=seed).items()}
         state = jax.tree.map(jnp.copy, created)      # the step donates its state
         if start == "trained":
             state = state.replace(
@@ -142,25 +145,38 @@ def jax_runs():
         for i in range(7):
             snaps.append(jax.tree.map(np.array, {
                 "params": state.params, "batch_stats": state.batch_stats,
-                "ema": state.ema_params, "step": state.step}))
+                "ema": state.ema_params, "trace": state.opt_state[3][0].trace,
+                "step": state.step}))
             if i < 6:
                 state, metrics = step(state, batch)
                 losses.append(float(metrics["loss"]))
-        runs[start] = (snaps, losses)
+        runs[start, seed] = (snaps, losses)
     return runs
 
 
 def _port_state(snap):
+    """The port's model and train state at a JAX state: parameters, batch
+    statistics, EMA, momentum trace and step count."""
     model = ty.YoloSeg("yolov8n-seg", dtype=torch.float32, param_dtype=torch.float32)
     model.load_state_dict(ty.convert_flax_variables(
         {"params": snap["params"], "batch_stats": snap["batch_stats"]}, model))
     state = tt.create_train_state(model, TCFG, 10, device="cpu")
+    state.trace.copy_(_flat_trace(snap, model, state))
+    state.step = int(snap["step"])
     with torch.no_grad():
         for k, v in ty.convert_flax_variables(
                 {"params": snap["ema"], "batch_stats": snap["batch_stats"]}, model).items():
             if k in state.ema_params:
                 state.ema_params[k].copy_(v)
     return model, state
+
+
+def _flat_trace(snap, model, state):
+    """JAX's momentum trace as the port keeps it: one flat vector, in the
+    order of the model's parameters."""
+    tree = ty.convert_flax_variables({"params": snap["trace"],
+                                      "batch_stats": snap["batch_stats"]}, model)
+    return torch.cat([tree[k].reshape(-1) for k in state.params])
 
 
 def _assert_state_close(model, state, snap, atol_p, atol_bs, rtol_bs):
@@ -187,7 +203,7 @@ def test_one_train_step_matches_jax(jax_runs, start, atol_p, atol_bs, rtol_loss)
     """Loss, parameters, batch statistics (moved by the biased batch
     variance: the unbiased one would be off by n/(n-1), 14 % at 8 values),
     EMA and step after one step, within the stated absolute tolerances."""
-    snaps, losses = jax_runs[start]
+    snaps, losses = jax_runs[start, 1]
     model, state = _port_state(snaps[0])
     step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
     state, metrics = step(state, _batch())
@@ -195,26 +211,47 @@ def test_one_train_step_matches_jax(jax_runs, start, atol_p, atol_bs, rtol_loss)
     _assert_state_close(model, state, snaps[1], atol_p, atol_bs, 1e-5)
 
 
-def test_six_train_steps_match_jax_and_lower_the_loss(jax_runs):
-    """Six steps from the trained start: every loss within rtol 1e-3,
-    parameters and EMA within atol 5e-4, batch statistics within rtol 5e-3
-    (seen: 6e-4, 8e-5, 6.4e-4 absolute on statistics up to ~200); the loss
-    falls. From the random init the two runs part after two steps (float32
-    round-off amplified by BatchNorm over 8 values), so there the port is only
-    held to lowering its own loss."""
-    snaps, losses = jax_runs["trained"]
-    model, state = _port_state(snaps[0])
-    step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
-    batch = _batch()
-    got = [float(step(state, batch)[1]["loss"]) for _ in range(6)]
-    np.testing.assert_allclose(got, losses, rtol=1e-3)
-    _assert_state_close(model, state, snaps[6], 5e-4, 1e-3, 5e-3)
-    assert got[-1] < got[0]
+@pytest.mark.parametrize("seed", SEEDS)
+def test_six_train_steps_match_jax_and_lower_the_loss(jax_runs, seed):
+    """Each of six steps from the trained start, begun from JAX's state before
+    it (parameters, batch statistics, EMA, momentum trace, step count), gives
+    JAX's state after it: the loss within rtol 1e-5, parameters and EMA within
+    atol 1e-5, batch statistics within atol and rtol 1e-5, the trace within
+    atol 5e-4, since a step moves a parameter by lr0 = 0.01 times about twice
+    the trace (seen on the three batches: 2.7e-6, 1.3e-6, under 1e-7 past the
+    rtol, 6.8e-5).
+    So by induction the port's run is JAX's up to float32 round-off. The
+    port's own run of six steps then lowers its loss, from the trained start
+    and from the random init.
 
-    model, state = _port_state(jax_runs["init"][0][0])
-    step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
-    got = [float(step(state, batch)[1]["loss"]) for _ in range(6)]
-    assert all(np.isfinite(got)) and got[-1] < got[0] and state.step == 6
+    Two free runs of six float32 steps are not compared: they part wherever
+    a discrete choice is near a tie, and which of the two leaves the exact
+    run depends on the batch. Against a float64 run of the port
+    (tests/train_float64_witness.py prints these readings), on the batch
+    of seed 2 the port's float32 run leaves at the third step (one SPPF
+    max-pool window at 2x2, top two values 3.4e-5 apart, routes its gradient
+    to the other pixel; the loss is 4e-3 off at the fourth step); on seed 1 it
+    is JAX's float32 run that leaves, at the fifth step (parameters 1.5e-3
+    off, the loss 6.5e-2 at the sixth), while the port's stays within 6e-5;
+    on seed 3 neither leaves."""
+    snaps, losses = jax_runs["trained", seed]
+    batch = _batch(seed=seed)
+    for i in range(6):
+        model, state = _port_state(snaps[i])
+        step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
+        state, metrics = step(state, batch)
+        np.testing.assert_allclose(float(metrics["loss"]), losses[i], rtol=1e-5,
+                                   err_msg=f"step {i}")
+        _assert_state_close(model, state, snaps[i + 1], 1e-5, 1e-5, 1e-5)
+        np.testing.assert_allclose(state.trace.numpy(),
+                                   _flat_trace(snaps[i + 1], model, state).numpy(),
+                                   rtol=0, atol=5e-4, err_msg=f"step {i}")
+
+    for start in ("trained", "init"):
+        model, state = _port_state(jax_runs[start, 1 if start == "init" else seed][0][0])
+        step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
+        got = [float(step(state, batch)[1]["loss"]) for _ in range(6)]
+        assert all(np.isfinite(got)) and got[-1] < got[0] and state.step == 6, (start, got)
 
 
 def test_i420_step_equals_bgr_step_on_the_unpacked_images(jax_runs):
@@ -224,7 +261,7 @@ def test_i420_step_equals_bgr_step_on_the_unpacked_images(jax_runs):
     bgr = dict(i420, images=i420_to_bgr(torch.from_numpy(i420["images"]), S, S).numpy())
     results = []
     for wire, batch in (("i420", i420), ("bgr", bgr)):
-        model, state = _port_state(jax_runs["trained"][0][0])
+        model, state = _port_state(jax_runs["trained", 1][0][0])
         step = tt.make_train_step(model, LossConfig(mask_topk=TOPK),
                                   dataclasses.replace(TCFG, wire_format=wire))
         state, metrics = step(state, batch)
@@ -241,14 +278,14 @@ def test_i420_step_equals_bgr_step_on_the_unpacked_images(jax_runs):
 # -- checkpoints ----------------------------------------------------------------------
 
 def test_train_state_save_and_resume_is_exact(jax_runs, tmp_path):
-    model, state = _port_state(jax_runs["trained"][0][0])
+    model, state = _port_state(jax_runs["trained", 1][0][0])
     step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
     batch = _batch()
     for _ in range(2):
         state, _ = step(state, batch)
     ck.save_train_state(tmp_path / "state.pt", state)
 
-    other, fresh = _port_state(jax_runs["init"][0][0])
+    other, fresh = _port_state(jax_runs["init", 1][0][0])
     fresh = ck.load_train_state(tmp_path / "state.pt", fresh)
     assert fresh.step == 2
     state, m1 = step(state, batch)
@@ -264,7 +301,7 @@ def test_msgpack_written_by_the_port_is_read_by_jax(jax_runs, tmp_path):
     """save_variables writes Flax's own bytes; JAX's load_variables and the
     port's reader give the tree back, and the JAX model on it gives the
     port's eval-mode outputs (within 1e-4)."""
-    model, state = _port_state(jax_runs["trained"][0][0])
+    model, state = _port_state(jax_runs["trained", 1][0][0])
     step = tt.make_train_step(model, LossConfig(mask_topk=TOPK), TCFG)
     state, _ = step(state, _batch())
     tree = ty.to_flax_variables(model)

@@ -7,10 +7,9 @@ into a BGR uint8 array, alpha dropped, as ``cv2.imread(path)``
 (``IMREAD_COLOR``) does. Palette, 16-bit, Adam7 and JPEG files raise, naming
 what is missing. The row filters are undone by a few lines of C++
 (``png_unfilter.cpp``, built with g++ at first use into ``.torch_ext_build/``
-and loaded with ctypes, which lets other threads run meanwhile). Without a
-compiler its numpy twin runs, several times slower: the Sub, Average and
-Paeth filters depend on the pixel to the left, so it walks the anti-diagonals,
-every row at once.
+and loaded with ctypes, which lets other threads run meanwhile): the Sub,
+Average and Paeth filters depend on the pixel to the left, so numpy has no
+fast form of them. Without g++ the reader raises.
 
 :func:`write_png` writes an RGB file with the Sub filter on every row.
 """
@@ -36,33 +35,25 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "png_unfilter.cpp"
 CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 _lock = threading.Lock()
 _lib = None
-_build_failed = False
 
 
-def _load():
-    """The native unfilter, built at first use; None without a compiler."""
-    global _lib, _build_failed
+def build():
+    """The native unfilter, built at first use and then kept; raises
+    RuntimeError naming the cause when g++ is missing or fails."""
+    global _lib
     with _lock:
-        if _lib is not None or _build_failed:
-            return _lib
-        cxx = shutil.which("g++")
-        try:
+        if _lib is None:
+            cxx = shutil.which("g++")
             if cxx is None:
-                raise RuntimeError("g++ not found")
+                raise RuntimeError(f"read_png needs g++ to build {SOURCE.name}: "
+                                   "g++ not found")
             lib = ctypes.CDLL(str(compile_shared(cxx, CXX_FLAGS, SOURCE, "vapng")[0]))
-        except (RuntimeError, OSError):
-            _build_failed = True
-            return None
-        u8 = ctypes.POINTER(ctypes.c_uint8)
-        lib.va_png_unfilter.argtypes = [u8, ctypes.c_int64, ctypes.c_int64,
-                                        ctypes.c_int64, u8]
-        lib.va_png_unfilter.restype = ctypes.c_int
-        _lib = lib
+            u8 = ctypes.POINTER(ctypes.c_uint8)
+            lib.va_png_unfilter.argtypes = [u8, ctypes.c_int64, ctypes.c_int64,
+                                            ctypes.c_int64, u8]
+            lib.va_png_unfilter.restype = ctypes.c_int
+            _lib = lib
         return _lib
-
-
-def native_available() -> bool:
-    return _load() is not None
 
 
 def _chunks(data: bytes):
@@ -82,57 +73,10 @@ def _chunks(data: bytes):
     raise ValueError("PNG ends before its IEND chunk")
 
 
-def _unfilter_numpy(lines: np.ndarray, height: int, width: int,
-                    ch: int) -> np.ndarray:
-    """The native unfilter's twin: (H, 1 + W*C) scanlines to (H, W, C) uint8
-    samples, walking the anti-diagonals: pixel (i, x) needs (i, x-1),
-    (i-1, x) and (i-1, x-1), all on earlier diagonals. The samples are stored
-    by diagonal, so each step works on contiguous rows of the buffer."""
-    types = lines[:, 0]
-    if types.max(initial=0) > 4:
-        raise ValueError(f"PNG row filter {int(types.max())} does not exist")
-    filt = lines[:, 1:].reshape(height, width, ch)
-    n_diag = height + width + 1
-    # buf[i + x + 2, i + 1] is row i, pixel x; the zeros above the first row
-    # and left of each row's first pixel stay zero. That place is linear in
-    # (i, x), so the (H, W, C) view of it is one strided view.
-    buf = np.zeros((n_diag + 1, height + 1, ch), np.int16)
-    diag = np.zeros((n_diag + 1, height + 1, ch), np.int16)
-
-    def pixels(a: np.ndarray) -> np.ndarray:
-        item = a.itemsize
-        return np.lib.stride_tricks.as_strided(
-            a.reshape(-1)[(2 * (height + 1) + 1) * ch:], shape=(height, width, ch),
-            strides=((height + 2) * ch * item, (height + 1) * ch * item, item))
-
-    pixels(diag)[...] = filt
-    # Each filter's predictor as weights of (a, b, c, avg, paeth), one row
-    # of weights a row, so a step is one weighted sum, no per-filter branch.
-    weights = np.zeros((5, 5), np.int16)
-    weights[1, 0] = weights[2, 1] = weights[3, 3] = weights[4, 4] = 1
-    wa, wb, wavg, wpaeth = (weights[types][:, k, None]
-                            for k in (0, 1, 3, 4))
-    for d in range(height + width - 1):
-        lo, hi = max(0, d - width + 1), min(height, d + 1)
-        a = buf[d + 1, lo + 1:hi + 1]
-        b = buf[d + 1, lo:hi]
-        c = buf[d, lo:hi]
-        bc, ac = b - c, a - c
-        pa, pb = np.abs(bc), np.abs(ac)
-        pc = np.abs(bc + ac)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        pred = (wa[lo:hi] * a + wb[lo:hi] * b + wavg[lo:hi] * ((a + b) >> 1)
-                + wpaeth[lo:hi] * paeth)
-        buf[d + 2, lo + 1:hi + 1] = (diag[d + 2, lo + 1:hi + 1] + pred) & 255
-    return pixels(buf).astype(np.uint8)
-
-
 def _unfilter(raw: np.ndarray, height: int, width: int, ch: int) -> np.ndarray:
     """The (H, W, C) uint8 samples from the decompressed scanlines."""
     lines = raw.reshape(height, 1 + width * ch)
-    lib = _load()
-    if lib is None:
-        return _unfilter_numpy(lines, height, width, ch)
+    lib = build()
     out = np.empty((height, width, ch), np.uint8)
     u8 = ctypes.POINTER(ctypes.c_uint8)
     bad = lib.va_png_unfilter(lines.ctypes.data_as(u8), height, width * ch, ch,

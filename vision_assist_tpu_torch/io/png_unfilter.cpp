@@ -1,6 +1,6 @@
 // Undo the row filters of a PNG image's scanlines (8-bit samples), the host
 // half of io/png.py's reader. A plain C entry point, loaded with ctypes; the
-// numpy version in io/png.py is its twin and the tests hold the two equal.
+// tests hold the reader equal to OpenCV's on every filter.
 //
 // lines: `height` scanlines of 1 + row_bytes bytes, the filter type then the
 // filtered samples. out: `height` rows of row_bytes samples. bpp: samples a
