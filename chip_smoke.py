@@ -23,8 +23,11 @@ result line:
              goals of a lattice in one launch, three on a random lattice; the
              cache carried from lattice to lattice): cells, lengths, validity
              and the cache's NaN pattern equal, costs and cache values within
-             rtol 1e-5; and all 13 scenarios as one batched launch against
-             the launches one by one.
+             rtol 1e-5, pops and relaxations of each search equal; the same
+             at 54x96, the lattice of a 1080x1920 frame (165 KB of shared
+             memory a block): the corridor of tests/test_1080p_pipeline.py
+             and a seeded lattice; and all 13 scenarios as one batched launch
+             against the launches one by one.
 3. frames    the served configuration (640x640 frames sent as I420, grid 20,
              flagship yolo11n-seg@256 in bf16, engine "wavefront" with the
              relax kernel) through FrameProcessor.__call__ on 8 seeded
@@ -75,7 +78,8 @@ result line:
 10. timing   the relax kernel at the served lattice (32x32, B=1), at 32x32 B=8
              and at 64x36 B=13, each with its pass counts; an empty launch
              through the same wrapper; the plain twin and plain relax_sweep;
-             the A* kernel at the served lattice and at 64x36 B=13 with its
+             the A* kernel at the served lattice, at 64x36 B=13 and at the
+             54x96 corridor with its
              pops and relaxations (also the 8 served lattices as 8 streams of
              one launch), and its plain version, whose result on the
              timed inputs is held against the kernel's; the frame path's
@@ -127,6 +131,28 @@ result line:
              the host CPU share, and each part of a sample timed
              (utils/profile_loader.py), the card idle. No planning
              kernel runs in 12-14 (counts zeroed before, read after).
+15. cli      the port's command line (vision_assist_tpu_torch/main.py) in
+             process, counts zeroed before and read after each run: `replay
+             NAME --engine exact_device` for the 13 scenarios (answers and
+             path lengths equal to the goldens, one A* launch each); `image`
+             on the six demo PNGs (answers equal to a FrameProcessor's on the
+             same frames); one frame under utils/profiling.py::device_trace
+             (the card's kernels in its Chrome trace); `video` on an .npy stack of 8 seeded 640x640
+             walkways, synchronously with --tts-dir and --timing-data-path and
+             at --depth 2 (answers equal, 3 cues, the "frame" stage); `video`
+             on 3 walkways of 1080x1920 with --engine exact_device (one A*
+             launch a frame on its 54x96 lattice), its answers equal to
+             --engine exact's on the same frames.
+16. bench    the port's bench (vision_assist_tpu_torch/bench.py) at its
+             defaults: its JSON line (p50/p90/p99, depth-8 and 8-stream
+             frames/s, detections, the card's name and power limit), no
+             planning kernel launched (the default engine plans on the host).
+17. export   `export_model` at the flagship on a 640x640 frame: torch.export
+             of the segmenter chain saved as inference.pt2 with
+             variables.msgpack, loaded back, its outputs bit-equal to the
+             eager chain's; its seconds.
+18. goldens  `generate_goldens` into a temporary directory: JSON byte-equal
+             and arrays equal to tests/fixtures/goldens.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -148,7 +174,10 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
+import math
 import os
 import pathlib
 import re
@@ -157,6 +186,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -240,18 +270,38 @@ def astar_inputs(torch, cfg, occupancy, replay_rounding: bool):
     return pr.walkable, pr.penalty, pr.start_rc, goals, pr.peaks.valid
 
 
+def occupancy_1080p():
+    """The walkable corridor veering right on the 54x96 lattice of a
+    1080x1920 frame (tests/test_1080p_pipeline.py::_occupancy_1080p)."""
+    import numpy as np
+
+    occ = np.zeros((54, 96), bool)
+    occ[20:54, 40:56] = True      # corridor up from the bottom centre
+    occ[20:30, 40:76] = True      # right branch near the top
+    return occ
+
+
+def random_1080p(seed):
+    """A seeded random 54x96 lattice, as the 64x36 ones of phase 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.random((54, 96)) > rng.uniform(0.25, 0.5)
+
+
 def astar_bounds(batch: int, n_cells: int, k_goals: int, max_len: int,
                  pops: int, relaxations: int) -> dict:
     """The least time the card could take for these searches: bytes (each
     input read once, each output written once) over the memory rate, against
-    the operations this run's data needed (one key comparison a cell for the
-    argmin of each pop, 12 float operations a relaxation) over the float32
-    rate; and the same operations on one SM. A search is a chain of dependent
-    pops, so neither bound is near: the kernel is latency-bound."""
+    the operations this run's data needed (the ceil(log2(cells)) key
+    comparisons a binary heap of at most that many open cells needs for each
+    pop, 12 float operations a relaxation) over the float32 rate; and the
+    same operations on one SM. A search is a chain of dependent pops, so
+    neither bound is near: the kernel is latency-bound."""
     cache = 4 * (49 * 25 + 1)
     n_bytes = batch * (5 * n_cells + 8 + 9 * k_goals + cache
                        + 8 * k_goals * max_len + 16 * k_goals + cache)
-    n_ops = pops * n_cells + 12 * relaxations
+    n_ops = pops * math.ceil(math.log2(n_cells)) + 12 * relaxations
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     return {"n_bytes": n_bytes, "n_ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
@@ -707,6 +757,211 @@ def train_model_phase(torch, rec, n_train=64, n_valid=32, frame_hw=(640, 640),
     shutil.rmtree(work, ignore_errors=True)
 
 
+def run_cli(module, argv) -> list[str]:
+    """``module.main(argv)`` with its standard output captured: its lines.
+    Raises unless it returns 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv} returned {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    return buf.getvalue().splitlines()
+
+
+def cli_phase(torch, dev, scen, seg, demo, cuda_astar, cuda_wavefront):
+    """Phase cli: the port's command line on the card. Returns the A*
+    launches of its replay and 1080p video runs."""
+    import numpy as np
+
+    from vision_assist_tpu_torch import main as cli
+    from vision_assist_tpu_torch.config import PipelineConfig
+    from vision_assist_tpu_torch.io.synthetic import walkway_frames
+    from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
+
+    launches = {}
+    # replay: the 13 scenarios with the A* kernel, against the goldens.
+    cuda_astar.reset_launches()
+    t0 = time.perf_counter()
+    for name, _ in scen:
+        out = dict(ln.split(":", 1) for ln in run_cli(
+            cli, ["replay", name, "--engine", "exact_device"]))
+        gold = json.loads((REPO / "tests" / "fixtures" / "goldens"
+                           / f"{name}.json").read_text())
+        want = (f"{len(gold['paths'])} (lengths: "
+                f"{[len(p['cells_rc']) for p in gold['paths']]})")
+        if out["final answer"].strip() != gold["final_answer"] \
+                or out["paths"].strip() != want:
+            raise AssertionError(f"cli replay {name}: {out} vs golden "
+                                 f"{gold['final_answer']} {want}")
+    launches["replay"] = cuda_astar.launches
+    if launches["replay"] != len(scen):
+        raise AssertionError(f"cli replay: {launches['replay']} A* launches for "
+                             f"{len(scen)} scenarios")
+    log(f"phase cli replay: {len(scen)} scenarios through `main replay NAME "
+        f"--engine exact_device`, answers and path lengths equal to the goldens, "
+        f"A* launches {launches['replay']}, {time.perf_counter() - t0:.1f} s")
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        # image: the six demo PNGs, each through `main image`, against a fresh
+        # FrameProcessor (bgr, the default engine) over the same frame.
+        demo_paths = sorted((REPO / "assets" / "demo").glob("*.png"))
+        got, want = [], []
+        for path, frame in zip(demo_paths, demo):
+            lines = run_cli(cli, ["image", str(path)])
+            got.append(lines[0].split(":", 1)[1].strip())
+            ref = FrameProcessor(PipelineConfig(frame_height=frame.shape[0],
+                                                frame_width=frame.shape[1]),
+                                 segmenter=seg, device=dev)(frame)
+            want.append(ref.final_answer)
+        if got != want:
+            raise AssertionError(f"cli image: {got} vs {want}")
+        log(f"phase cli image: the {len(demo)} demo PNGs through `main image`, "
+            f"answers {got} equal to FrameProcessor's on the same frames")
+
+        # device_trace: one frame under torch.profiler, the card's kernels in
+        # the Chrome trace.
+        from vision_assist_tpu_torch.utils.profiling import device_trace
+
+        fp = FrameProcessor(PipelineConfig(frame_height=demo[0].shape[0],
+                                           frame_width=demo[0].shape[1]),
+                            segmenter=seg, device=dev)
+        fp(demo[0])
+        with device_trace(work / "trace"):
+            fp(demo[0])
+        events = json.loads((work / "trace" / "trace.json").read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            raise AssertionError("device_trace: no kernel of the card in the trace")
+        log(f"phase cli trace: device_trace of one frame, {len(kernels)} kernels on "
+            f"the card in trace.json, {sum(e.get('dur', 0) for e in kernels) / 1e3:.3f} "
+            "ms of kernel time")
+
+        # video: seeded 640x640 walkways as an .npy stack, synchronously and
+        # at depth 2, with cues and the timing file.
+        stack = work / "walkways640.npy"
+        np.save(stack, walkway_frames(8, 640, 640, seed=3))
+        base = ["video", "--source", str(stack), "--every-n", "1",
+                "--camera-fps", "10000", "--tts-dir", str(work / "cues")]
+        t0 = time.perf_counter()
+        sync = run_cli(cli, base + ["--timing-data-path", str(work / "timing.txt")])
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        piped = run_cli(cli, base + ["--depth", "2"])
+        piped_s = time.perf_counter() - t0
+        ans_sync = [ln.split(": ", 1)[1].split(" (")[0] for ln in sync
+                    if ln.startswith("frame ")]
+        ans_piped = [ln.split(": ", 1)[1].split(" [")[0] for ln in piped
+                     if ln.startswith("answer ")]
+        cues = sorted(p.name for p in (work / "cues").glob("*.wav"))
+        stages = [ln[:-1] for ln in (work / "timing.txt").read_text().splitlines()
+                  if ln.endswith(":")]
+        if ans_sync != ans_piped or len(ans_sync) != 8 or len(cues) != 3 \
+                or stages != ["frame"]:
+            raise AssertionError(f"cli video: sync {ans_sync} depth 2 {ans_piped}, "
+                                 f"cues {cues}, stages {stages}")
+        summary = [ln.strip() for ln in sync + piped
+                   if "latency" in ln or "throughput" in ln]
+        log(f"phase cli video: 8 walkway frames (640x640 .npy) through `main video`, "
+            f"sync and --depth 2 answers equal {ans_sync}, cues {cues}, timing "
+            f"stages {stages}; {sync_s:.1f} s / {piped_s:.1f} s with the setup; "
+            + "; ".join(summary))
+
+        # video at 1080x1920 with the A* kernel: a 54x96 lattice a frame.
+        stack = work / "walkways1080.npy"
+        np.save(stack, walkway_frames(3, 1080, 1920, seed=5))
+        cuda_astar.reset_launches()
+        cuda_wavefront.reset_launches()
+        video = ["video", "--source", str(stack), "--every-n", "1",
+                 "--camera-fps", "10000", "--engine"]
+        lines = run_cli(cli, video + ["exact_device"])
+        launches["video_1080p"] = cuda_astar.launches
+        # The same frames through the host's A* (engine exact): the answers
+        # of the two engines must agree frame by frame.
+        host = run_cli(cli, video + ["exact"])
+        answers, host_answers = ([ln.split(": ", 1)[1].split(" (")[0] for ln in out
+                                  if ln.startswith("frame ")] for out in (lines, host))
+        if launches["video_1080p"] != 3 or cuda_wavefront.launches \
+                or len(answers) != 3 or answers != host_answers:
+            raise AssertionError(f"cli video 1080p: A* launches "
+                                 f"{launches['video_1080p']}, answers {answers}, "
+                                 f"engine exact's {host_answers}")
+        log(f"phase cli video 1080p: 3 walkway frames of 1080x1920 through `main "
+            f"video --engine exact_device`, A* launches {launches['video_1080p']} "
+            f"(54x96 lattices), answers {answers} equal to `--engine exact`'s; "
+            + "; ".join(ln.strip() for ln in lines if ln.startswith("frame ")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def export_phase(torch, dev, seg, frame):
+    """Phase export: `export_model` at the flagship on a 640x640 frame on
+    the card, its program loaded back and held against the eager chain."""
+    from vision_assist_tpu_torch import export_model
+    from vision_assist_tpu_torch.models import flagship
+
+    rec = flagship.flagship()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    try:
+        t0 = time.perf_counter()
+        run_cli(export_model, [
+            "--weights", str(flagship.weights_path()), "--arch", rec["arch"],
+            "--imgsz", str(rec["imgsz"]), "--frame-hw", "640", "640",
+            "--out", str(work)])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = torch.export.load(str(work / "inference.pt2")).module()
+        load_s = time.perf_counter() - t0
+        x = torch.from_numpy(frame).to(dev)
+        got = program(x)
+        want = export_model.SegmenterChain(seg)(x)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        if not all(same):
+            raise AssertionError(
+                f"export: the loaded program differs from the eager chain "
+                f"(occupancy, boxes, scores, valid equal: {same}); max abs err "
+                f"boxes {float((got[1] - want[1]).abs().max()):.3g}, scores "
+                f"{float((got[2] - want[2]).abs().max()):.3g}")
+        log(f"phase export: {rec['arch']}@{rec['imgsz']} on a 640x640 frame, "
+            f"`export_model` {export_s:.1f} s (torch.export, save, weights), "
+            f"inference.pt2 {(work / 'inference.pt2').stat().st_size} B, load "
+            f"{load_s:.1f} s; occupancy, boxes, scores and valid bit-equal to the "
+            f"eager chain ({int(want[3].sum())} detections)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def goldens_phase():
+    """Phase goldens: `generate_goldens --out DIR` against the committed
+    goldens, file by file."""
+    import numpy as np
+
+    from vision_assist_tpu_torch import generate_goldens
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_goldens_"))
+    committed = REPO / "tests" / "fixtures" / "goldens"
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            names = generate_goldens.generate(work)
+        secs = time.perf_counter() - t0
+        for name in names:
+            if (work / f"{name}.json").read_text() != \
+                    (committed / f"{name}.json").read_text():
+                raise AssertionError(f"goldens {name}: the JSON differs")
+            a, b = np.load(work / f"{name}.npz"), np.load(committed / f"{name}.npz")
+            if sorted(a.files) != sorted(b.files) or not all(
+                    np.array_equal(a[k], b[k]) for k in a.files):
+                raise AssertionError(f"goldens {name}: the arrays differ")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase goldens: `generate_goldens` wrote {len(names)} scenarios in "
+        f"{secs:.2f} s, JSON byte-equal and arrays equal to tests/fixtures/goldens")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
@@ -855,6 +1110,10 @@ def main() -> int:
     astar_kw = dict(grid_size=rcfg.grid.grid_size,
                     max_len=rcfg.pathfinder.max_path_len)
     astar_err, scen_inputs = 0.0, []
+    big_astar, big_plain_ms = {}, {}
+    cfg_1080p = PipelineConfig(frame_height=1080, frame_width=1920)
+    kw_1080p = dict(grid_size=cfg_1080p.grid.grid_size,
+                    max_len=cfg_1080p.pathfinder.max_path_len)
 
     def astar_against_plain(name, inp, cache_k, cache_p, kw):
         """One launch of the A* kernel against the plain version on the same
@@ -872,21 +1131,24 @@ def main() -> int:
             *inp, cache_k, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refs = [device_astar.device_astar_paths_plain(*(x[i] for x in inp), cache_p[i],
-                                                      **kw) for i in range(len(inp[0]))]
+        refs = [device_astar.device_astar_paths_plain(
+            *(x[i] for x in inp), cache_p[i], return_counts=True, **kw)
+            for i in range(len(inp[0]))]
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        cache_p = torch.stack([c for _, c in refs])
+        cache_p = torch.stack([c for _, c, _ in refs])
         err = 0.0
-        for i, (ref, _) in enumerate(refs):
+        for i, (ref, _, counts) in enumerate(refs):
             valid = inp[4][i] & (lengths[i] > 0)
             if not (torch.equal(cells[i], ref.cells)
                     and torch.equal(lengths[i], ref.lengths)
                     and torch.equal(valid, ref.valid)
+                    and stats[i].tolist() == [list(c) for c in counts]
                     and torch.equal(cache_k[i].isnan(), cache_p[i].isnan())):
                 raise AssertionError(f"A* kernel differs from its plain version on "
                                      f"{name} stream {i}: lengths {lengths[i].tolist()} "
-                                     f"vs {ref.lengths.tolist()}")
+                                     f"vs {ref.lengths.tolist()}, (pops, relaxations) "
+                                     f"{stats[i].tolist()} vs {counts}")
             if not (torch.allclose(costs[i], ref.costs, rtol=1e-5, atol=0)
                     and torch.allclose(cache_k[i], cache_p[i], rtol=1e-5, atol=0,
                                        equal_nan=True)):
@@ -898,7 +1160,8 @@ def main() -> int:
                       float((cache_k[i] - cache_p[i]).nan_to_num().abs().max()))
         b, rows, cols = inp[0].shape
         log(f"phase kernel astar {name}: B={b} {rows}x{cols}, cells, lengths, "
-            f"validity and cache pattern equal, max abs err {err:.3g} (rtol 1e-5), "
+            f"pops, relaxations, validity and cache pattern equal, max abs err "
+            f"{err:.3g} (rtol 1e-5), plain version {plain_ms:.3f} ms, "
             f"goals {inp[4].sum(dim=1).tolist()}, lengths "
             f"{[x[x > 0].tolist() for x in lengths]}, pops a stream "
             f"{stats[..., 0].sum(dim=1).tolist()}")
@@ -921,6 +1184,24 @@ def main() -> int:
                 inp = (*inp[:4], inp[4] & (inp[4].cumsum(0) <= 3))
             cache_k, cache_p, err, _ = astar_against_plain(
                 name, inp, cache_k, cache_p, astar_kw)
+            astar_err = max(astar_err, err)
+        # A 1080x1920 frame's 54x96 lattice: 165 KB of shared memory a block,
+        # past the 48 KB a launch gets without the opt-in. The corridor of the
+        # JAX package's 1080p test (all its goals) and a seeded lattice (its
+        # first goal).
+        lib = cuda_astar.build()
+        log(f"phase kernel astar 54x96: {lib.astar_shared_bytes(54, 96)} bytes of "
+            f"shared memory a block, the card allows "
+            f"{cuda_astar._shared_cap(torch.cuda.current_device())}")
+        cache_k = cache_p = device_astar.empty_cache(dev)
+        for name, occ in (("corridor54x96", occupancy_1080p()),
+                          ("random54x96", random_1080p(7))):
+            inp = astar_inputs(torch, cfg_1080p, torch.from_numpy(occ).to(dev), False)
+            if name.startswith("random"):
+                inp = (*inp[:4], inp[4] & (inp[4].cumsum(0) <= 1))
+            big_astar[name] = inp
+            cache_k, cache_p, err, big_plain_ms[name] = astar_against_plain(
+                name, inp, cache_k, cache_p, kw_1080p)
             astar_err = max(astar_err, err)
         # All 13 scenarios as streams of one launch against one launch each.
         fresh = device_astar.empty_cache(dev)
@@ -995,7 +1276,9 @@ def main() -> int:
         for name, inp, kw in (
                 ("32x32 B=1 served", [x[None] for x in served_astar[-1]], ed_kw),
                 ("32x32 B=8 served", [torch.stack(x) for x in zip(*served_astar)], ed_kw),
-                ("64x36 B=13 scenarios", batched, astar_kw)):
+                ("64x36 B=13 scenarios", batched, astar_kw),
+                ("54x96 B=1 corridor", [x[None] for x in big_astar["corridor54x96"]],
+                 kw_1080p)):
             b, rows, cols = inp[0].shape
             warm = cuda_astar.astar_paths_cuda(
                 *inp, device_astar.empty_cache(dev).repeat(b, 1), **kw)[3]
@@ -1470,6 +1753,7 @@ def main() -> int:
     served_in = served_astar[-1]
     astar_timed = time_astar()
     astar_main = astar_timed["32x32 B=1 served"]
+    astar_big = astar_timed["54x96 B=1 corridor"]
     # The timed launch itself (served lattice, warm cache) against the plain
     # version, which is timed in the same comparison.
     warm = astar_main["warm"][0]
@@ -1569,6 +1853,34 @@ def main() -> int:
     if cuda_wavefront.launches or cuda_astar.launches:
         raise AssertionError("the train and eval phases launched a planning kernel")
 
+    # -- 15. cli, 16. bench, 17. export, 18. goldens -----------------------------------
+    from vision_assist_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    cli_launches = cli_phase(torch, dev, scen, seg, demo, cuda_astar, cuda_wavefront)
+    t1 = time.perf_counter()
+    cuda_wavefront.reset_launches()
+    cuda_astar.reset_launches()
+    record, _ = bench.run_bench()                # prints the bench's JSON line
+    if cuda_wavefront.launches or cuda_astar.launches:
+        raise AssertionError("the bench's default engine (exact) launched a "
+                             "planning kernel")
+    n_det = int(record["frames_with_detections"].split("/")[0])
+    if n_det == 0 or not all(np.isfinite(record[k]) and record[k] > 0 for k in (
+            "value", "p50_ms", "p90_ms", "p99_ms", "batched_fps_8streams")):
+        raise AssertionError(f"bench: bad record {record}")
+    t2 = time.perf_counter()
+    log(f"phase bench: ok, the line above; p50 {record['p50_ms']:.3f} ms, p90 "
+        f"{record['p90_ms']:.3f}, p99 {record['p99_ms']:.3f}, depth-8 "
+        f"{record['value']:.3f} frames/s, 8 streams {record['batched_fps_8streams']:.3f} "
+        f"frames/s, detections in {record['frames_with_detections']} frames, "
+        f"{t2 - t1:.1f} s; {record['device']}, {record['power_limit_w']} W")
+    export_phase(torch, dev, seg, frames[0])
+    t3 = time.perf_counter()
+    goldens_phase()
+    log(f"phase cli took {t1 - t0:.1f} s, bench {t2 - t1:.1f} s, export "
+        f"{t3 - t2:.1f} s, goldens {time.perf_counter() - t3:.1f} s")
+
     print_card()
     print(json.dumps({"kernels": [{
         "name": "relax",
@@ -1593,12 +1905,17 @@ def main() -> int:
         "replaces": "vision_assist_tpu/planning/device_astar.py:77",
         "launches": astar_launches,
         "launches_batch": batch_launches["exact_device"][1],
+        "launches_cli": cli_launches,
         "max_abs_err": astar_err,
         "ms": astar_main["ms"],
         "plain_ms": astar_plain_ms,
         "bound_ms": astar_main["bound_ms"],
         "bound_by": astar_main["bound_by"],
         "library_ms": None,
+        "ms_54x96": astar_big["ms"],
+        "plain_ms_54x96": big_plain_ms["corridor54x96"],
+        "bound_ms_54x96": astar_big["bound_ms"],
+        "bound_by_54x96": astar_big["bound_by"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -437,12 +437,25 @@ def test_training_entry_points_default_to_the_card():
 
 
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|cv2|msgpack|PIL|"
-                       r"imageio|vision_assist_tpu)(?:\.|\s|$)", re.M)
+                       r"imageio|scipy|vision_assist_tpu)(?:\.|\s|$)", re.M)
 
 
 def test_no_forbidden_imports_anywhere_in_the_port():
     files = sorted((REPO / "vision_assist_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 40
+    assert len(files) > 50
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    # The command line, bench, export, goldens and their modules are scanned.
+    assert {f"vision_assist_tpu_torch/{m}.py" for m in (
+        "main", "bench", "export_model", "generate_goldens", "io/scenarios",
+        "io/mock_camera", "io/speech", "io/tts", "utils/profiling",
+        "golden/peaks", "golden/pipeline")} <= names
     for f in files:
         found = FORBIDDEN.findall(f.read_text())
         assert not found, f"{f.relative_to(REPO)} imports {found}"
+
+
+@pytest.mark.parametrize("line", ["from scipy.signal import lfilter", "import scipy",
+                                  "    import jax.numpy as jnp",
+                                  "from vision_assist_tpu.io import tts"])
+def test_the_import_scan_catches(line):
+    assert FORBIDDEN.findall(f"x = 1\n{line}\n")

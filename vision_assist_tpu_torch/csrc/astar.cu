@@ -14,7 +14,8 @@
 //
 // What the design does about that: it makes a pop cost O(1), with no chain
 // of dependent loads in it, and keeps the whole state of a search in shared
-// memory (25 B a cell: 31 KB at 32x32, 63 KB at 64x36, 135 KB at 54x96).
+// memory (29 B a cell and 18 KB for the cache and its key table: 47 KB at
+// 32x32, 83 KB at 64x36, 165 KB at 54x96; astar_shared_bytes).
 //
 // * No path-so-far buffer. The reference analyses, for each relaxation out
 //   of a popped node, every 7-point window of the node's path: O(path) work,

@@ -1,15 +1,88 @@
-"""The float64 distance-from-edge penalty field of the exact engine.
+"""Cell-lattice construction and the distance-from-edge penalty field, in
+float64 numpy: the exact host twins of the JAX package's golden/lattice.py.
 
-Exact numpy twin of the reference's PenaltyCalculator
-(PenaltyCalculator.py:26-142): both row and column run extents come from two
-cumulative scans. It is what ``FrameProcessor._host_penalty`` falls back to
-when the native engine (planning/native) cannot be built; the two are
-bit-identical. The float32 field the device computes is ``ops/penalty.py``.
+* artificial-cell injection: the live pipeline (rows from 0.875*H) and the
+  replay harness (rows from 0.8375*H; that variant also bumps the start row
+  by one cell when it is already aligned, ``replay_rounding``).
+* penalty field: the reference's PenaltyCalculator; both row and column run
+  extents come from two cumulative scans. It is what
+  ``FrameProcessor._host_penalty`` falls back to when the native engine
+  (planning/native) cannot be built; the two are bit-identical. The float32
+  field the device computes is ``ops/penalty.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def artificial_column_mask(cols: int, frame_width: int, grid_size: int,
+                           half_span: int) -> np.ndarray:
+    """Boolean (cols,) mask of always-walkable columns centred on the frame.
+
+    Reference FrameProcessor.py:60-65: x in
+    range(W//2 - grid*half, W//2 + grid*(half+1), grid); identically
+    run_on_main.py:61-67.
+    """
+    xs = np.arange(
+        frame_width // 2 - grid_size * half_span,
+        frame_width // 2 + grid_size * (half_span + 1),
+        grid_size,
+    )
+    mask = np.zeros(cols, dtype=bool)
+    valid = (xs >= 0) & (xs < cols * grid_size)
+    mask[(xs[valid] // grid_size)] = True
+    return mask
+
+
+def artificial_start_row(frame_height: int, grid_size: int, frac: float,
+                         replay_rounding: bool) -> int:
+    """First lattice row that receives artificial cells.
+
+    Live pipeline (FrameProcessor.py:126-127): y = int(H*frac) rounded UP to a
+    multiple of grid_size only when misaligned. Replay harness
+    (run_on_main.py:104): the round-up is unconditional, so an aligned value
+    still moves one full cell down.
+    """
+    y = int(frame_height * frac)
+    rem = y % grid_size
+    if replay_rounding:
+        y = y + (grid_size - rem)
+    else:
+        y = y + (grid_size - rem) % grid_size
+    return y // grid_size
+
+
+def inject_artificial_cells(
+    occupancy: np.ndarray,
+    frame_width: int,
+    frame_height: int,
+    grid_size: int = 20,
+    half_span: int = 8,
+    row_start_frac: float = 0.8375,
+    replay_rounding: bool = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Overlay always-walkable cells at the user's feet.
+
+    Returns (walkable, artificial) boolean (R, C) arrays: ``walkable`` is the
+    input occupancy OR'd with the artificial columns on the bottom rows;
+    ``artificial`` marks cells that are walkable only because of the injection
+    (reference FrameProcessor.py:141-146).
+    """
+    occupancy = np.asarray(occupancy, dtype=bool)
+    rows, cols = occupancy.shape
+    col_mask = artificial_column_mask(cols, frame_width, grid_size, half_span)
+    start_row = artificial_start_row(frame_height, grid_size, row_start_frac,
+                                     replay_rounding)
+
+    row_mask = np.zeros(rows, dtype=bool)
+    if start_row < rows:
+        row_mask[start_row:] = True
+
+    injected = row_mask[:, None] & col_mask[None, :]
+    artificial = injected & ~occupancy
+    walkable = occupancy | injected
+    return walkable, artificial
 
 
 def run_extents(walkable: np.ndarray, axis: int) -> tuple[np.ndarray, np.ndarray]:
