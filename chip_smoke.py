@@ -153,6 +153,27 @@ result line:
              eager chain's; its seconds.
 18. goldens  `generate_goldens` into a temporary directory: JSON byte-equal
              and arrays equal to tests/fixtures/goldens.
+19. visualiser  the debug overlay: the 1080p corridor and a seeded 54x96
+             lattice through FrameProcessor(1080x1920, debug=True) for the
+             exact, exact_device and kernel-wavefront engines on the card,
+             counts zeroed before and read after (two A* launches, two relax
+             launches at 54x96): overlays byte-equal to the CPU's, answers and
+             paths equal; the relax kernel at 54x96 B=1 (108 KB of shared
+             memory a block, 320 threads) bit-equal to its twin on both
+             lattices, timed (queued CUDA events) beside its bound and the
+             twin; `main video --debug` on 3 walkways of 1080x1920, sync and
+             --depth 2, every PNG read back equal to the overlay a debug
+             FrameProcessor draws in memory; render_overlay's host ms a frame
+             at 1080x1920 and 640x640.
+20. parallel the parallel layer: maybe_initialize with NCCL at world size 1
+             (NCCL puts one rank on a card; this machine has one), the
+             data-parallel train step of the flagship bit-equal to the plain
+             step from the same state (deterministic cuDNN);
+             MultiStreamProcessor over make_mesh(1) for 8 streams equal to
+             mesh=None, for the kernel wavefront and exact_device (one launch
+             a step, counted); the dry run (vision_assist_tpu_torch/dryrun.py)
+             with NCCL, one process a card of this machine, and in 2 gloo
+             processes on the host CPU.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -896,6 +917,290 @@ def cli_phase(torch, dev, scen, seg, demo, cuda_astar, cuda_wavefront):
     return launches
 
 
+def visualiser_phase(torch, dev, cuda_astar, cuda_wavefront):
+    """Phase visualiser: the debug overlay at 1080x1920 on the card, the relax
+    kernel at 54x96 and ``main video --debug``. Returns (the launches of the
+    overlay runs, the relax kernel's readings at 54x96)."""
+    import numpy as np
+
+    from vision_assist_tpu_torch import main as cli
+    from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig
+    from vision_assist_tpu_torch.io.png import read_png
+    from vision_assist_tpu_torch.io.synthetic import walkway_frames
+    from vision_assist_tpu_torch.io.visualiser import render_overlay
+    from vision_assist_tpu_torch.models import flagship
+    from vision_assist_tpu_torch.models.inference import Segmenter
+    from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
+    from vision_assist_tpu_torch.pipeline.planner import make_plan_step
+    from vision_assist_tpu_torch.planning.wavefront import (
+        _scaled_turn,
+        enter_cost,
+        relax_field,
+    )
+
+    # The three engines with debug=True on the 1080p corridor and a seeded
+    # 54x96 lattice, each overlay drawn on a 1080x1920 walkway frame: the
+    # card's overlay, answer and paths equal to the CPU's.
+    engines = {"exact": PathFinderConfig(engine="exact"),
+               "exact_device": PathFinderConfig(engine="exact_device"),
+               "wavefront_kernel": PathFinderConfig(engine="wavefront",
+                                                    use_pallas_relax=True)}
+    lattices = {"corridor54x96": occupancy_1080p(), "random54x96": random_1080p(7)}
+    backdrop = walkway_frames(1, 1080, 1920, seed=9)[0]
+    launches, rows = {}, []
+    for label, pf in engines.items():
+        cfg = PipelineConfig(frame_height=1080, frame_width=1920, pathfinder=pf)
+        card = FrameProcessor(cfg, debug=True, device=dev)
+        cpu = FrameProcessor(cfg, debug=True, device="cpu")
+        cuda_astar.reset_launches()
+        cuda_wavefront.reset_launches()
+        got = [card.process_occupancy(occ, now_ms=0, frame=backdrop)
+               for occ in lattices.values()]
+        torch.cuda.synchronize()
+        launches[label] = (cuda_wavefront.launches, cuda_astar.launches)
+        want_launches = {"exact": (0, 0), "exact_device": (0, 2),
+                         "wavefront_kernel": (2, 0)}[label]
+        if launches[label] != want_launches:
+            raise AssertionError(f"visualiser {label}: (relax, A*) launches "
+                                 f"{launches[label]}, not {want_launches}")
+        for name, occ, a in zip(lattices, lattices.values(), got):
+            b = cpu.process_occupancy(occ, now_ms=0, frame=backdrop)
+            if not (a.overlay.shape == (1080, 1920, 3)
+                    and np.array_equal(a.overlay, b.overlay)
+                    and a.final_answer == b.final_answer
+                    and path_cells(a) == path_cells(b)):
+                raise AssertionError(
+                    f"visualiser {label} {name}: card {a.final_answer} "
+                    f"{path_cells(a)} vs cpu {b.final_answer} {path_cells(b)}, "
+                    f"{int((a.overlay != b.overlay).any(-1).sum())} pixels differ")
+            rows.append((label, name, a.final_answer, len(a.paths)))
+    log(f"phase visualiser 1080p: debug=True on the card, overlays (1080x1920) "
+        f"byte-equal to the CPU's, answers and paths equal; (engine, lattice, answer, "
+        f"paths) {rows}; (relax, A*) launches {launches}")
+
+    # The relax kernel at 54x96 B=1 against its plain version, and timed.
+    cfg = PipelineConfig(frame_height=1080, frame_width=1920)
+    turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
+                        90.0, dev)
+    plan = make_plan_step(cfg, include_paths=False)
+    relax = {}
+    for name, occ in lattices.items():
+        pr = plan(torch.from_numpy(occ).to(dev))
+        enter = enter_cost(pr.walkable, pr.penalty, 20, 0.5)[None]
+        start = pr.start_rc[None]
+        got, passes = cuda_wavefront.relax_field_cuda(enter, start, turn)
+        torch.cuda.synchronize()
+        ref, sweeps = relax_field(enter, start, turn)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"relax kernel at 54x96 differs from its twin on "
+                                 f"{name}: max abs err {float((got - ref).abs().max())}")
+        relax[name] = dict(enter=enter, start=start, passes=passes.tolist(),
+                           sweeps=sweeps.tolist())
+    lib = cuda_wavefront.build()
+    enter, start = relax["corridor54x96"]["enter"], relax["corridor54x96"]["start"]
+
+    def call():
+        return cuda_wavefront.relax_field_cuda(enter, start, turn)
+    bounds = relax_bounds(enter, sum(relax["corridor54x96"]["passes"]))
+    reading = dict(bounds, ms=cuda_ms(torch, call, reps=200, queued=True),
+                   call_ms=cuda_ms(torch, call, reps=200),
+                   plain_ms=cuda_ms(torch, lambda: relax_field(enter, start, turn),
+                                    reps=2, warmup=1))
+    log(f"phase visualiser relax 54x96: {lib.relax_shared_bytes(54, 96)} bytes of "
+        f"shared memory a block (the card allows "
+        f"{cuda_wavefront._shared_cap(torch.cuda.current_device())}), bit-equal to "
+        f"its twin on " + ", ".join(
+            f"{n} (passes {r['passes']}, twin sweeps {r['sweeps']})"
+            for n, r in relax.items())
+        + f"; {reading['ms']:.5f} ms on the device, {reading['call_ms']:.5f} ms per "
+        f"back-to-back call, plain twin {reading['plain_ms']:.3f} ms, bound "
+        f"{bounds['bound_ms']:.6f} ms by {bounds['bound_by']} ({bounds['n_bytes']} B, "
+        f"{bounds['n_ops']} float ops), one-SM bound {bounds['one_sm_ms']:.6f} ms")
+
+    # `main video --debug` on three 1080x1920 walkways, sync and depth 2: every
+    # PNG read back equals the overlay a debug FrameProcessor draws in memory.
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_vis_"))
+    try:
+        frames = walkway_frames(3, 1080, 1920, seed=5)
+        np.save(work / "walkways1080.npy", frames)
+        seg = Segmenter(flagship.model_config(), flagship.load_flagship_variables(),
+                        example_hw=(1080, 1920), device=dev)
+        fp = FrameProcessor(PipelineConfig(frame_height=1080, frame_width=1920,
+                                           transfer_format="i420"),
+                            segmenter=seg, debug=True, device=dev)
+        want = [fp(f) for f in frames]
+        written = {}
+        for depth in ("1", "2"):
+            out = work / f"depth{depth}"
+            run_cli(cli, ["video", "--source", str(work / "walkways1080.npy"),
+                          "--every-n", "1", "--camera-fps", "10000", "--depth", depth,
+                          "--debug", "--output", str(out)])
+            pngs = sorted((out / "walkways1080_frames").glob("frame_*.png"))
+            written[depth] = [p.name for p in pngs]
+            # At depth > 1 an overlay is written only for a frame with detections.
+            keep = [r for r in want if depth == "1" or r.n_detections]
+            if len(pngs) != len(keep) or not all(
+                    np.array_equal(read_png(p), r.overlay) for p, r in zip(pngs, keep)):
+                raise AssertionError(f"visualiser video --depth {depth}: "
+                                     f"{written[depth]} unequal to the overlays")
+        log(f"phase visualiser video: `main video --debug` on 3 walkways of "
+            f"1080x1920, sync {written['1']} and --depth 2 {written['2']} read back "
+            f"equal to the in-memory overlays; detections "
+            f"{[r.n_detections for r in want]}")
+
+        # render_overlay's host time at 640x640 and at 1080x1920.
+        times = {}
+        for (fh, fw), res, frame in (
+                ((1080, 1920), want[0], frames[0]),
+                ((640, 640), FrameProcessor(
+                    PipelineConfig(frame_height=640, frame_width=640), debug=True,
+                    device=dev).process_occupancy(
+                        random_1080p(3)[:32, :32], now_ms=0), None)):
+            rcfg = PipelineConfig(frame_height=fh, frame_width=fw)
+            frame = (walkway_frames(1, fh, fw, seed=1)[0] if frame is None else frame)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                render_overlay(rcfg, res, frame)
+            times[f"{fh}x{fw}"] = ((time.perf_counter() - t0) * 1e3 / 20,
+                                   int(res.walkable.sum()), len(res.paths))
+        log("phase visualiser render_overlay: host ms a frame (walkable cells, "
+            "paths) " + ", ".join(f"{k} {ms:.3f} ms ({n}, {p})"
+                                  for k, (ms, n, p) in times.items()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, dict(reading, passes=relax["corridor54x96"]["passes"]), times
+
+
+def parallel_phase(torch, dev, frames, seg, cuda_astar, cuda_wavefront):
+    """Phase parallel: NCCL at world size 1 on the card (the data-parallel
+    step against the plain step, bit for bit), MultiStreamProcessor over a
+    one-card mesh against mesh=None, and the dry run over the cards (NCCL)
+    and in two gloo processes on the host CPU.
+    NCCL puts one rank on a card and this machine has one card, so only
+    world size 1 runs on it. Returns the launches of the mesh runs."""
+    import os
+    import socket
+
+    import numpy as np
+
+    from vision_assist_tpu_torch import dryrun
+    from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig
+    from vision_assist_tpu_torch.data.loader import BatchLoader
+    from vision_assist_tpu_torch.io.synthetic import WalkwaySet
+    from vision_assist_tpu_torch.models import flagship, train
+    from vision_assist_tpu_torch.models.losses import LossConfig
+    from vision_assist_tpu_torch.models.yolo import YoloSeg, convert_flax_variables
+    from vision_assist_tpu_torch.parallel import distributed
+    from vision_assist_tpu_torch.parallel.mesh import make_mesh
+    from vision_assist_tpu_torch.parallel.train_step import create_dp_train_state
+    from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
+
+    # NCCL, world size 1: the data-parallel step from the flagship state
+    # against the plain step from the same state, deterministic cuDNN.
+    rec = flagship.flagship()
+    variables = flagship.load_flagship_variables()
+    imgsz, batch = int(rec["imgsz"]), 8
+    cfg = train.TrainConfig(imgsz=imgsz, batch_size=batch)
+    b = BatchLoader(WalkwaySet(batch, 640, 640, seed=200), batch_size=batch,
+                    imgsz=imgsz, augment=False)._pack(np.arange(batch))
+
+    def model():
+        m = YoloSeg(rec["arch"], dtype=torch.bfloat16, param_dtype=torch.float32)
+        m.load_state_dict(convert_flax_variables(variables, m))
+        return m
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"VAT_COORDINATOR": f"127.0.0.1:{port}", "VAT_NUM_PROCESSES": "1",
+           "VAT_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    torch.backends.cudnn.deterministic = True
+    try:
+        if not distributed.maybe_initialize("cuda"):
+            raise AssertionError("maybe_initialize did not join a process group")
+        backend = torch.distributed.get_backend()
+        if backend != "nccl" or distributed.process_info() != (0, 1):
+            raise AssertionError(f"process group {backend} {distributed.process_info()}")
+        mesh = make_mesh()
+        dp_model = model()
+        state, coll = create_dp_train_state(dp_model, cfg, 10, mesh, device=dev)
+        state, m_dp = train.make_train_step(dp_model, LossConfig(), cfg, coll)(
+            state, distributed.globalize_batch(b, mesh))
+        plain_model = model()
+        plain = train.create_train_state(plain_model, cfg, 10, device=dev)
+        plain, m_plain = train.make_train_step(plain_model, LossConfig(), cfg)(plain, b)
+        torch.cuda.synchronize()
+        for name in ("params", "batch_stats", "ema_params"):
+            for k, v in getattr(state, name).items():
+                if not torch.equal(v, getattr(plain, name)[k]):
+                    raise AssertionError(f"NCCL world size 1: {name} {k} differs by "
+                                         f"{float((v - getattr(plain, name)[k]).abs().max())}")
+        if not (torch.equal(state.trace, plain.trace) and all(
+                float(m_dp[k]) == float(m_plain[k]) for k in m_plain)):
+            raise AssertionError(f"NCCL world size 1: trace or metrics differ: "
+                                 f"{ {k: float(v) for k, v in m_dp.items()} } vs "
+                                 f"{ {k: float(v) for k, v in m_plain.items()} }")
+        log(f"phase parallel nccl: world size 1 on {mesh.devices[0, 0]} (NCCL puts one "
+            f"rank on a card; this machine has one), {rec['arch']}@{imgsz} batch "
+            f"{batch}: the data-parallel step (loss, gradient and metric "
+            f"all-reduces through NCCL) bit-equal to the plain step (params, batch "
+            f"stats, EMA, momentum, metrics); loss {float(m_dp['loss']):.6f}")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        torch.backends.cudnn.deterministic = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # MultiStreamProcessor over a one-card mesh against mesh=None, 8 streams.
+    launches, n = {}, len(frames)
+    for label, pf in (("wavefront_kernel", PathFinderConfig(engine="wavefront",
+                                                            use_pallas_relax=True)),
+                      ("exact_device", PathFinderConfig(engine="exact_device"))):
+        cfg = PipelineConfig(frame_height=640, frame_width=640, transfer_format="i420",
+                             num_streams=n, pathfinder=pf)
+        results = {}
+        for key, mesh in (("none", None), ("mesh", make_mesh(1))):
+            msp = MultiStreamProcessor(cfg, segmenter=seg, mesh=mesh, device=dev)
+            msp.process_frames(np.stack(frames), now_ms=0)   # this setup's first call
+            torch.cuda.synchronize()
+            cuda_astar.reset_launches()
+            cuda_wavefront.reset_launches()
+            results[key] = [msp.process_frames(np.stack(frames), now_ms=100)]
+            torch.cuda.synchronize()
+            launches[label, key] = (cuda_wavefront.launches, cuda_astar.launches)
+            msp.close()
+        want = (1, 0) if label == "wavefront_kernel" else (0, 1)
+        if launches[label, "mesh"] != want:
+            raise AssertionError(f"parallel {label}: (relax, A*) launches "
+                                 f"{launches[label, 'mesh']} over the mesh, not {want}")
+        for a, b_ in zip(results["mesh"][0], results["none"][0]):
+            if not (a.final_answer == b_.final_answer and path_cells(a) == path_cells(b_)
+                    and np.array_equal(a.occupancy, b_.occupancy)):
+                raise AssertionError(f"parallel {label}: mesh {a.final_answer} "
+                                     f"{path_cells(a)} vs none {b_.final_answer} "
+                                     f"{path_cells(b_)}")
+        log(f"phase parallel multi_stream {label}: {n} streams over make_mesh(1) "
+            f"equal to mesh=None (answers, occupancy, paths), (relax, A*) launches "
+            f"{launches[label, 'mesh']}; answers "
+            f"{[r.final_answer for r in results['mesh'][0]]}")
+
+    # The dry run: NCCL, one process a card (world size 1 on one card);
+    # then 2 gloo processes on the host CPU, a (1, 2) mesh.
+    for n, where, how in ((torch.cuda.device_count(), "cuda", "NCCL processes on the cards"),
+                          (2, "cpu", "gloo processes on the host CPU")):
+        t0 = time.perf_counter()
+        outs = dryrun.dryrun_multichip(n, where)
+        log(f"phase parallel dryrun: {n} {how} in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(ln for out in outs for ln in out.splitlines()))
+    return launches
+
+
 def export_phase(torch, dev, seg, frame):
     """Phase export: `export_model` at the flagship on a 640x640 frame on
     the card, its program loaded back and held against the eager chain."""
@@ -1535,7 +1840,7 @@ def main() -> int:
                                  f"{n_steps} steps of {n_streams} streams, not {want}")
         batch_launches[label] = got
         if label == "exact_device" and not torch.isfinite(
-                msp._stream_caches).any(dim=1).all():
+                msp._caches[0]).any(dim=1).all():
             raise AssertionError("batch exact_device: a stream's cache is still empty")
         msp.close()
         # bf16: a batch of 8 through the convolutions need not give the
@@ -1878,8 +2183,16 @@ def main() -> int:
     export_phase(torch, dev, seg, frames[0])
     t3 = time.perf_counter()
     goldens_phase()
+    t4 = time.perf_counter()
     log(f"phase cli took {t1 - t0:.1f} s, bench {t2 - t1:.1f} s, export "
-        f"{t3 - t2:.1f} s, goldens {time.perf_counter() - t3:.1f} s")
+        f"{t3 - t2:.1f} s, goldens {t4 - t3:.1f} s")
+
+    # -- 19. visualiser, 20. parallel ---------------------------------------------------
+    vis_launches, relax_big, _ = visualiser_phase(torch, dev, cuda_astar, cuda_wavefront)
+    t5 = time.perf_counter()
+    par_launches = parallel_phase(torch, dev, frames, seg, cuda_astar, cuda_wavefront)
+    log(f"phase visualiser took {t5 - t4:.1f} s, parallel "
+        f"{time.perf_counter() - t5:.1f} s")
 
     print_card()
     print(json.dumps({"kernels": [{
@@ -1896,6 +2209,12 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": None,
+        "launches_visualiser": vis_launches["wavefront_kernel"][0],
+        "launches_parallel": par_launches["wavefront_kernel", "mesh"][0],
+        "ms_54x96": relax_big["ms"],
+        "plain_ms_54x96": relax_big["plain_ms"],
+        "bound_ms_54x96": relax_big["bound_ms"],
+        "bound_by_54x96": relax_big["bound_by"],
     }, {
         # Replaces a compiled JAX loop, not a Pallas kernel; no single
         # PyTorch call computes a best-first search.
@@ -1906,6 +2225,8 @@ def main() -> int:
         "launches": astar_launches,
         "launches_batch": batch_launches["exact_device"][1],
         "launches_cli": cli_launches,
+        "launches_visualiser": vis_launches["exact_device"][1],
+        "launches_parallel": par_launches["exact_device", "mesh"][1],
         "max_abs_err": astar_err,
         "ms": astar_main["ms"],
         "plain_ms": astar_plain_ms,

@@ -183,9 +183,74 @@ def test_replay_of_an_unknown_scenario():
     assert buf.getvalue() == jbuf.getvalue()
 
 
-def test_debug_raises_until_the_visualiser_is_ported():
-    with pytest.raises(NotImplementedError, match="visualiser"):
-        cli.main(["replay", "right_turn", "--debug"] + CPU)
+def _outside_labels(results, shape) -> np.ndarray:
+    """True where no corner label of any of the results may be drawn."""
+    from vision_assist_tpu_torch.io.visualiser import label_boxes
+
+    keep = np.ones(shape, bool)
+    for res in results:
+        for x0, y0, x1, y1 in label_boxes(res):
+            keep[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = False
+    return keep
+
+
+@pytest.mark.parametrize("command", ["replay", "image", "video", "video_depth2"])
+def test_debug_writes_jax_overlays(clips, command, tmp_path):
+    """``--debug`` writes JAX's files under ``--output``
+    (``right_turn_overlay.png``; ``{image}_processed.png``;
+    ``{source}_frames/frame_NNNN.png`` for sync video and for depth 2, the
+    latter through keep_frames), prints JAX's lines, and each PNG holds
+    JAX's pixels (read back with cv2) outside the corner labels' boxes."""
+    from vision_assist_tpu_torch.config import PipelineConfig, replay_config
+    from vision_assist_tpu_torch.models import flagship
+    from vision_assist_tpu_torch.models.inference import Segmenter
+    from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
+
+    mp4, npy, _, stack = clips["walkways"]
+    if command == "replay":
+        argv = ["replay", "right_turn"]
+        sources = {"jax": [], "port": []}
+        fp = FrameProcessor(replay_config(), replay_rounding=True, device="cpu")
+        from vision_assist_tpu_torch.io.scenarios import load_scenario
+        results = [fp.process_occupancy(load_scenario("right_turn"), now_ms=0)]
+    elif command == "image":
+        argv = ["image", str(DEMO[2])]
+        sources = {"jax": [], "port": []}
+        from vision_assist_tpu_torch.io.png import read_png
+        frame = read_png(DEMO[2])
+        seg = Segmenter(flagship.model_config(), flagship.load_flagship_variables(),
+                        example_hw=frame.shape[:2], device="cpu")
+        results = [FrameProcessor(PipelineConfig(frame_height=640, frame_width=640),
+                                  seg, device="cpu")(frame)]
+    else:
+        argv = ["video", "--every-n", "4", "--camera-fps", "10000",
+                "--depth", "2" if command == "video_depth2" else "1"]
+        sources = {"jax": ["--source", str(mp4)], "port": ["--source", str(npy)]}
+        seg = Segmenter(flagship.model_config(), flagship.load_flagship_variables(),
+                        example_hw=(320, 240), grid_size=20, device="cpu")
+        fp = FrameProcessor(PipelineConfig(frame_height=320, frame_width=240,
+                                           transfer_format="i420"), seg, device="cpu")
+        results = [fp(f) for f in stack[3::4]]
+    lines = {}
+    for side, main in (("jax", jax_main), ("port", cli.main)):
+        out = tmp_path / side
+        lines[side] = [ln.replace(str(out), "OUT") for ln in _run(
+            main, argv + sources[side] + ["--debug", "--output", str(out)]
+            + (CPU if side == "port" else []))
+            if not ln.lstrip().startswith(("latency", "mean latency", "p50 latency",
+                                           "throughput"))]
+    assert [_MS.sub("", ln) for ln in lines["port"]] == \
+        [_MS.sub("", ln) for ln in lines["jax"]]
+    written = sorted(p.relative_to(tmp_path / "port")
+                     for p in (tmp_path / "port").rglob("*.png"))
+    assert written == sorted(p.relative_to(tmp_path / "jax")
+                             for p in (tmp_path / "jax").rglob("*.png"))
+    assert len(written) == {"replay": 1, "image": 1, "video": 5, "video_depth2": 5}[command]
+    for rel, res in zip(written, results):
+        got = cv2.imread(str(tmp_path / "port" / rel))
+        want = cv2.imread(str(tmp_path / "jax" / rel))
+        keep = _outside_labels([res], got.shape[:2])
+        np.testing.assert_array_equal(got[keep], want[keep], err_msg=str(rel))
 
 
 @pytest.mark.parametrize("i", [2, 5])

@@ -133,10 +133,10 @@ def test_exact_device_caches_are_per_stream_and_carried():
     occ = np.stack([load_scenario(n) for n in names])
     msp = MultiStreamProcessor(_replay_cfg(config, "exact_device", 2),
                                replay_rounding=True, device="cpu")
-    assert msp._stream_caches.shape == (2, 1226)
-    assert torch.isnan(msp._stream_caches).all()
+    assert msp._caches[0].shape == (2, 1226)
+    assert torch.isnan(msp._caches[0]).all()
     msp.process_occupancies(occ, now_ms=0)
-    first = msp._stream_caches.clone()
+    first = msp._caches[0].clone()
     assert torch.isfinite(first).any(dim=1).all()
     assert not torch.equal(first[0].nan_to_num(), first[1].nan_to_num())
     # A second step starts from the carried caches: as two steps of each
@@ -148,7 +148,7 @@ def test_exact_device_caches_are_per_stream_and_carried():
         fp.process_occupancy(occ[s], now_ms=0)
         single = fp.process_occupancy(occ[s], now_ms=400)
         _assert_same_result(again[s], single, name)
-        assert torch.equal(msp._stream_caches[s].nan_to_num(),
+        assert torch.equal(msp._caches[0][s].nan_to_num(),
                            fp._astar_cache.nan_to_num())
 
 
@@ -282,9 +282,37 @@ def test_submit_retire_pipelining_keeps_order(segmenters):
 # -- the constructor and its guards ------------------------------------------------------------
 
 
-def test_mesh_waits_for_the_parallel_slice():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        MultiStreamProcessor(config.replay_config(), mesh=object(), device="cpu")
+def test_mesh_shards_streams_like_mesh_none(segmenters):
+    """Over a (2, 1) mesh of CPU devices the 13 scenarios (plus one, to
+    split evenly) as 14 streams in two shards give what ``mesh=None`` gives,
+    bit for bit, for exact_device (whose per-shard angle caches are
+    carried), and so do two frames through the segmenter, submitted and
+    retired one handle a shard; 13 streams do not split over dp = 2."""
+    from vision_assist_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    names = NAMES + NAMES[:1]
+    occ = np.stack([load_scenario(n) for n in names])
+    cfg = _replay_cfg(config, "exact_device", len(names))
+    got = []
+    for m in (mesh, None):
+        msp = MultiStreamProcessor(cfg, mesh=m, replay_rounding=True, device="cpu")
+        got.append([msp.process_occupancies(occ, now_ms=t) for t in (0, 100)])
+        got[-1].append(torch.cat(msp._caches))
+    for step_a, step_b in zip(got[0][:2], got[1][:2]):
+        for a, b in zip(step_a, step_b):
+            _assert_same_result(a, b, "mesh against none")
+    assert torch.equal(got[0][2].nan_to_num(), got[1][2].nan_to_num())
+    _, tseg = segmenters
+    frames = _scenes(2)
+    served = [MultiStreamProcessor(_frame_cfg(config, "exact_device", 2),
+                                   segmenter=tseg, mesh=m, device="cpu")
+              .process_frames(frames, now_ms=0) for m in (mesh, None)]
+    for a, b in zip(*served):
+        _assert_same_result(a, b, "frames over the mesh against none")
+    with pytest.raises(ValueError, match="split"):
+        MultiStreamProcessor(_replay_cfg(config, "exact", 13), mesh=mesh,
+                             device="cpu")
 
 
 def test_defaults_to_the_card_and_raises_without_one():

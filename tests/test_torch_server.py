@@ -46,6 +46,7 @@ from vision_assist_tpu.pipeline.server import (  # noqa: E402
 )
 from vision_assist_tpu_torch import config  # noqa: E402
 from vision_assist_tpu_torch.io.synthetic import walkway_frames  # noqa: E402
+from vision_assist_tpu_torch.io.visualiser import render_overlay  # noqa: E402
 from vision_assist_tpu_torch.models import flagship  # noqa: E402
 from vision_assist_tpu_torch.models.inference import Segmenter  # noqa: E402
 from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor  # noqa: E402
@@ -187,10 +188,27 @@ def test_depth_validation(depth):
         StreamingServer(fp, depth=depth)
 
 
-def test_keep_frames_waits_for_the_visualiser():
-    fp = FrameProcessor(config.PipelineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="visualiser"):
-        StreamingServer(fp, depth=2, keep_frames=True)
+def test_keep_frames_overlays_equal_the_sync_loop(segmenter, frames):
+    """At depth 2 with debug on, each retired overlay is drawn on its own
+    camera frame and equals, byte for byte, the synchronous loop's; without
+    keep_frames it is drawn on black."""
+    def proc():
+        cfg = config.PipelineConfig(frame_height=H, frame_width=W,
+                                    pathfinder=ENGINES["exact_device"])
+        return FrameProcessor(cfg, segmenter=segmenter, debug=True, device="cpu")
+
+    sync = proc()
+    want = [sync(f, now_ms=i * 33).overlay for i, f in enumerate(frames[:4])]
+    srv = StreamingServer(proc(), depth=2, keep_frames=True)
+    got = [r.overlay for r in srv.serve(frames[:4], frame_interval_ms=33)]
+    assert len(got) == 4 and srv.in_flight == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    bare = StreamingServer(proc(), depth=2)
+    (first,) = bare.serve(frames[:1])
+    np.testing.assert_array_equal(
+        first.overlay, render_overlay(bare.fp.cfg, first, frame=None))
+    assert not np.array_equal(first.overlay, want[0])
 
 
 # -- the batched server ---------------------------------------------------------------------
@@ -283,7 +301,7 @@ def test_batched_served_sequence_matches_jax_server(segmenter, jax_segmenter, st
                 [(p.centre.x, p.centre.y, p.orientation) for p in jr.peaks], (i, s)
             np.testing.assert_allclose([p.total_cost for p in tr.paths],
                                        [p.total_cost for p in jr.paths], rtol=1e-5)
-    tcache = tsrv.msp._stream_caches.numpy()
+    tcache = torch.cat(tsrv.msp._caches).numpy()
     jcache = np.asarray(jsrv.msp._stream_caches)
     assert tcache.shape == jcache.shape == (N_STREAMS, 1226)
     assert np.isfinite(tcache).any(axis=1).all()

@@ -122,12 +122,19 @@ def test_dataclass_fields_in_the_jax_order(pair):
     assert [(f.name, f.default) for f in got] == [(f.name, f.default) for f in want]
 
 
-def test_debug_raises_until_the_visualiser_is_ported():
-    with pytest.raises(NotImplementedError, match="visualiser"):
-        tfp.FrameProcessor(None, None, True, device="cpu")
-    # A third positional False is debug, as in JAX, not replay_rounding.
+def test_positional_debug_gives_an_overlay():
+    """A third positional True is debug, as in JAX, and the result carries
+    a (H, W, 3) overlay; a third positional False is debug, not
+    replay_rounding."""
+    import numpy as np
+
+    fp = tfp.FrameProcessor(None, None, True, device="cpu")
+    assert fp.debug is True and fp._replay_rounding is False
+    res = fp.process_occupancy(np.zeros((64, 36), bool), now_ms=0)
+    assert res.overlay.shape == (fp.cfg.frame_height, fp.cfg.frame_width, 3)
+    assert res.overlay.dtype == np.uint8
     fp = tfp.FrameProcessor(None, None, False, True, device="cpu")
-    assert fp._replay_rounding is True
+    assert fp._replay_rounding is True and fp.debug is False
 
 
 def _flags(parser: argparse.ArgumentParser) -> list[tuple]:

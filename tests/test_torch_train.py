@@ -444,11 +444,14 @@ def test_no_forbidden_imports_anywhere_in_the_port():
     files = sorted((REPO / "vision_assist_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 50
     names = {f.relative_to(REPO).as_posix() for f in files}
-    # The command line, bench, export, goldens and their modules are scanned.
+    # The command line, bench, export, goldens, the overlay, the parallel
+    # layer and their modules are scanned.
     assert {f"vision_assist_tpu_torch/{m}.py" for m in (
         "main", "bench", "export_model", "generate_goldens", "io/scenarios",
         "io/mock_camera", "io/speech", "io/tts", "utils/profiling",
-        "golden/peaks", "golden/pipeline")} <= names
+        "golden/peaks", "golden/pipeline", "io/draw", "io/font", "io/visualiser",
+        "render_demo", "dryrun", "parallel/mesh", "parallel/distributed",
+        "parallel/train_step")} <= names
     for f in files:
         found = FORBIDDEN.findall(f.read_text())
         assert not found, f"{f.relative_to(REPO)} imports {found}"

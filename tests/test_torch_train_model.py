@@ -188,9 +188,29 @@ def test_driver_boundaries(data, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_model.main(["--data", str(data), "--out", str(tmp_path)])
-    monkeypatch.setenv("VAT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="VAT_COORDINATOR"):
-        train_model.main(_argv(data, tmp_path, 1))
+    # With VAT_COORDINATOR, a one-process gloo group (the rendezvous a file)
+    # trains the epoch a single-process run trains, the history equal but
+    # for the times.
+    _, plain = _run(_argv(data, tmp_path / "plain", 1, "--resume", str(TRAINED)))
+    monkeypatch.setenv("VAT_COORDINATOR", f"file://{tmp_path / 'rendezvous'}")
+    monkeypatch.setenv("VAT_NUM_PROCESSES", "1")
+    monkeypatch.setenv("VAT_PROCESS_ID", "0")
+    try:
+        rc, multi = _run(_argv(data, tmp_path / "multi", 1, "--resume", str(TRAINED)))
+        assert torch.distributed.is_initialized()
+        assert torch.distributed.get_backend() == "gloo"
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert rc == 0, multi
+    histories = [json.loads((tmp_path / d / "history.json").read_text())
+                 for d in ("plain", "multi")]
+    for h in histories:
+        for rec in h:
+            rec.pop("time_s")
+    assert histories[0] == histories[1]
+    assert (tmp_path / "multi" / "last.msgpack").read_bytes() == \
+        (tmp_path / "plain" / "last.msgpack").read_bytes()
 
 
 def test_write_flagship_matches_jax(tmp_path, monkeypatch):

@@ -21,6 +21,7 @@ import pathlib
 
 import numpy as np
 
+from vision_assist_tpu_torch.io.draw import c_div, clip_line, line8
 from vision_assist_tpu_torch.io.png import read_png
 
 _XY_SHIFT = 16
@@ -128,81 +129,11 @@ class SegDataset:
         return self._read(idx)
 
 
-def _clip_line(w: int, h: int, p1: list[int], p2: list[int]) -> bool:
-    """OpenCV's ``clipLine`` on an image of w x h, in place on p1 and p2;
-    False when the segment misses the image."""
-    right, bottom = w - 1, h - 1
-
-    def code(x, y):
-        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
-
-    c1, c2 = code(*p1), code(*p2)
-    if (c1 & c2) == 0 and (c1 | c2) != 0:
-        # The second endpoint is moved with the first one's new value, as
-        # OpenCV does; the quotient truncates toward zero.
-        if c1 & 12:
-            a = 0 if c1 < 8 else bottom
-            p1[0] += int((a - p1[1]) * (p2[0] - p1[0]) / (p2[1] - p1[1]))
-            p1[1] = a
-            c1 = (p1[0] < 0) + (p1[0] > right) * 2
-        if c2 & 12:
-            a = 0 if c2 < 8 else bottom
-            p2[0] += int((a - p2[1]) * (p2[0] - p1[0]) / (p2[1] - p1[1]))
-            p2[1] = a
-            c2 = (p2[0] < 0) + (p2[0] > right) * 2
-        if (c1 & c2) == 0 and (c1 | c2) != 0:
-            if c1:
-                a = 0 if c1 == 1 else right
-                p1[1] += int((a - p1[0]) * (p2[1] - p1[1]) / (p2[0] - p1[0]))
-                p1[0] = a
-                c1 = 0
-            if c2:
-                a = 0 if c2 == 1 else right
-                p2[1] += int((a - p2[0]) * (p2[1] - p1[1]) / (p2[0] - p1[0]))
-                p2[0] = a
-                c2 = 0
-    return (c1 | c2) == 0
-
-
-def _line8(mask: np.ndarray, p1: list[int], p2: list[int], value: int) -> None:
-    """OpenCV's 8-connected ``Line`` (Bresenham, drawn left to right)."""
-    h, w = mask.shape
-    p1, p2 = list(p1), list(p2)
-    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
-            and 0 <= p2[1] < h) and not _clip_line(w, h, p1, p2):
-        return
-    if p2[0] < p1[0]:
-        p1, p2 = p2, p1
-    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
-    sy = -1 if dy < 0 else 1
-    dy = abs(dy)
-    vert = dy > dx
-    major, minor = (dy, dx) if vert else (dx, dy)
-    err = major - 2 * minor
-    x, y = p1
-    for _ in range(major + 1):
-        mask[y, x] = value
-        step_minor = err < 0
-        err += -2 * minor + (2 * major if step_minor else 0)
-        if vert:
-            y += sy
-            x += 1 if step_minor else 0
-        else:
-            x += 1
-            y += sy if step_minor else 0
-
-
 class _Edge:
     __slots__ = ("y0", "y1", "x", "dx", "next")
 
     def __init__(self, y0=0, y1=0, x=0, dx=0):
         self.y0, self.y1, self.x, self.dx, self.next = y0, y1, x, dx, None
-
-
-def _int_div(a: int, b: int) -> int:
-    """C's integer division (truncation toward zero)."""
-    q = abs(a) // abs(b)
-    return q if (a >= 0) == (b > 0) else -q
 
 
 def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int) -> None:
@@ -214,17 +145,17 @@ def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int) -> None:
     x0, y0 = pts[-1]
     for x1, y1 in pts:
         t0, t1 = [x0, y0], [x1, y1]
-        _line8(mask, t0, t1, value)
+        line8(mask, t0, t1, value)
         c0x, c0y, c1x, c1y = x0 << _XY_SHIFT, y0, x1 << _XY_SHIFT, y1
         if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
             # The edge runs between its clipped endpoints' columns, and their
             # rows unless clipping left it flat (then the original rows).
-            _clip_line(w, h, t0, t1)
+            clip_line(w, h, t0, t1)
             if t0[1] != t1[1]:
                 c0y, c1y = t0[1], t1[1]
             c0x, c1x = t0[0] << _XY_SHIFT, t1[0] << _XY_SHIFT
         if y0 != y1:
-            dx = _int_div(c1x - c0x, c1y - c0y)
+            dx = c_div(c1x - c0x, c1y - c0y)
             if y0 < y1:
                 edges.append(_Edge(y0, y1, c0x + (y0 - c0y) * dx, dx))
             else:

@@ -12,9 +12,11 @@ Usage:
 
 ``video`` reads an ``.npy`` stack of frames (N, H, W, 3) uint8 BGR or a
 directory of PNG frames (``io/mock_camera.py``); ``image`` reads a PNG. The
-port has no video or JPEG decoder, so other formats raise. ``--debug`` asks
-for overlays, which the visualiser renders; until it is ported it raises
-``NotImplementedError``.
+port has no video or JPEG decoder, so other formats raise. ``--debug`` writes
+the overlays as PNG under ``--output`` with the JAX file names
+(``{scenario}_overlay.png``, ``{source}_frames/frame_{n:04d}.png``,
+``{image}_processed.png``) through ``io/png.write_png``: the same pixels as
+the JAX package's ``cv2.imwrite``, other PNG bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import sys
 import time
 
 import numpy as np
+
+from vision_assist_tpu_torch.io.png import write_png
 
 ENGINES = ["wavefront", "exact", "exact_device"]
 
@@ -52,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "arch with random init)")
     v.add_argument("--verbose", action="store_true")
     v.add_argument("--debug", action="store_true",
-                   help="render + save overlay frames (needs the visualiser)")
+                   help="render + save overlay frames")
     v.add_argument("--blur-gate", action="store_true",
                    help="enable the Laplacian blur gate (reference default: off)")
     v.add_argument("--timing-data-path", type=str, default=None,
@@ -123,6 +127,13 @@ def run_replay(args) -> int:
           f" (lengths: {[len(p.cells) for p in res.paths]})")
     print(f"final answer: {res.final_answer}")
     print(f"latency:      {dt * 1000:.1f} ms (includes first-call build)")
+
+    if args.debug:
+        out = pathlib.Path(args.output)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"{args.scenario}_overlay.png"
+        write_png(path, res.overlay)
+        print(f"overlay:      {path}")
     return 0
 
 
@@ -169,6 +180,10 @@ def run_video(args) -> int:
                     grid_size=cfg.grid.grid_size, device=args.device)
     fp = FrameProcessor(cfg, segmenter=seg, debug=args.debug, device=args.device)
 
+    out_dir = pathlib.Path(args.output) / f"{pathlib.Path(args.source).stem}_frames"
+    if args.debug:
+        out_dir.mkdir(parents=True, exist_ok=True)
+
     cues = None
     if args.tts_dir:
         from vision_assist_tpu_torch.io.tts import generate_cue_assets
@@ -176,7 +191,7 @@ def run_video(args) -> int:
         print(f"audio cues: {args.tts_dir}")
 
     if args.depth > 1:
-        return _run_video_pipelined(args, cam, fp, cues)
+        return _run_video_pipelined(args, cam, fp, cues, out_dir)
 
     timer = StageTimer() if args.timing_data_path else None
     frame_count = 0
@@ -217,6 +232,8 @@ def run_video(args) -> int:
                 cue = f" [cue: {cues[res.final_answer]}]" if cues else ""
                 print(f"frame {frame_count}: {res.final_answer} "
                       f"({dt * 1000:.1f} ms){cue}")
+            if args.debug:
+                write_png(out_dir / f"frame_{processed:04d}.png", res.overlay)
     except KeyboardInterrupt:
         pass
     finally:
@@ -232,7 +249,7 @@ def run_video(args) -> int:
     return 0
 
 
-def _run_video_pipelined(args, cam, fp, cues) -> int:
+def _run_video_pipelined(args, cam, fp, cues, out_dir) -> int:
     """Depth-N serving loop: submits overlap the upload and the device
     program with the host planning of older frames (StreamingServer).
     Per-frame sync latency is meaningless here; the summary reports
@@ -259,6 +276,8 @@ def _run_video_pipelined(args, cam, fp, cues) -> int:
                 continue
             cue = f" [cue: {cues[res.final_answer]}]" if cues else ""
             print(f"answer {processed}: {res.final_answer}{cue}")
+            if args.debug:
+                write_png(out_dir / f"frame_{processed:04d}.png", res.overlay)
 
     try:
         while cam.isOpened():
@@ -313,6 +332,12 @@ def run_image(args) -> int:
     res = fp(frame)
     print(f"final answer: {res.final_answer}")
     print(f"paths: {len(res.paths)}; peaks: {len(res.peaks)}")
+    if args.debug:
+        out = pathlib.Path(args.output)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / (pathlib.Path(args.image).stem + "_processed.png")
+        write_png(path, res.overlay)
+        print(f"overlay: {path}")
     return 0
 
 

@@ -14,6 +14,7 @@ mapped cell centres equals upsample-then-threshold at those pixels.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -102,6 +103,25 @@ class Segmenter:
         self.spec = LetterboxSpec.create(self.frame_h, self.frame_w, cfg.imgsz)
         self._centres = torch.from_numpy(cell_centres_dst(
             self.frame_h, self.frame_w, grid_size, self.spec)).to(self.device)
+
+    def on(self, device: str | torch.device) -> "Segmenter":
+        """This segmenter on ``device``: itself when it is there ("cuda"
+        naming the current card), else a copy with its own module (the same
+        weights)."""
+        def canonical(d):
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                return torch.device("cuda", torch.cuda.current_device())
+            return d
+
+        device = canonical(device)
+        if device == canonical(self.device):
+            return self
+        other = copy.copy(self)
+        other.device = device
+        other.model = copy.deepcopy(self.model).to(device)
+        other._centres = self._centres.to(device)
+        return other
 
     @torch.no_grad()
     def _frame_chain(self, frame_bgr: torch.Tensor) -> SegFrameResult:

@@ -177,11 +177,16 @@ def task_aligned_assign(pred_scores, pred_boxes, anchor_pts, gt_boxes,
 
 
 def yolo_seg_loss(outputs: YoloSegOutputs, batch: dict[str, Any],
-                  cfg: LossConfig, imgsz: int):
+                  cfg: LossConfig, imgsz: int, global_sum=None):
     """Total loss + component dict for one batch.
 
     batch: boxes (B,N,4) xyxy pixels, classes (B,N), valid (B,N), masks
     (B,Hm,Wm) overlap-index uint8, all tensors on the outputs' device.
+
+    ``global_sum`` sums a tensor over the data-parallel ranks when the batch
+    is split over them (``parallel/train_step.py``): the normalisers and the
+    batch size are then the global batch's, and the loss and the components
+    are this rank's share, which sum over the ranks to the global batch's.
     """
     hw = [tuple(x.shape[2:4]) for x in outputs.box_logits]
     dev = outputs.protos.device
@@ -208,7 +213,13 @@ def yolo_seg_loss(outputs: YoloSegOutputs, batch: dict[str, Any],
         gt_boxes, batch["classes"], batch["valid"], cfg)
     fg_f = fg.float()
 
-    ts_sum = torch.clamp(target_scores.sum(), min=1.0)
+    # The normalisers are batch-wide: over the global batch when the batch
+    # is split over data-parallel ranks (sums of inputs without gradient).
+    ts_sum, fg_sum, b_all = target_scores.sum(), fg_f.sum(), b
+    if global_sum is not None:
+        ts_sum, fg_sum, b_all = global_sum(
+            torch.stack([ts_sum, fg_sum, ts_sum.new_tensor(float(b))]))
+    ts_sum = torch.clamp(ts_sum, min=1.0)
 
     # Classification BCE with soft targets.
     cls_loss = _bce_logits(cls_logits, target_scores).sum() / ts_sum
@@ -265,11 +276,11 @@ def yolo_seg_loss(outputs: YoloSegOutputs, batch: dict[str, Any],
         ((sel_boxes[..., 2] - sel_boxes[..., 0]) / imgsz)
         * ((sel_boxes[..., 3] - sel_boxes[..., 1]) / imgsz), min=1e-4)
     per_anchor = (bce * in_box).mean(dim=(-1, -2)) / area_n  # (B, K)
-    seg_loss = torch.sum(per_anchor * sel_fg) / torch.clamp(fg_f.sum(), min=1.0)
+    seg_loss = torch.sum(per_anchor * sel_fg) / torch.clamp(fg_sum, min=1.0)
 
     total = (cfg.box_gain * box_loss + cfg.box_gain * seg_loss
-             + cfg.cls_gain * cls_loss + cfg.dfl_gain * dfl_loss) * b
+             + cfg.cls_gain * cls_loss + cfg.dfl_gain * dfl_loss) * b_all
     return total, {
         "box": box_loss, "seg": seg_loss, "cls": cls_loss, "dfl": dfl_loss,
-        "fg_per_img": fg_f.sum() / b,
+        "fg_per_img": fg_sum / b_all,
     }

@@ -99,12 +99,22 @@ class NesterovSGD:
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-               trace: torch.Tensor, count: int) -> None:
+               trace: torch.Tensor, count: int, grad_sum=None,
+               sq_norm=None) -> None:
         """One step: ``params`` and ``trace`` in place; ``count`` is the number
-        of updates made before this one (the rate's step)."""
+        of updates made before this one (the rate's step).
+
+        Data-parallel training passes ``grad_sum``, which sums the flat
+        gradient over the ranks in place (one all-reduce), and, where
+        parameters are stored as slices over model-parallel ranks,
+        ``sq_norm``, the squared norm of the whole gradient from this rank's
+        flat one."""
         g = torch.cat([x.reshape(-1) for x in grads])
+        if grad_sum is not None:
+            grad_sum(g)
         g.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
-        norm = torch.linalg.vector_norm(g)
+        norm = (torch.linalg.vector_norm(g) if sq_norm is None
+                else torch.sqrt(sq_norm(g)))
         g = torch.where(norm < MAX_GRAD_NORM, g, g / norm * MAX_GRAD_NORM)
         g.addcmul_(torch.cat([p.reshape(-1) for p in params]),
                    self._decay_vector(params))
@@ -176,13 +186,20 @@ def _to_device(x: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device, non_blocking=True)
 
 
-def make_train_step(model: YoloSeg, loss_cfg: LossConfig, cfg: TrainConfig):
+def make_train_step(model: YoloSeg, loss_cfg: LossConfig, cfg: TrainConfig,
+                    collectives=None):
     """Returns the train step ``(state, batch) -> (state, metrics)``: one
     forward and backward of ``model`` in train mode (batch statistics, which
     it moves in place), one optimizer update and one EMA update, all in
     place on ``state``, which must be ``model``'s. ``batch`` is a packed batch
     of numpy arrays or tensors (``data/loader.py``); the metrics are 0-d
-    tensors on the model's device (reading them waits for the step)."""
+    tensors on the model's device (reading them waits for the step).
+
+    With ``collectives`` (``parallel/train_step.py``) it is the data-parallel
+    step: ``batch`` is this rank's rows of the global batch, and the step is
+    the single-process step on the global batch. ``collectives.sum`` sums the
+    loss's normalisers and the metrics over the ranks, ``grad_sum`` and
+    ``sq_norm`` serve the optimizer."""
     if cfg.wire_format not in ("bgr", "i420"):
         raise ValueError(f"wire_format must be 'bgr' or 'i420', got {cfg.wire_format!r}")
 
@@ -207,10 +224,20 @@ def make_train_step(model: YoloSeg, loss_cfg: LossConfig, cfg: TrainConfig):
         for p in params:
             p.grad = None
         out = model(images.permute(0, 3, 1, 2))
-        loss, metrics = yolo_seg_loss(out, targets, loss_cfg, cfg.imgsz)
+        loss, metrics = yolo_seg_loss(
+            out, targets, loss_cfg, cfg.imgsz,
+            global_sum=collectives.sum if collectives else None)
         loss.backward()
-
-        state.tx.update(params, [p.grad for p in params], state.trace, state.step)
+        state.tx.update(params, [p.grad for p in params], state.trace, state.step,
+                        grad_sum=collectives.grad_sum if collectives else None,
+                        sq_norm=collectives.sq_norm if collectives else None)
+        if collectives is not None:
+            # This rank's shares of the loss and its components, summed.
+            keys = ("box", "seg", "cls", "dfl")
+            shares = collectives.sum(torch.stack(
+                [loss.detach()] + [metrics[k].detach() for k in keys]))
+            loss = shares[0]
+            metrics.update(zip(keys, shares[1:]))
         # ultralytics EMA ramp: d = decay * (1 - exp(-step / tau)), at the
         # step count before this update.
         decay = cfg.ema_decay * (1.0 - math.exp(-state.step / cfg.ema_ramp))

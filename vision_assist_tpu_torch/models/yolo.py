@@ -69,16 +69,32 @@ def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
-def _flax_batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def _flax_batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d,
+                           global_sum=None) -> torch.Tensor:
     """Flax ``BatchNorm(use_running_average=False)`` on float32 ``y``:
     normalise by the batch mean and the biased batch variance over (N, H, W),
     and move the running statistics 0.03 of the way to them. The running
     variance takes the biased variance too; ``nn.BatchNorm2d`` would take the
-    unbiased one and drift by n / (n - 1) a step."""
-    out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True,
-                       eps=bn.eps)
+    unbiased one and drift by n / (n - 1) a step.
+
+    ``global_sum`` (data-parallel training, ``parallel/train_step.py``) is a
+    differentiable sum over the ranks that split the batch: the statistics
+    are then those of the global batch, from all-reduced per-channel sums
+    (the mean, then the squared deviations from it)."""
+    if global_sum is None:
+        out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True,
+                           eps=bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+    else:
+        n = global_sum(y.new_tensor(float(y.numel() // y.shape[1])))
+        mean = global_sum(y.sum(dim=(0, 2, 3))) / n
+        dev = y - mean[None, :, None, None]
+        var = global_sum((dev * dev).sum(dim=(0, 2, 3))) / n
+        scale = torch.rsqrt(var + bn.eps) * bn.weight
+        out = dev * scale[None, :, None, None] + bn.bias[None, :, None, None]
+        mean, var = mean.detach(), var.detach()
     with torch.no_grad():
-        var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
         bn.running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
         bn.running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
     return out
@@ -96,13 +112,17 @@ class ConvBNAct(nn.Module):
         self.conv = nn.Conv2d(c_in, c_out, kernel, stride, groups=groups,
                               bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
+        # Set by data-parallel training to sum the batch statistics over
+        # the ranks; None for one process.
+        self.global_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         y = F.conv2d(_pad_same(x, self.kernel, self.stride),
                      conv.weight.to(self.dtype), None, conv.stride, 0, 1,
                      conv.groups).float()
-        y = _flax_batch_norm_train(y, self.bn) if self.training else self.bn(y)
+        y = (_flax_batch_norm_train(y, self.bn, self.global_sum) if self.training
+             else self.bn(y))
         return (F.silu(y) if self.act else y).to(self.dtype)
 
 

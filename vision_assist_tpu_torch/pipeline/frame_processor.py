@@ -32,6 +32,7 @@ import torch
 from vision_assist_tpu_torch.config import PipelineConfig
 from vision_assist_tpu_torch.golden.astar import AStarEngine, closest_cell_to_point
 from vision_assist_tpu_torch.golden.pipeline import materialize_cells
+from vision_assist_tpu_torch.io.visualiser import render_overlay
 from vision_assist_tpu_torch.models.inference import Segmenter
 from vision_assist_tpu_torch.pipeline.planner import make_plan_step
 from vision_assist_tpu_torch.planning import native as native_engine
@@ -52,7 +53,7 @@ class FrameResult:
     walkable: np.ndarray
     artificial: np.ndarray
     penalty: np.ndarray
-    # The rendered debug overlay; None until the visualiser is ported.
+    # The rendered debug overlay (debug=True), else None.
     overlay: np.ndarray | None = None
     # Model-path metadata (frame path only; 0 for process_occupancy).
     n_detections: int = 0
@@ -80,8 +81,8 @@ class FrameProcessor:
     Args:
         cfg: pipeline configuration (shapes, thresholds, engine choice).
         segmenter: optional segmentation model wrapper; omit for replay mode.
-        debug: results carry a rendered overlay frame. The renderer belongs
-            to the visualiser, which is not ported: True raises.
+        debug: results carry a rendered overlay (``io/visualiser.py``),
+            drawn on the host on a copy of the camera frame.
         replay_rounding: use the replay harness's artificial-row rounding
             instead of the live pipeline's.
         device: where the device half runs; "cuda" unless the caller asks
@@ -92,11 +93,8 @@ class FrameProcessor:
                  segmenter: Segmenter | None = None, debug: bool = False,
                  replay_rounding: bool = False,
                  device: str | torch.device = "cuda"):
-        if debug:
-            raise NotImplementedError(
-                "FrameProcessor(debug=True) renders overlays, which the "
-                "visualiser slice of the port brings")
         self.cfg = cfg or PipelineConfig()
+        self.debug = debug
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FrameProcessor: CUDA requested but not available")
@@ -240,7 +238,8 @@ class FrameProcessor:
                           frame: np.ndarray | None = None) -> FrameResult:
         """Model-bypassed entry point (the reference's saved-grid replay).
         ``occupancy`` is a bool (R, C) lattice. ``frame`` is the camera frame
-        a debug overlay would be drawn on; without debug it is ignored."""
+        the debug overlay is drawn on (black when None); without debug it is
+        ignored."""
         if now_ms is None:
             now_ms = int(time.time() * 1000)
         occ = np.asarray(occupancy, dtype=bool)
@@ -248,8 +247,17 @@ class FrameProcessor:
                           self._astar_cache)
         self._astar_cache, plan.astar_cache = plan.astar_cache, None
         plan = to_numpy(plan)
-        return self._result_from_plan(plan, occ, self._guidance_from_plan(plan),
-                                      self.analyser, now_ms)
+        return self._with_overlay(self._result_from_plan(
+            plan, occ, self._guidance_from_plan(plan), self.analyser, now_ms),
+            frame)
+
+    def _with_overlay(self, result: FrameResult,
+                      frame: np.ndarray | None) -> FrameResult:
+        """The result with its debug overlay drawn on ``frame`` when
+        debug is on."""
+        if self.debug:
+            result.overlay = render_overlay(self.cfg, result, frame=frame)
+        return result
 
     def _ensure_program(self):
         if self.segmenter is None:
@@ -339,20 +347,21 @@ class FrameProcessor:
                      frame: np.ndarray | None = None) -> FrameResult | None:
         """Wait for a submitted frame's payload and run the host half.
         Returns None if the blur gate rejects the frame. ``frame`` is the
-        camera frame a debug overlay would be drawn on; without debug it is
-        ignored."""
+        camera frame the debug overlay is drawn on (black when None);
+        without debug it is ignored."""
         if now_ms is None:
             now_ms = int(time.time() * 1000)
         payload = self._unpack(handle.payload())
         if self.cfg.blur.enabled and \
                 payload.blur_var < self.cfg.blur.laplacian_var_threshold:
             return None
-        return self._result(payload, self._guidance(payload), self.analyser,
-                            now_ms)
+        return self._with_overlay(self._result(
+            payload, self._guidance(payload), self.analyser, now_ms), frame)
 
     def __call__(self, frame_bgr: np.ndarray,
                  now_ms: int | None = None) -> FrameResult | None:
         """Full pipeline on one frame: one device program, one
         device->host copy, then the host half. None when the blur gate
         (off by default) rejects the frame."""
-        return self.retire_frame(self.submit_frame(frame_bgr), now_ms=now_ms)
+        return self.retire_frame(self.submit_frame(frame_bgr), now_ms=now_ms,
+                                 frame=frame_bgr)

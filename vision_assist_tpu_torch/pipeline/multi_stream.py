@@ -10,6 +10,11 @@ temporal state stays explicit: the instruction memory on the host, the exact
 host engines' angle caches (``engine="exact"``), and the (S, 1226) angle
 caches on the device (``engine="exact_device"``).
 
+With a mesh (``parallel/mesh.py``) the streams split into ``dp`` contiguous
+shards, one a device of the mesh's dp axis: each shard runs the same batched
+program on its own device (one relax or A* launch a device a step), all
+shards launched before any is waited for.
+
 The reference is strictly frame-at-a-time and has no counterpart.
 """
 
@@ -41,36 +46,47 @@ class MultiStreamProcessor:
     Args:
         cfg: pipeline configuration; ``cfg.num_streams`` streams a step.
         segmenter: optional segmentation model wrapper; omit for replay mode.
-        mesh: sharding the streams over several cards belongs to the
-            parallel slice of the port; anything but None raises.
+        mesh: a (dp, mdl) mesh whose dp axis shards the streams, one
+            contiguous shard a device (``mesh.devices[i, 0]``); the stream
+            count must divide by dp. None runs every stream on ``device``.
         replay_rounding: use the replay harness's artificial-row rounding.
-        device: where the device half runs; "cuda" unless the caller asks
-            for the CPU. A segmenter must live on the same device.
+        device: where the device half runs without a mesh; "cuda" unless
+            the caller asks for the CPU. A segmenter must live on the same
+            device (with a mesh it is copied to each shard's device).
     """
 
     def __init__(self, cfg: PipelineConfig, segmenter=None, mesh=None,
                  replay_rounding: bool = False,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh shards the stream axis over several cards; it comes "
-                "with the parallel slice of the port")
         self.cfg = cfg
         self.num_streams = cfg.num_streams
         self.segmenter = segmenter
-        self.mesh = None
+        self.mesh = mesh
+        devices = ([torch.device(device)] if mesh is None
+                   else list(mesh.devices[:, 0]))
+        if self.num_streams % len(devices):
+            raise ValueError(f"{self.num_streams} streams do not split over "
+                             f"dp={len(devices)}")
+        self._shard = self.num_streams // len(devices)
         # The single-stream processor owns the device program, the upload
-        # and copy-back code and the host half; this class gives them S
-        # streams at a time and keeps the per-stream state.
-        self._fp = FrameProcessor(cfg, segmenter=segmenter,
-                                  replay_rounding=replay_rounding, device=device)
+        # and copy-back code and the host half; this class gives them a
+        # shard of streams at a time, one processor a device, and keeps the
+        # per-stream state.
+        if mesh is not None and segmenter is not None:
+            segs = [segmenter.on(d) for d in devices]
+            devices = [seg.device for seg in segs]
+        else:
+            segs = [segmenter] * len(devices)
+        self._fps = [FrameProcessor(cfg, segmenter=seg, replay_rounding=replay_rounding,
+                                    device=d) for seg, d in zip(segs, devices)]
+        self._fp = self._fps[0]
         self.device = self._fp.device
         engine = cfg.pathfinder.engine
-        # exact_device: per-stream angle caches on the device, carried from
-        # submit to submit (each stream is its own PathFinder singleton).
-        self._stream_caches = (
-            empty_cache(self.device).repeat(self.num_streams, 1)
-            if engine == "exact_device" else None)
+        # exact_device: per-stream angle caches on each shard's device,
+        # carried from submit to submit (each stream is its own PathFinder
+        # singleton).
+        self._caches = [empty_cache(fp.device).repeat(self._shard, 1)
+                        if engine == "exact_device" else None for fp in self._fps]
         self.analysers = [InstructionEngine(cfg.analyser)
                           for _ in range(self.num_streams)]
         # exact: one host engine a stream, each with its own angle cache.
@@ -93,6 +109,11 @@ class MultiStreamProcessor:
     def __del__(self):
         self.close()
 
+    def _shards(self, x: np.ndarray) -> list[np.ndarray]:
+        """The streams of each shard, in order."""
+        return [x[i * self._shard:(i + 1) * self._shard]
+                for i in range(len(self._fps))]
+
     def _now(self, now_ms: int | Sequence[int]) -> list[int]:
         return ([now_ms] * self.num_streams if np.isscalar(now_ms)
                 else list(now_ms))
@@ -114,21 +135,23 @@ class MultiStreamProcessor:
         if occ.shape[0] != self.num_streams:
             raise ValueError(f"{occ.shape[0]} lattices for {self.num_streams} "
                              "streams")
-        plans = self._fp._plan(torch.from_numpy(occ).to(self.device),
-                               self._stream_caches)
-        self._stream_caches, plans.astar_cache = plans.astar_cache, None
-        plans = to_numpy(plans)
+        launched = []
+        for i, (fp, part) in enumerate(zip(self._fps, self._shards(occ))):
+            plans = fp._plan(torch.from_numpy(part).to(fp.device), self._caches[i])
+            self._caches[i], plans.astar_cache = plans.astar_cache, None
+            launched.append(plans)
+        per_stream = [stream(plans, s) for plans in map(to_numpy, launched)
+                      for s in range(self._shard)]
         now = self._now(now_ms)
-        per_stream = [stream(plans, s) for s in range(self.num_streams)]
         guided = self._per_stream(
             lambda s, engine: self._fp._guidance_from_plan(per_stream[s], engine))
         return [self._fp._result_from_plan(per_stream[s], occ[s], guided[s],
                                            self.analysers[s], now[s])
                 for s in range(self.num_streams)]
 
-    def submit_frames(self, frames: np.ndarray) -> _Handle:
+    def submit_frames(self, frames: np.ndarray) -> list[_Handle]:
         """Run the device program for one (S, H, W, 3) uint8 step WITHOUT
-        waiting; returns a handle for retire_frames().
+        waiting; returns a handle for retire_frames() (one a shard).
 
         The per-stream A* caches chain submit-to-submit on the device, so
         several steps can be in flight at once: retire in submit order."""
@@ -136,16 +159,18 @@ class MultiStreamProcessor:
             raise ValueError(f"{len(frames)} frames for {self.num_streams} "
                              "streams")
         packed = np.stack([self._fp._pack_frame(f) for f in frames])
-        handle, self._stream_caches = self._fp._run_program(
-            packed, self._stream_caches)
-        return handle
+        handles = []
+        for i, (fp, part) in enumerate(zip(self._fps, self._shards(packed))):
+            handle, self._caches[i] = fp._run_program(part, self._caches[i])
+            handles.append(handle)
+        return handles
 
-    def retire_frames(self, handle: _Handle,
+    def retire_frames(self, handle: list[_Handle],
                       now_ms: int | Sequence[int] = 0) -> list[FrameResult]:
-        """Wait for one submitted step (one packed (S, N) copy) and run the
-        per-stream host halves. No blur rejection on the host here, as in
-        the JAX package's batched path."""
-        payloads = [self._fp._unpack(row) for row in handle.payload()]
+        """Wait for one submitted step (one packed (S, N) copy a shard) and
+        run the per-stream host halves. No blur rejection on the host here,
+        as in the JAX package's batched path."""
+        payloads = [self._fp._unpack(row) for h in handle for row in h.payload()]
         now = self._now(now_ms)
         guided = self._per_stream(
             lambda s, engine: self._fp._guidance(payloads[s], engine))

@@ -41,17 +41,15 @@ class StreamingServer:
 
     def __init__(self, fp: FrameProcessor, depth: int = 8,
                  keep_frames: bool = False):
-        """keep_frames exists to hand each frame to the overlay renderer at
-        its retirement; the renderer belongs to the visualiser slice, which
-        is not ported, so it raises NotImplementedError."""
+        """keep_frames: hold each submitted frame until its retirement and
+        hand it to retire_frame(), so debug overlays are drawn on the camera
+        frame instead of a black one (depth frames of host memory; off for
+        pure serving)."""
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if keep_frames:
-            raise NotImplementedError(
-                "keep_frames=True feeds the debug overlay renderer, which "
-                "comes with the visualiser slice of the port")
         self.fp = fp
         self.depth = depth
+        self.keep_frames = keep_frames
         self._inflight: collections.deque = collections.deque()
 
     @property
@@ -63,7 +61,8 @@ class StreamingServer:
         """Submit one frame; retire the oldest once `depth` are in flight."""
         if now_ms is None:
             now_ms = int(time.time() * 1000)
-        self._inflight.append((self.fp.submit_frame(frame_bgr), now_ms))
+        self._inflight.append((self.fp.submit_frame(frame_bgr), now_ms,
+                               frame_bgr if self.keep_frames else None))
         out = []
         while len(self._inflight) >= self.depth:
             out.extend(self._retire_one())
@@ -77,9 +76,9 @@ class StreamingServer:
         return out
 
     def _retire_one(self, now_ms: int | None = None) -> list[FrameResult]:
-        handle, submit_now = self._inflight.popleft()
+        handle, submit_now, frame = self._inflight.popleft()
         res = self.fp.retire_frame(handle, now_ms=now_ms if now_ms is not None
-                                   else submit_now)
+                                   else submit_now, frame=frame)
         return [res] if res is not None else []
 
     def serve(self, frames: Iterable[np.ndarray],

@@ -1,5 +1,5 @@
 """Train the YOLO-seg model on a dataset directory: the counterpart of
-``scripts/train_model.py`` (single process).
+``scripts/train_model.py``.
 
     python -m vision_assist_tpu_torch.train_model --data DIR --epochs 100 \\
         --batch 32 --out runs/seg1 [--arch yolov8n-seg] [--eval-every 10]
@@ -17,6 +17,13 @@ float32 parameters, on the card unless ``--device cpu``.
 Exit code 42 asks a supervisor to restart the run with ``--resume-state``:
 no step finished within ``--watchdog-secs``, or the host's resident memory
 passed ``--max-rss-gb``.
+
+Several processes train one model data-parallel when ``VAT_COORDINATOR`` is
+set (``parallel/distributed.py``: with ``VAT_NUM_PROCESSES`` and
+``VAT_PROCESS_ID``; NCCL on the cards, gloo with ``--device cpu``): each rank
+loads ``--batch / processes`` images a step from its own seed, the step is
+``parallel/train_step.py``'s (the single-process step on the global batch),
+and only rank 0 evaluates and writes the history and the checkpoints.
 """
 
 from __future__ import annotations
@@ -142,14 +149,19 @@ def _rss_gb() -> float:
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    if os.environ.get("VAT_COORDINATOR"):
-        raise NotImplementedError(
-            "multi-process training (VAT_COORDINATOR) comes with the parallel "
-            "slice of the port; this driver runs one process")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_model: CUDA requested but not available; "
                            "pass --device cpu to train on the CPU")
+    # Multi-process scale-out is one environment variable away
+    # (VAT_COORDINATOR; a no-op otherwise).
+    from vision_assist_tpu_torch.parallel.distributed import (
+        maybe_initialize,
+        process_device,
+    )
+    multi = maybe_initialize(device)
+    if multi:
+        device = process_device(device)
 
     # The start (caching the dataset, building the state) must not trip the
     # stall watchdog: a generous limit until the first step completes, then
@@ -168,14 +180,14 @@ def main(argv: list[str] | None = None) -> int:
     faulthandler.dump_traceback_later(900, repeat=True)
     threading.Thread(target=watchdog, daemon=True).start()
     try:
-        return _train(args, device, progress)
+        return _train(args, device, progress, multi)
     finally:
         stop.set()
         faulthandler.cancel_dump_traceback_later()
 
 
 def _train(args: argparse.Namespace, device: torch.device,
-           progress: dict) -> int:
+           progress: dict, multi: bool) -> int:
     from vision_assist_tpu_torch.data.augment import AugmentConfig
     from vision_assist_tpu_torch.data.dataset import SegDataset
     from vision_assist_tpu_torch.data.loader import BatchLoader
@@ -196,7 +208,17 @@ def _train(args: argparse.Namespace, device: torch.device,
         convert_flax_variables,
         to_flax_variables,
     )
+    from vision_assist_tpu_torch.parallel.distributed import (
+        globalize_batch,
+        local_loader_params,
+        process_info,
+    )
 
+    # Host-side artifacts (evaluation, history.json, checkpoints, the state
+    # rotation) are rank 0's work. The collapse decisions run on every rank:
+    # their inputs (the step metrics, summed over the ranks, and rank 0's
+    # word on the saved state) are the same everywhere.
+    is_main = process_info()[0] == 0
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     print("device:", torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -210,10 +232,13 @@ def _train(args: argparse.Namespace, device: torch.device,
                     cache_images=args.imgsz if args.cache_images else None)
     aug = AugmentConfig(copy_paste=args.copy_paste, degrees=args.degrees,
                         shear=args.shear, perspective=args.perspective)
-    loader = BatchLoader(ds, batch_size=args.batch, imgsz=args.imgsz,
-                         augment=True, seed=0, aug=aug,
+    # Each process loads its own slice of the global batch from its own
+    # seed; single-process, the whole batch from seed 0.
+    local_bs, local_seed = local_loader_params(args.batch, seed=0)
+    loader = BatchLoader(ds, batch_size=local_bs, imgsz=args.imgsz,
+                         augment=True, seed=local_seed, aug=aug,
                          wire_format=args.wire_format)
-    steps_per_epoch = len(ds) // args.batch
+    steps_per_epoch = len(ds) // args.batch          # global steps an epoch
     if steps_per_epoch == 0:
         raise SystemExit(f"--batch {args.batch} exceeds the dataset "
                          f"({len(ds)} images): zero steps per epoch")
@@ -229,7 +254,16 @@ def _train(args: argparse.Namespace, device: torch.device,
         # Params, EMA (a copy of the params) and batch stats from the file.
         model.load_state_dict(convert_flax_variables(load_variables(args.resume),
                                                      model))
-    state = create_train_state(model, cfg, steps_per_epoch, device=device)
+    if multi:
+        from vision_assist_tpu_torch.parallel.mesh import make_mesh
+        from vision_assist_tpu_torch.parallel.train_step import create_dp_train_state
+        mesh = make_mesh()
+        state, collectives = create_dp_train_state(model, cfg, steps_per_epoch,
+                                                   mesh, device=device)
+        step = make_train_step(model, LossConfig(), cfg, collectives)
+    else:
+        state = create_train_state(model, cfg, steps_per_epoch, device=device)
+        step = make_train_step(model, LossConfig(), cfg)
     print(f"train state ready in {time.time() - t0:.1f}s", flush=True)
     if args.resume:
         print(f"resumed params from {args.resume}", flush=True)
@@ -238,7 +272,6 @@ def _train(args: argparse.Namespace, device: torch.device,
         print(f"resumed full train state from {args.resume_state} "
               f"(step {state.step})", flush=True)
 
-    step = make_train_step(model, LossConfig(), cfg)
     history = []
     if (out / "history.json").exists():
         history = json.loads((out / "history.json").read_text())
@@ -263,6 +296,8 @@ def _train(args: argparse.Namespace, device: torch.device,
             wait += time.perf_counter() - w0
             if batch is None:
                 break
+            if multi:
+                batch = globalize_batch(batch, mesh)
             state, metrics = step(state, batch)
             losses.append(metrics)
             if (si + 1) % args.sync_every == 0:
@@ -285,8 +320,9 @@ def _train(args: argparse.Namespace, device: torch.device,
         record = {"epoch": epoch + 1, **mean, "time_s": dt}
 
         is_last = epoch + 1 == args.epochs
-        ema_vars = to_flax_variables(model, state.eval_state_dict(model))
-        if (epoch + 1) % args.eval_every == 0 or is_last:
+        ema_vars = (to_flax_variables(model, state.eval_state_dict(model))
+                    if is_main else None)
+        if is_main and ((epoch + 1) % args.eval_every == 0 or is_last):
             progress["mark"] = (time.time(), max(args.watchdog_secs, 2400))
             m = evaluate(model, ema_vars, args.data, "valid", imgsz=args.imgsz,
                          max_images=None if is_last else args.eval_images,
@@ -304,8 +340,14 @@ def _train(args: argparse.Namespace, device: torch.device,
         # into the self-reinforcing "predict nothing" state. On its
         # signature, revert to the previous saved state; the loader's stream
         # has moved on, so the retried epochs see fresh batches.
-        collapsed, med_loss, med_fg = collapse_decision(
-            history, mean, (out / "state").exists())
+        state_avail = (out / "state").exists()
+        if multi:
+            # Only rank 0 writes out/state: its word decides, so that the
+            # ranks revert together.
+            word = [state_avail]
+            torch.distributed.broadcast_object_list(word, src=0)
+            state_avail = word[0]
+        collapsed, med_loss, med_fg = collapse_decision(history, mean, state_avail)
         if collapsed:
             print(f"COLLAPSE at epoch {epoch + 1}: loss {mean['loss']:.1f} "
                   f"(median {med_loss:.1f}), fg/img {mean['fg_per_img']:.2f} "
@@ -313,15 +355,23 @@ def _train(args: argparse.Namespace, device: torch.device,
                   "state", flush=True)
             record["reverted"] = True
             history.append(record)
-            _write_history(out, history)
+            if is_main:
+                _write_history(out, history)
+            if not (out / "state").exists():
+                # Every rank must read the checkpoint rank 0 wrote.
+                raise RuntimeError(
+                    "collapse-revert in multi-process mode requires --out "
+                    f"({out}) on a filesystem shared by all processes; "
+                    f"out/state is missing on rank {process_info()[0]}")
             state = load_train_state(out / "state", state)
             continue
 
         history.append(record)
-        _write_history(out, history)
-        if args.save_state_every and (epoch + 1) % args.save_state_every == 0:
-            _rotate_state(out, state)
-        save_variables(out / "last.msgpack", ema_vars)
+        if is_main:
+            _write_history(out, history)
+            if args.save_state_every and (epoch + 1) % args.save_state_every == 0:
+                _rotate_state(out, state)
+            save_variables(out / "last.msgpack", ema_vars)
         rss_gb = _rss_gb()
         print(f"  host rss: {rss_gb:.1f} GB", flush=True)
         if rss_gb > args.max_rss_gb:
