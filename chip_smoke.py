@@ -174,6 +174,22 @@ result line:
              a step, counted); the dry run (vision_assist_tpu_torch/dryrun.py)
              with NCCL, one process a card of this machine, and in 2 gloo
              processes on the host CPU.
+21. protrusions  the extended protrusion detector
+             (golden/protrusions.py over golden/contours.py: host numpy, no
+             OpenCV, no JAX) on the 13 scenarios and the seeded lattices of
+             tests/fixtures/torch_protrusions.json, rasterised at 1280x720:
+             every answer equal, coordinate for coordinate, to the JAX
+             detector's in that file; host ms a lattice; no kernel launched.
+22. tools    the measurement tools (vision_assist_tpu_torch/tools/) in
+             process on the card at small counts, counts zeroed before and
+             read after: diagnose_device_p50 (K = 8 frames a CUDA graph for
+             exact, the kernel wavefront and exact_device, the replayed
+             payloads bit-equal to the per-frame calls), the host breakdown
+             at depth 8 and 8 streams at depth 2, h2d, engines, fused,
+             batch1 (with its torch.profiler trace), latency, wire (beside
+             phase 16's numbers), detections, profile_pipeline and
+             compare_pathfinders: each exits 0 and its headline numbers are
+             printed. ``--tools-out DIR`` keeps each tool's JSON object there.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -196,6 +212,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import functools
+import importlib.util
 import io
 import json
 import math
@@ -330,23 +348,22 @@ def astar_bounds(batch: int, n_cells: int, k_goals: int, max_len: int,
             "one_sm_ms": ops_ms * N_SMS}
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 3, queued: bool = False) -> float:
-    """Milliseconds per call of ``fn`` between two CUDA events. ``queued``
-    takes the host out of the way: the calls are issued while the card spins
-    in a sleep kernel, so they run back to back however long the host takes
-    over each."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(60_000_000)        # ~30 ms: longer than issuing the calls
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+@functools.lru_cache(maxsize=None)
+def card_tools():
+    """vision_assist_tpu_torch/tools/_card.py of this checkout, loaded by its
+    path, so that a port imported from another commit (``--root``) need not
+    hold it."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_card", REPO / "vision_assist_tpu_torch" / "tools" / "_card.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3, queued: bool = False) -> float:
+    """Milliseconds per call of ``fn`` between two CUDA events, ``queued``
+    behind a sleep kernel: ``tools/_card.py``'s ``cuda_ms``."""
+    return card_tools().cuda_ms(fn, reps, warmup=warmup, queued=queued)
 
 
 def relax_bounds(enter, n_passes: int) -> dict:
@@ -593,11 +610,11 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
         maps = evaluate_dataset(m, ds, imgsz=imgsz, batch_size=batch, device=dev)
         wall = time.perf_counter() - t0
         step = make_eval_step(m, imgsz)
-        step_ms = cuda_ms(torch, lambda: step(imgs), reps=3, warmup=1)
+        step_ms = cuda_ms(lambda: step(imgs), reps=3, warmup=1)
         with torch.no_grad():
             outs = m(imgs.float().permute(0, 3, 1, 2) / 255.0)
             boxes, cls_logits, coeffs = decode_boxes(outs, 16)
-        nms_ms = cuda_ms(torch, lambda: nms(boxes, cls_logits, coeffs, conf_threshold=0.001,
+        nms_ms = cuda_ms(lambda: nms(boxes, cls_logits, coeffs, conf_threshold=0.001,
                                              iou_threshold=0.7, max_candidates=1024,
                                              max_det=300), reps=3, warmup=1)
         if not 0.0 <= maps["map50_mask"] <= 1.0 or (
@@ -1002,9 +1019,9 @@ def visualiser_phase(torch, dev, cuda_astar, cuda_wavefront):
     def call():
         return cuda_wavefront.relax_field_cuda(enter, start, turn)
     bounds = relax_bounds(enter, sum(relax["corridor54x96"]["passes"]))
-    reading = dict(bounds, ms=cuda_ms(torch, call, reps=200, queued=True),
-                   call_ms=cuda_ms(torch, call, reps=200),
-                   plain_ms=cuda_ms(torch, lambda: relax_field(enter, start, turn),
+    reading = dict(bounds, ms=cuda_ms(call, reps=200, queued=True),
+                   call_ms=cuda_ms(call, reps=200),
+                   plain_ms=cuda_ms(lambda: relax_field(enter, start, turn),
                                     reps=2, warmup=1))
     log(f"phase visualiser relax 54x96: {lib.relax_shared_bytes(54, 96)} bytes of "
         f"shared memory a block (the card allows "
@@ -1267,6 +1284,157 @@ def goldens_phase():
         f"{secs:.2f} s, JSON byte-equal and arrays equal to tests/fixtures/goldens")
 
 
+def protrusions_phase(cuda_astar, cuda_wavefront) -> None:
+    """Phase 21: the extended protrusion detector against the JAX answers
+    committed in tests/fixtures/torch_protrusions.json."""
+    import numpy as np
+
+    from vision_assist_tpu_torch.golden.peaks import rasterize_cells
+    from vision_assist_tpu_torch.golden.protrusions import ExtendedProtrusionDetector
+    from vision_assist_tpu_torch.io.scenarios import load_scenario, seeded_lattice
+
+    fixture = json.loads((REPO / "tests" / "fixtures" / "torch_protrusions.json").read_text())
+    frame_h, frame_w = fixture["frame_hw"]
+    det = ExtendedProtrusionDetector(grid_size=fixture["grid_size"])
+    cuda_wavefront.reset_launches()
+    cuda_astar.reset_launches()
+    times, extra = [], 0
+    for case in fixture["cases"]:
+        lattice = (seeded_lattice(case["seed"]) if "seed" in case
+                   else load_scenario(case["name"]))
+        binary = rasterize_cells(lattice, frame_h, frame_w, fixture["grid_size"])
+        t0 = time.perf_counter()
+        got = [[p.x, p.y] for p in det(binary, lattice, frame_h, frame_w)]
+        times.append((time.perf_counter() - t0) * 1e3)
+        if got != case["points"]:
+            raise AssertionError(f"protrusions {case['name']}: {got} != the JAX "
+                                 f"detector's {case['points']}")
+        extra += len(got) > 1
+    if cuda_wavefront.launches or cuda_astar.launches:
+        raise AssertionError("the protrusion detector launched a planning kernel")
+    log(f"phase protrusions: ok, {len(fixture['cases'])} lattices at {frame_h}x{frame_w} "
+        f"(13 scenarios, {len(fixture['cases']) - 13} seeded) equal to the JAX detector's "
+        f"answers (OpenCV {fixture['opencv']}) with no cv2 and no JAX here; "
+        f"{extra} with more than one point; host ms a lattice median "
+        f"{statistics.median(times):.3f}, max {max(times):.3f}")
+
+
+def run_tool(name: str, argv: list[str], out_dir: pathlib.Path) -> dict:
+    """A tool's main(argv) in process on the card; its JSON object."""
+    module = importlib.import_module(f"vision_assist_tpu_torch.tools.{name}")
+    out = out_dir / f"{name}.json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv + ["--out", str(out)])
+    if rc != 0:
+        raise AssertionError(f"tool {name} exited {rc}")
+    result = json.loads(out.read_text())
+    if result.get("nvidia_smi") is None or result.get("device_clock") != "cuda events":
+        raise AssertionError(f"tool {name}: not stamped with the card: {result}")
+    log(f"phase tools {name}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+def tools_phase(record: dict, out_dir: pathlib.Path, cuda_astar,
+                cuda_wavefront) -> dict:
+    """Phase 22: the measurement tools on the card at small counts. Returns
+    the (relax, A*) launches the phase made: the device-only tool's captures
+    and reference calls, the other tools' runs of those engines."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cuda_wavefront.reset_launches()
+    cuda_astar.reset_launches()
+    r = run_tool("diagnose_device_p50", ["--frames", "8", "--trials", "5"], out_dir)
+    for engine, row in r["engines"].items():
+        if not row["payloads_equal_per_frame_calls"]:
+            raise AssertionError(f"device_p50 {engine}: replayed payloads differ")
+        log(f"phase tools device_p50 {engine}: {row['frame_device_ms']['p50']:.4f} ms a "
+            f"frame on the device (a CUDA graph of {row['frames']} frames replayed, "
+            f"{row['replay_device_ms']['p50']:.3f} ms, CUDA events, p50 of 5), payloads "
+            f"bit-equal to {row['frames']} per-frame calls; {row['h2d_syncs_per_frame']:g} "
+            f"host uploads a frame hoisted; launches at capture {row['launches']}")
+    r = run_tool("diagnose_host_breakdown", ["--frames", "32", "--steps", "6"], out_dir)
+    for part, label in (("single_stream", "depth 8"), ("batched", "8 streams depth 2")):
+        row = r[part]
+        shares = ", ".join(f"{k} {v:.3f}" for k, v in row["shares"].items())
+        log(f"phase tools host_breakdown {label}: {row['wall_host_ms']:.3f} host ms a "
+            f"{'frame' if part == 'single_stream' else 'step'} ({row['frames_per_s']:.3f} "
+            f"frames/s), stage shares: {shares}")
+    r = run_tool("diagnose_h2d", ["--frames", "16", "--served", "24"], out_dir)
+    for name in ("bgr", "i420"):
+        row = r[name]
+        log(f"phase tools h2d {name} ({r['bytes_' + name]} B): pinned "
+            f"{row['pinned']['copy_device_ms']:.4f} device ms ({row['pinned']['gb_per_s']:.2f} "
+            f"GB/s), issue {row['pinned']['issue_host_ms_per_frame']:.4f} / done "
+            f"{row['pinned']['done_host_ms_per_frame']:.4f} host ms; pageable "
+            f"{row['pageable']['copy_device_ms']:.4f} device ms ({row['pageable']['gb_per_s']:.2f} "
+            f"GB/s), issue {row['pageable']['issue_host_ms_per_frame']:.4f} / done "
+            f"{row['pageable']['done_host_ms_per_frame']:.4f}; 1/2/4 streams "
+            + " / ".join(f"{v:.4f}" for v in row["streams_host_ms_per_frame"].values())
+            + " host ms a frame")
+    log(f"phase tools h2d served at depth {r['served_depth']}: fed numpy "
+        f"{r['served_numpy_host_ms_per_frame']:.3f} host ms a frame, from a queue 1/2/4 "
+        "ahead " + " / ".join(f"{v:.3f}" for v in r["served_prefetch_host_ms_per_frame"].values()))
+    r = run_tool("diagnose_engines", ["--sync", "8", "--pipe", "16", "--steps", "4"], out_dir)
+    for engine, row in r["engines"].items():
+        log(f"phase tools engines {engine}: sync p50 {row['sync_host_ms']['p50']:.3f} p90 "
+            f"{row['sync_host_ms']['p90']:.3f} host ms, depth 4 "
+            f"{row['depth4_host_ms_per_frame']:.3f}, 8 streams "
+            f"{row['streams8_host_ms_per_frame']:.3f} host ms a frame")
+    r = run_tool("diagnose_fused", ["--reps", "8"], out_dir)
+    log(f"phase tools fused: program {r['program_device_ms']:.3f} device ms (CUDA events, "
+        f"host ahead), sync {r['program_sync_host_ms']:.3f}, depth {r['depth']} "
+        f"{r['program_pipelined_host_ms']:.3f}, fed numpy "
+        f"{r['program_numpy_pipelined_host_ms']:.3f} host ms a call; upload "
+        f"{r['h2d_copy_device_ms']:.4f} device ms; payload back {r['d2h_payload_host_ms']:.4f} "
+        f"host ms; S=4 {r['streams4_sync_host_ms_per_frame']:.3f} / "
+        f"{r['streams4_pipelined_host_ms_per_frame']:.3f}, S=8 "
+        f"{r['streams8_sync_host_ms_per_frame']:.3f} / "
+        f"{r['streams8_pipelined_host_ms_per_frame']:.3f} host ms a frame (sync / pipelined)")
+    r = run_tool("diagnose_batch1", ["--reps", "5", "--trace-dir",
+                                     str(out_dir / "batch1_trace")], out_dir)
+    log("phase tools batch1 device ms at S=1 / S=2: " + ", ".join(
+        f"{st} {r[st + '_s1']['device_ms']:.3f} / {r[st + '_s2']['device_ms']:.3f}"
+        for st in ("seg", "blur", "plan", "program"))
+        + f"; sync host ms program {r['program_s1']['sync_host_ms']:.3f} / "
+        f"{r['program_s2']['sync_host_ms']:.3f}; trace of one call: "
+        f"{r['trace']['device_operations']} device operations, "
+        f"{r['trace']['device_busy_ms']:.3f} ms busy")
+    if r["trace"]["device_operations"] == 0:
+        raise AssertionError("batch1: the torch.profiler trace holds no device operation")
+    r = run_tool("diagnose_latency", ["--reps", "8"], out_dir)
+    log(f"phase tools latency: trivial launch+sync {r['trivial']['sync_host_ms']:.4f} host ms "
+        f"({r['trivial']['device_ms']:.4f} device ms); 1280x720 upload "
+        f"{r['h2d_1280x720']['blocking_host_ms']:.4f} host / "
+        f"{r['h2d_1280x720']['copy_device_ms']:.4f} device ms; segmenter 1280x720 sync "
+        f"{r['segmenter_1280x720']['sync_host_ms']:.3f} depth {r['depth']} "
+        f"{r['segmenter_1280x720']['pipelined_host_ms']:.3f} device "
+        f"{r['segmenter_1280x720']['device_ms']:.3f}; plan exact "
+        f"{r['plan_exact']['sync_host_ms']:.3f} / {r['plan_exact']['device_ms']:.3f}, "
+        f"kernel wavefront {r['plan_wavefront_kernel']['sync_host_ms']:.3f} / "
+        f"{r['plan_wavefront_kernel']['device_ms']:.3f} (sync host / device ms); payload "
+        f"back {r['d2h_payload']['host_ms']:.4f} host ms")
+    r = run_tool("diagnose_wire", ["--trials", "12", "--bench-fps", str(record["value"]),
+                                   "--bench-batched-fps",
+                                   str(record["batched_fps_8streams"])], out_dir)
+    log(f"phase tools wire: {r['batch_bytes']} B a batch of 8 I420 frames, fresh upload "
+        f"{r['upload_host_ms_per_batch']:.4f} host ms ({r['upload_gb_per_s']} GB/s); the "
+        f"ceiling it sets {r['ceiling_fps_i420']} frames/s as I420, "
+        f"{r['ceiling_fps_bgr']} as BGR; the bench's {r['bench_fps_single']:.3f} (depth 8) "
+        f"and {r['bench_fps_batched']:.3f} (8 streams) frames/s")
+    r = run_tool("diagnose_detections", ["--frames", "30"], out_dir)
+    log(f"phase tools detections: bf16 on the card {r['served_bf16']['frames_with_detections']}, "
+        f"float32 on the CPU {r['cpu_float32']['frames_with_detections']} frames with a "
+        f"detection; frames differing {r['frames_differing']}")
+    r = run_tool("profile_pipeline", ["--frames", "10", "--with-model"], out_dir)
+    log("phase tools profile_pipeline (host ms avg): " + ", ".join(
+        f"{k} {v['avg']:.3f}" for k, v in r["stages_host_ms"].items()))
+    r = run_tool("compare_pathfinders", ["--out-dir", str(out_dir / "pathfinder_ab")], out_dir)
+    log(f"phase tools compare_pathfinders: {r['scenarios']} scenarios, paths equal to "
+        f"the exact engine's: {r['equal_to_exact']}")
+    return cuda_wavefront.launches, cuda_astar.launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
@@ -1280,6 +1448,8 @@ def main() -> int:
                     help="import the port from this directory instead")
     ap.add_argument("--train-only", action="store_true",
                     help="run only the train, eval and train_model phases (12-14)")
+    ap.add_argument("--tools-out", type=pathlib.Path, default=None,
+                    help="keep each tool's JSON object of phase 22 in this directory")
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
@@ -1557,8 +1727,8 @@ def main() -> int:
                 return cuda_wavefront.relax_field_cuda(enter, start, turn)
             passes = call()[1].tolist()
             bounds = relax_bounds(enter, sum(passes))
-            timed[name] = dict(bounds, ms=cuda_ms(torch, call, reps=200, queued=True),
-                               call_ms=cuda_ms(torch, call, reps=200), passes=passes)
+            timed[name] = dict(bounds, ms=cuda_ms(call, reps=200, queued=True),
+                               call_ms=cuda_ms(call, reps=200), passes=passes)
             log(f"timing relax kernel {name}: {timed[name]['ms']:.5f} ms on the "
                 f"device, {timed[name]['call_ms']:.5f} ms per back-to-back call, "
                 f"passes {passes}, bound {bounds['bound_ms']:.6f} ms by "
@@ -1568,8 +1738,8 @@ def main() -> int:
         def empty():
             return cuda_wavefront.relax_field_cuda(*served, turn, 0)
         log(f"timing relax kernel empty launch (no pass): "
-            f"{cuda_ms(torch, empty, reps=200, queued=True):.5f} ms on the device, "
-            f"{cuda_ms(torch, empty, reps=200):.5f} ms per back-to-back call")
+            f"{cuda_ms(empty, reps=200, queued=True):.5f} ms on the device, "
+            f"{cuda_ms(empty, reps=200):.5f} ms per back-to-back call")
         return timed
 
     def time_astar():
@@ -1595,8 +1765,8 @@ def main() -> int:
             pops, relaxations = (int(v) for v in stats.sum(dim=(0, 1)))
             bounds = astar_bounds(b, rows * cols, inp[3].shape[1], kw["max_len"],
                                   pops, relaxations)
-            astar_timed[name] = dict(bounds, ms=cuda_ms(torch, call, reps=100, queued=True),
-                                     call_ms=cuda_ms(torch, call, reps=100), warm=warm)
+            astar_timed[name] = dict(bounds, ms=cuda_ms(call, reps=100, queued=True),
+                                     call_ms=cuda_ms(call, reps=100), warm=warm)
             most = int(stats[..., 0].sum(dim=1).max())
             log(f"timing astar kernel {name}: {astar_timed[name]['ms']:.5f} ms on the "
                 f"device ({astar_timed[name]['ms'] / most * 1e3:.3f} us a pop of the "
@@ -2005,13 +2175,13 @@ def main() -> int:
     # -- 10. timing ----------------------------------------------------------------------
     timed = time_relax()
     main_shape = timed[shapes[0][0]]
-    plain_ms = cuda_ms(torch, lambda: relax_field(*served, turn), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: relax_field(*served, turn), reps=5, warmup=1)
     log(f"timing relax plain twin 32x32 B=1: {plain_ms:.5f} ms")
     kw = dict(angle_weight=cfg.pathfinder.wavefront_turn_weight)
-    sweep_ms = cuda_ms(torch, lambda: relax_sweep(
+    sweep_ms = cuda_ms(lambda: relax_sweep(
         plan.walkable, plan.penalty, plan.start_rc, **kw), reps=5, warmup=1)
     walk8, pen8, start8 = random_lattices(torch, 32, 32, 8, 3, dev)
-    sweep8_ms = cuda_ms(torch, lambda: [relax_sweep(w_, p_, s_, **kw) for w_, p_, s_
+    sweep8_ms = cuda_ms(lambda: [relax_sweep(w_, p_, s_, **kw) for w_, p_, s_
                                         in zip(walk8, pen8, start8)], reps=2, warmup=1)
     log(f"timing relax_sweep plain on the card: sweep_ms {sweep_ms:.5f} ms at 32x32 "
         f"B=1 (served lattice), {sweep8_ms:.5f} ms for the 8 random 32x32 lattices "
@@ -2027,7 +2197,7 @@ def main() -> int:
         "plan": lambda: fp._plan(seg_res.occupancy),
     }
     for name, fn in stages.items():
-        log(f"timing stage {name}: {cuda_ms(torch, fn, reps=10, warmup=2):.3f} ms")
+        log(f"timing stage {name}: {cuda_ms(fn, reps=10, warmup=2):.3f} ms")
     planes = torch.from_numpy(np.stack([bgr_to_i420_host(f) for f in frames])).to(dev)
     for label, proc in (("wavefront kernel", fp), ("exact_device", fp_ed)):
         proc._ensure_program()
@@ -2038,7 +2208,7 @@ def main() -> int:
                 if proc._astar_cache is None:
                     return proc._device_fn(planes[:n])
                 return proc._device_fn(planes[:n], caches[:n])
-            per_step[n] = cuda_ms(torch, step, reps=10, warmup=2)
+            per_step[n] = cuda_ms(step, reps=10, warmup=2)
         log(f"timing device program {label}, ms a step (ms a frame) at S streams: "
             + ", ".join(f"S={n} {ms:.3f} ({ms / n:.3f})" for n, ms in per_step.items()))
     t0 = time.perf_counter()
@@ -2191,8 +2361,20 @@ def main() -> int:
     vis_launches, relax_big, _ = visualiser_phase(torch, dev, cuda_astar, cuda_wavefront)
     t5 = time.perf_counter()
     par_launches = parallel_phase(torch, dev, frames, seg, cuda_astar, cuda_wavefront)
-    log(f"phase visualiser took {t5 - t4:.1f} s, parallel "
-        f"{time.perf_counter() - t5:.1f} s")
+    t6 = time.perf_counter()
+    log(f"phase visualiser took {t5 - t4:.1f} s, parallel {t6 - t5:.1f} s")
+
+    # -- 21. protrusions, 22. tools -------------------------------------------------
+    protrusions_phase(cuda_astar, cuda_wavefront)
+    t7 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        tools_dir = args.tools_out or pathlib.Path(
+            stack.enter_context(tempfile.TemporaryDirectory()))
+        tool_launches = tools_phase(record, tools_dir, cuda_astar, cuda_wavefront)
+    if not all(tool_launches):
+        raise AssertionError(f"phase tools launched no relax or no A* kernel: "
+                             f"{tool_launches}")
+    log(f"phase protrusions took {t7 - t6:.1f} s, tools {time.perf_counter() - t7:.1f} s")
 
     print_card()
     print(json.dumps({"kernels": [{
@@ -2211,6 +2393,7 @@ def main() -> int:
         "library_ms": None,
         "launches_visualiser": vis_launches["wavefront_kernel"][0],
         "launches_parallel": par_launches["wavefront_kernel", "mesh"][0],
+        "launches_tools": tool_launches[0],
         "ms_54x96": relax_big["ms"],
         "plain_ms_54x96": relax_big["plain_ms"],
         "bound_ms_54x96": relax_big["bound_ms"],
@@ -2227,6 +2410,7 @@ def main() -> int:
         "launches_cli": cli_launches,
         "launches_visualiser": vis_launches["exact_device"][1],
         "launches_parallel": par_launches["exact_device", "mesh"][1],
+        "launches_tools": tool_launches[1],
         "max_abs_err": astar_err,
         "ms": astar_main["ms"],
         "plain_ms": astar_plain_ms,
