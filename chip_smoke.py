@@ -8,11 +8,12 @@ Run from the repository root with no arguments:
 Phases, each printed on its own line, any failure exits non-zero with no
 result line:
 
-1. build     nvcc compiles the relax kernel (csrc/relax.cu) and the A* kernel
-             (csrc/astar.cu) for sm_90a and g++ compiles the host engine of
-             engine="exact" (planning/native/engine.cpp) and the PNG reader's
-             unfilter (io/png_unfilter.cpp), all four at once, into
-             .torch_ext_build/, and loads them.
+1. build     nvcc compiles the relax kernel (csrc/relax.cu), the A* kernel
+             (csrc/astar.cu) and the NMS kernel (csrc/nms.cu) for sm_90a and
+             g++ compiles the host engine of engine="exact"
+             (planning/native/engine.cpp) and the PNG reader's unfilter
+             (io/png_unfilter.cpp), all five at once, into .torch_ext_build/,
+             and loads them.
 2. kernel    the relax kernel against its plain PyTorch twin, both on the
              card, on the 13 scenario lattices (one batched launch), on seeded
              random 32x32 and 64x36 lattices with 8 streams and on an odd
@@ -32,7 +33,8 @@ result line:
              flagship yolo11n-seg@256 in bf16, engine "wavefront" with the
              relax kernel) through FrameProcessor.__call__ on 8 seeded
              synthetic frames; launch counts are zeroed just before and read
-             just after, and must show the kernel ran once per frame.
+             just after, and must show the relax kernel and the NMS kernel
+             each ran once per frame.
 4. sweep     the same frames through a FrameProcessor with the default
              wavefront flags (plain relax_sweep, no kernel): answers and
              path cells equal to the kernel path's on every frame; and the
@@ -110,8 +112,9 @@ result line:
              a float32 step (TF32 off) of yolov8n-seg@64 batch 2 on the card
              against the CPU.
 13. eval     evaluate_dataset() on 32 held-out synthetic walkways with the
-             flagship and with the trained EMA weights: mask and box mAP, ms a
-             batch of the evaluation step and of its NMS alone; the EMA weights
+             flagship and with the trained EMA weights: mask and box mAP, one
+             NMS launch a batch (counted), ms a batch of the evaluation step
+             and of its NMS alone; the EMA weights
              written by save_variables and read by load_variables give the
              same detections.
 14. train_model  the training driver (python -m
@@ -150,7 +153,7 @@ result line:
 17. export   `export_model` at the flagship on a 640x640 frame: torch.export
              of the segmenter chain saved as inference.pt2 with
              variables.msgpack, loaded back, its outputs bit-equal to the
-             eager chain's; its seconds.
+             eager chain's, one NMS launch (counted); its seconds.
 18. goldens  `generate_goldens` into a temporary directory: JSON byte-equal
              and arrays equal to tests/fixtures/goldens.
 19. visualiser  the debug overlay: the 1080p corridor and a seeded 54x96
@@ -190,6 +193,16 @@ result line:
              phase 16's numbers), detections, profile_pipeline and
              compare_pathfinders: each exits 0 and its headline numbers are
              printed. ``--tools-out DIR`` keeps each tool's JSON object there.
+23. nms      the NMS kernel (csrc/nms.cu) against its plain twin
+             (models/decode.py:greedy_keep) on the card, keep bit-equal, on
+             the inputs the served path hands it (one frame, K = 256; the 8
+             frames as 8 streams), on an evaluation batch of 16 (K = 1024,
+             one launch for the step, counted) and on seeded dense candidates
+             (K = 256 x 8, K = 1024 x 16); each timed (queued CUDA events)
+             beside its bound, the twin and torchvision's batched_nms where
+             it is installed; the eval step and its NMS with the twin and
+             with the kernel; profile_frame's device operations a frame with
+             the twin and with the kernel.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -204,7 +217,8 @@ lattices) and timings; ``--astar-source FILE`` builds the A* kernel from
 another source with the same C interface (another commit's
 ``csrc/astar.cu``), to time it on the same inputs:
 ``python3 chip_smoke.py --astar-only --astar-source <file>``.
-``--train-only`` runs phases 12, 13 and 14 alone.
+``--train-only`` runs phases 12, 13 and 14 alone. ``--nms-only`` stops after
+the build and phase 23.
 """
 
 from __future__ import annotations
@@ -593,6 +607,7 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
         convert_flax_variables,
         to_flax_variables,
     )
+    from vision_assist_tpu_torch.ops import cuda_nms
 
     def eval_model(state_dict=None, flax=None):
         m = YoloSeg(arch, dtype=torch.bfloat16, param_dtype=torch.float32)
@@ -606,9 +621,14 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
     models = {"flagship": eval_model(flax=variables),
               "ema": eval_model(state.eval_state_dict(model))}
     for label, m in models.items():
+        cuda_nms.reset_launches()
         t0 = time.perf_counter()
         maps = evaluate_dataset(m, ds, imgsz=imgsz, batch_size=batch, device=dev)
         wall = time.perf_counter() - t0
+        nms_launches = cuda_nms.launches
+        if nms_launches != -(-n_images // batch):
+            raise AssertionError(f"eval {label}: {nms_launches} NMS launches for "
+                                 f"{n_images} images in batches of {batch}")
         step = make_eval_step(m, imgsz)
         step_ms = cuda_ms(lambda: step(imgs), reps=3, warmup=1)
         with torch.no_grad():
@@ -622,7 +642,8 @@ def eval_phase(torch, dev, arch, variables, model, state, imgsz=256, batch=16,
             raise AssertionError(f"eval {label}: {maps}")
         log(f"phase eval {label}: {n_images} images, mask mAP50 {maps['map50_mask']:.4f} "
             f"mAP50-95 {maps['map50_95_mask']:.4f}, box mAP50 {maps['map50_box']:.4f} "
-            f"mAP50-95 {maps['map50_95_box']:.4f}; evaluate_dataset() {wall:.3f} s; eval step "
+            f"mAP50-95 {maps['map50_95_box']:.4f}; evaluate_dataset() {wall:.3f} s, "
+            f"{nms_launches} NMS launches; eval step "
             f"{step_ms:.3f} ms a batch of {batch} (CUDA events), NMS alone {nms_ms:.3f} ms "
             f"({nms_ms / step_ms:.3f} of it)")
 
@@ -1220,9 +1241,11 @@ def parallel_phase(torch, dev, frames, seg, cuda_astar, cuda_wavefront):
 
 def export_phase(torch, dev, seg, frame):
     """Phase export: `export_model` at the flagship on a 640x640 frame on
-    the card, its program loaded back and held against the eager chain."""
+    the card, its program loaded back and held against the eager chain; the
+    program runs the NMS kernel (one launch, counted)."""
     from vision_assist_tpu_torch import export_model
     from vision_assist_tpu_torch.models import flagship
+    from vision_assist_tpu_torch.ops import cuda_nms
 
     rec = flagship.flagship()
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
@@ -1237,7 +1260,12 @@ def export_phase(torch, dev, seg, frame):
         program = torch.export.load(str(work / "inference.pt2")).module()
         load_s = time.perf_counter() - t0
         x = torch.from_numpy(frame).to(dev)
+        cuda_nms.reset_launches()
         got = program(x)
+        torch.cuda.synchronize()
+        if cuda_nms.launches != 1:
+            raise AssertionError(f"export: the loaded program launched the NMS "
+                                 f"kernel {cuda_nms.launches} times")
         want = export_model.SegmenterChain(seg)(x)
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(got, want)]
@@ -1250,8 +1278,8 @@ def export_phase(torch, dev, seg, frame):
         log(f"phase export: {rec['arch']}@{rec['imgsz']} on a 640x640 frame, "
             f"`export_model` {export_s:.1f} s (torch.export, save, weights), "
             f"inference.pt2 {(work / 'inference.pt2').stat().st_size} B, load "
-            f"{load_s:.1f} s; occupancy, boxes, scores and valid bit-equal to the "
-            f"eager chain ({int(want[3].sum())} detections)")
+            f"{load_s:.1f} s, one NMS launch; occupancy, boxes, scores and valid "
+            f"bit-equal to the eager chain ({int(want[3].sum())} detections)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1435,6 +1463,192 @@ def tools_phase(record: dict, out_dir: pathlib.Path, cuda_astar,
     return cuda_wavefront.launches, cuda_astar.launches
 
 
+def nms_bounds(boxes, valid) -> dict:
+    """The least time the card could take for these keep masks: bytes (the
+    boxes this run's data needs, 16 B a valid candidate's; each flag read
+    once and each keep flag written once, 1 B each) over the memory rate,
+    against the operations this run's data needed over the float32 rate: 14 a pair (i, j) with candidate i valid and
+    i < j < n, n one past the image's last valid candidate (the kernel's
+    pairs; the twin computes all K^2), and 3 a box for its area. Also the
+    same operations of the largest image on one SM (one image is one CTA),
+    and the bit mask's bytes (K * ceil(K / 32) words an image, kept in shared
+    memory), as if it went through device memory once each way."""
+    s, k = valid.shape
+    per_image = []
+    for ok in valid.cpu().numpy():
+        idx = ok.nonzero()[0]
+        n = int(idx[-1]) + 1 if len(idx) else 0
+        per_image.append(14 * int((n - 1 - idx).sum()) + 3 * k)
+    n_bytes = 16 * int(valid.sum()) + 2 * s * k
+    mask_bytes = s * k * ((k + 31) // 32) * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(per_image) / FP32_OPS_PER_S * 1e3
+    return {"n_bytes": n_bytes, "n_ops": sum(per_image),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "one_sm_ms": max(per_image) / FP32_OPS_PER_S * N_SMS * 1e3,
+            "mask_bytes": mask_bytes,
+            "mask_ms": 2 * mask_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def dense_candidates(torch, s: int, k: int, seed: int, dev):
+    """Seeded stress inputs for the keep mask: (s, k) candidates in clusters,
+    three classes (the class offset added), every candidate valid but a few
+    holes; their order is their rank."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(40, 600, (s, 16, 2))
+    xy = centres[np.arange(s)[:, None], rng.integers(0, 16, (s, k))] \
+        + rng.normal(0, 8, (s, k, 2))
+    wh = rng.uniform(20, 90, (s, k, 2))
+    cls = rng.integers(0, 3, (s, k))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+    boxes += (cls.astype(np.float32) * np.float32(7680.0))[..., None]
+    valid = rng.random((s, k)) < 0.97
+    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def profiled_frame(profile_frame) -> dict:
+    """profile_frame's JSON object for 8 frames, its printout kept."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = profile_frame.main(["--frames", "8", "--top", "3"])
+    if rc != 0:
+        raise AssertionError(f"profile_frame exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
+    """Phase 23: the NMS kernel against its plain twin on the card, on the
+    inputs the served path gives it (one frame, and the 8 frames as 8
+    streams: K = 256), on an evaluation batch of 16 (K = 1024) and on seeded
+    dense candidates; its device time (launches queued behind a sleep)
+    beside its bound, the twin's and the library's; the eval step and its
+    NMS with the kernel and with the twin; profile_frame's device operations
+    a frame with the twin and with the kernel."""
+    import numpy as np
+
+    from vision_assist_tpu_torch.data.augment import letterbox_np
+    from vision_assist_tpu_torch.io.synthetic import WalkwaySet
+    from vision_assist_tpu_torch.models import decode
+    from vision_assist_tpu_torch.models.evaluate import make_eval_step
+    from vision_assist_tpu_torch.models.yolo import YoloSeg, convert_flax_variables
+
+    kernel = cuda_nms.greedy_keep_cuda
+    captured = []
+
+    def recording(boxes, valid, thr):
+        captured.append((boxes.clone(), valid.clone(), thr))
+        return kernel(boxes, valid, thr)
+
+    @contextlib.contextmanager
+    def keep_mask_by(fn):
+        """nms computes its keep mask with ``fn`` (read at each call)."""
+        cuda_nms.greedy_keep_cuda = fn
+        try:
+            yield
+        finally:
+            cuda_nms.greedy_keep_cuda = kernel
+
+    imgsz = int(rec["imgsz"])
+    model = YoloSeg(rec["arch"], dtype=torch.bfloat16, param_dtype=torch.float32)
+    model.load_state_dict(convert_flax_variables(variables, model))
+    model = model.to(dev).eval()
+    ds = WalkwaySet(16, 640, 640, seed=200)
+    imgs = torch.from_numpy(np.stack([
+        letterbox_np(ds.load_image(i), [], imgsz)[0][..., ::-1]
+        for i in range(16)])).to(dev)
+    step = make_eval_step(model, imgsz)
+    step(imgs)
+    torch.cuda.synchronize()
+    cuda_nms.reset_launches()
+    dets, _ = step(imgs)
+    torch.cuda.synchronize()
+    if cuda_nms.launches != 1 or not bool(dets.valid.any()):
+        raise AssertionError(f"nms eval step: {cuda_nms.launches} NMS launches, "
+                             f"{int(dets.valid.sum())} detections")
+
+    with keep_mask_by(recording):
+        seg(frames[0])
+        seg(np.stack(frames))
+        step(imgs)
+    names = ["served 256x1", "served 256x8", "eval 1024x16"]
+    if len(captured) != len(names):
+        raise AssertionError(f"nms: {len(captured)} calls of the keep mask, not 3")
+    cases = dict(zip(names, captured))
+    for s, k, seed in ((8, 256, 1), (16, 1024, 2)):
+        cases[f"dense {k}x{s}"] = (*dense_candidates(torch, s, k, seed, dev), 0.7)
+
+    timed, err = {}, 0.0
+    for name, (boxes, valid, thr) in cases.items():
+        got = kernel(boxes, valid, thr)
+        torch.cuda.synchronize()
+        want = decode.greedy_keep(boxes, valid, thr)
+        err = max(err, float((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"NMS kernel differs from its twin on {name}: "
+                                 f"{int((got != want).sum())} flags")
+        bounds = nms_bounds(boxes, valid)
+        t = dict(bounds, ms=cuda_ms(lambda: kernel(boxes, valid, thr), reps=100,
+                                    queued=True),
+                 call_ms=cuda_ms(lambda: kernel(boxes, valid, thr), reps=100),
+                 plain_ms=cuda_ms(lambda: decode.greedy_keep(boxes, valid, thr),
+                                  reps=3, warmup=1),
+                 library_ms=None)
+        try:
+            from torchvision.ops import batched_nms
+        except ImportError:
+            batched_nms = None
+        if batched_nms is not None:
+            s, k = valid.shape
+            rank = torch.arange(k, 0, -1, device=dev, dtype=torch.float32).repeat(s, 1)
+            image = torch.arange(s, device=dev).repeat_interleave(k).reshape(s, k)
+            flat = (boxes[valid], rank[valid], image[valid])
+            t["library_ms"] = cuda_ms(lambda: batched_nms(*flat, thr), reps=20)
+        timed[name] = t
+        log(f"phase nms {name}: keep bit-equal to the twin ({int(valid.sum())} valid, "
+            f"{int(got.sum())} kept of {valid.numel()}); {t['ms']:.5f} ms on the device, "
+            f"{t['call_ms']:.5f} ms per back-to-back call, twin {t['plain_ms']:.3f} ms, "
+            "library (torchvision batched_nms) "
+            + ("absent on this machine" if t["library_ms"] is None
+               else f"{t['library_ms']:.5f} ms")
+            + f"; bound {t['bound_ms']:.6f} ms by {t['bound_by']} ({t['n_bytes']} B, "
+            f"{t['n_ops']} float ops), one-SM bound {t['one_sm_ms']:.6f} ms, bit mask "
+            f"{t['mask_bytes']} B ({t['mask_ms']:.6f} ms were it in device memory)")
+
+    with torch.no_grad():
+        outs = model(imgs.float().permute(0, 3, 1, 2) / 255.0)
+        boxes, cls_logits, coeffs = decode.decode_boxes(outs, 16)
+    eval_kw = dict(conf_threshold=0.001, iou_threshold=0.7, max_candidates=1024,
+                   max_det=300)
+    shares = {}
+    keep_fns = {"twin": decode.greedy_keep, "kernel": kernel}
+    for label, fn in keep_fns.items():
+        with keep_mask_by(fn):
+            step_ms = cuda_ms(lambda: step(imgs), reps=3, warmup=1)
+            nms_ms = cuda_ms(lambda: decode.nms(boxes, cls_logits, coeffs, **eval_kw),
+                             reps=3, warmup=1)
+        shares[label] = (step_ms, nms_ms)
+        log(f"phase nms eval step with the {label}: {step_ms:.3f} ms a batch of 16, "
+            f"nms {nms_ms:.3f} ms ({nms_ms / step_ms:.3f} of it)")
+
+    from vision_assist_tpu_torch.utils import profile_frame
+
+    frame_ops = {}
+    for label, fn in keep_fns.items():
+        with keep_mask_by(fn):
+            prof = profiled_frame(profile_frame)
+        frame_ops[label] = prof["device_ops_per_frame"]
+        log(f"phase nms profile_frame with the {label}: "
+            f"{prof['device_ops_per_frame']:.1f} device operations a frame, "
+            f"{prof['device_busy_ms_per_frame']:.3f} device ms busy of "
+            f"{prof['wall_ms_per_frame']:.3f} ms a frame (idle "
+            f"{prof['device_idle_share']:.3f}), top "
+            f"{[t['name'][:40] for t in prof['top_device_ms_per_frame']]}")
+    return {"timed": timed, "err": err, "shares": shares, "frame_ops": frame_ops}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
@@ -1448,6 +1662,8 @@ def main() -> int:
                     help="import the port from this directory instead")
     ap.add_argument("--train-only", action="store_true",
                     help="run only the train, eval and train_model phases (12-14)")
+    ap.add_argument("--nms-only", action="store_true",
+                    help="stop after the NMS kernel's build, checks and timings")
     ap.add_argument("--tools-out", type=pathlib.Path, default=None,
                     help="keep each tool's JSON object of phase 22 in this directory")
     args = ap.parse_args()
@@ -1487,6 +1703,7 @@ def main() -> int:
             from vision_assist_tpu_torch.planning import device_astar, native
         if not (args.relax_only or args.astar_only):
             from vision_assist_tpu_torch.io import png
+            from vision_assist_tpu_torch.ops import cuda_nms
             from vision_assist_tpu_torch.pipeline.multi_stream import (
                 MultiStreamProcessor,
             )
@@ -1534,17 +1751,18 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------------
     # One compiler process a source, all started together.
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(cuda_wavefront.build)]
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
         if not (args.relax_only or args.astar_only):
-            builds.append(pool.submit(with_seconds, png.build))
+            builds += [pool.submit(with_seconds, png.build), pool.submit(cuda_nms.build)]
         built = [b.result() for b in builds]
     def how(mod):       # another commit's port (--root) may not say
         return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
 
-    for mod in [cuda_wavefront] if args.relax_only else [cuda_wavefront, cuda_astar]:
+    for mod in ([cuda_wavefront] if args.relax_only else [cuda_wavefront, cuda_astar]
+                if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms]):
         ptxas = [ln.strip() for ln in mod.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"phase build {mod.SOURCE.name}: {how(mod)} in "
@@ -1556,6 +1774,17 @@ def main() -> int:
             f"{native.build_seconds:.3f} s")
     if not (args.relax_only or args.astar_only):
         log(f"phase build {png.SOURCE.name}: built or loaded in {built[3][1]:.3f} s")
+
+    if args.nms_only:
+        variables = flagship.load_flagship_variables()
+        if variables is None:
+            raise FileNotFoundError("flagship weights missing from assets/weights")
+        seg = Segmenter(flagship.model_config(), variables=variables,
+                        example_hw=(640, 640), device=dev)
+        nms_phase(torch, dev, walkway_frames(N_FRAMES, 640, 640, seed=0), seg,
+                  flagship.flagship(), variables, cuda_nms)
+        print_card()
+        return 0
 
     # -- 2. kernel against its twin ----------------------------------------------------
     turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
@@ -1808,15 +2037,19 @@ def main() -> int:
 
     relax_sweep = wavefront.relax_sweep
     cuda_wavefront.reset_launches()
+    cuda_nms.reset_launches()
     results, lat = [], []
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
         res = fp(frame, now_ms=1000 + i * 33)
         lat.append((time.perf_counter() - t0) * 1e3)
         results.append(res)
-    launches = cuda_wavefront.launches
+    launches, nms_launches = cuda_wavefront.launches, cuda_nms.launches
     if launches < 1:
         raise AssertionError("the main path never launched the relax kernel")
+    if nms_launches != N_FRAMES:
+        raise AssertionError(f"the main path launched the NMS kernel {nms_launches} "
+                             f"times in {N_FRAMES} frames")
     for i, res in enumerate(results):
         if res is None or res.final_answer not in ANSWERS:
             raise AssertionError(f"frame {i}: bad result {res!r}")
@@ -1830,7 +2063,7 @@ def main() -> int:
         raise AssertionError("the model found nothing in any frame")
     log(f"phase frames: ok, {rec['arch']}@{rec['imgsz']} {rec['asset']}, "
         f"{N_FRAMES} frames, {n_det} with detections, relax launches {launches}, "
-        f"median latency {statistics.median(lat):.3f} ms")
+        f"NMS launches {nms_launches}, median latency {statistics.median(lat):.3f} ms")
 
     def replay_card_vs_cpu(pathfinder):
         rcfg = replay_config().replace(pathfinder=pathfinder)
@@ -2374,7 +2607,13 @@ def main() -> int:
     if not all(tool_launches):
         raise AssertionError(f"phase tools launched no relax or no A* kernel: "
                              f"{tool_launches}")
-    log(f"phase protrusions took {t7 - t6:.1f} s, tools {time.perf_counter() - t7:.1f} s")
+    t8 = time.perf_counter()
+    log(f"phase protrusions took {t7 - t6:.1f} s, tools {t8 - t7:.1f} s")
+
+    # -- 23. nms -------------------------------------------------------------------
+    nms_run = nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms)
+    nms_main, nms_eval = nms_run["timed"]["served 256x1"], nms_run["timed"]["eval 1024x16"]
+    log(f"phase nms took {time.perf_counter() - t8:.1f} s")
 
     print_card()
     print(json.dumps({"kernels": [{
@@ -2421,6 +2660,26 @@ def main() -> int:
         "plain_ms_54x96": big_plain_ms["corridor54x96"],
         "bound_ms_54x96": astar_big["bound_ms"],
         "bound_by_54x96": astar_big["bound_by"],
+    }, {
+        # Replaces a compiled JAX loop, not a Pallas kernel.
+        "name": "nms",
+        "route": "cuda",
+        "source": "vision_assist_tpu_torch/csrc/nms.cu",
+        "replaces": "vision_assist_tpu/models/decode.py:137",
+        "launches": nms_launches,
+        "max_abs_err": nms_run["err"],
+        "ms": nms_main["ms"],
+        "plain_ms": nms_main["plain_ms"],
+        "bound_ms": nms_main["bound_ms"],
+        "bound_by": nms_main["bound_by"],
+        "library_ms": nms_main["library_ms"],
+        "ms_eval": nms_eval["ms"],
+        "plain_ms_eval": nms_eval["plain_ms"],
+        "bound_ms_eval": nms_eval["bound_ms"],
+        "bound_by_eval": nms_eval["bound_by"],
+        "library_ms_eval": nms_eval["library_ms"],
+        "device_ops_a_frame_twin": nms_run["frame_ops"]["twin"],
+        "device_ops_a_frame": nms_run["frame_ops"]["kernel"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,11 @@ from vision_assist_tpu.golden import pipeline as jgolden  # noqa: E402
 from vision_assist_tpu.io import mock_camera as jcam  # noqa: E402
 from vision_assist_tpu.io import speech as jspeech  # noqa: E402
 from vision_assist_tpu.io import tts as jtts  # noqa: E402
+from vision_assist_tpu.models import decode as jdecode  # noqa: E402
 from vision_assist_tpu.models import evaluate as jeval  # noqa: E402
+from vision_assist_tpu.ops import blur as jblur  # noqa: E402
+from vision_assist_tpu.ops import lattice as jlattice  # noqa: E402
+from vision_assist_tpu.parallel import mesh as jmesh  # noqa: E402
 from vision_assist_tpu.pipeline import frame_processor as jfp  # noqa: E402
 from vision_assist_tpu.pipeline import multi_stream as jms  # noqa: E402
 from vision_assist_tpu.pipeline import server as jserver  # noqa: E402
@@ -49,7 +53,11 @@ from vision_assist_tpu_torch.golden import pipeline as tgolden  # noqa: E402
 from vision_assist_tpu_torch.io import mock_camera as tcam  # noqa: E402
 from vision_assist_tpu_torch.io import speech as tspeech  # noqa: E402
 from vision_assist_tpu_torch.io import tts as ttts  # noqa: E402
+from vision_assist_tpu_torch.models import decode as tdecode  # noqa: E402
 from vision_assist_tpu_torch.models import evaluate as teval  # noqa: E402
+from vision_assist_tpu_torch.ops import blur as tblur  # noqa: E402
+from vision_assist_tpu_torch.ops import lattice as tlattice  # noqa: E402
+from vision_assist_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from vision_assist_tpu_torch.pipeline import frame_processor as tfp  # noqa: E402
 from vision_assist_tpu_torch.pipeline import multi_stream as tms  # noqa: E402
 from vision_assist_tpu_torch.pipeline import server as tserver  # noqa: E402
@@ -80,6 +88,11 @@ PAIRS = {
     "mosaic4": (jaug.mosaic4, taug.mosaic4),
     "flip_lr": (jaug.flip_lr, taug.flip_lr),
     "letterbox_np": (jaug.letterbox_np, taug.letterbox_np),
+    "hsv_jitter": (jaug.hsv_jitter, taug.hsv_jitter),
+    "is_blurry": (jblur.is_blurry, tblur.is_blurry),
+    "occupancy_from_mask": (jlattice.occupancy_from_mask, tlattice.occupancy_from_mask),
+    "nms": (jdecode.nms, tdecode.nms),
+    "proto_einsum_specs": (jmesh.proto_einsum_specs, tmesh.proto_einsum_specs),
     "MockCamera.__init__": (jcam.MockCamera.__init__, tcam.MockCamera.__init__),
     "MockCamera.read": (jcam.MockCamera.read, tcam.MockCamera.read),
     "MockCamera.get": (jcam.MockCamera.get, tcam.MockCamera.get),
@@ -120,6 +133,53 @@ def test_parameters_in_the_jax_order(name):
 def test_dataclass_fields_in_the_jax_order(pair):
     want, got = (dataclasses.fields(c) for c in pair)
     assert [(f.name, f.default) for f in got] == [(f.name, f.default) for f in want]
+
+
+def test_proto_einsum_specs_shard_the_same_axis_as_jax():
+    """Both packages split the mask assembly's operands on the prototype
+    channel nm: JAX's coefficients (D, nm) and prototypes (Hp, Wp, nm), the
+    port's (D, nm) and (nm, Hp, Wp), each spec naming a dimension's mesh
+    axis."""
+    axes = {"coeffs": ("D", "nm"), "protos_jax": ("Hp", "Wp", "nm"),
+            "protos_port": ("nm", "Hp", "Wp")}
+
+    def on_mdl(spec, names):
+        return [n for n, a in zip(names, tuple(spec)) if a == "mdl"]
+
+    jc, jp = jmesh.proto_einsum_specs()
+    tc, tp = tmesh.proto_einsum_specs()
+    assert on_mdl(jc, axes["coeffs"]) == on_mdl(tc, axes["coeffs"]) == ["nm"]
+    assert on_mdl(jp, axes["protos_jax"]) == on_mdl(tp, axes["protos_port"]) == ["nm"]
+    assert len(tc) == 2 and len(tp) == 3 and set(tc + tp) <= {None, *tmesh.AXES}
+
+
+def test_proto_einsum_specs_pieces_sum_to_the_whole_assembly():
+    """The pieces the specs cut, each assembled alone, add up to JAX's mask
+    assembly of the whole (the all-reduce of assemble_masks_mdl, done here
+    by hand for mdl = 2 and 4)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    protos = rng.normal(0, 1, (32, 16, 16)).astype(np.float32)
+    coeffs = rng.normal(0, 1, (5, 32)).astype(np.float32)
+    boxes = np.array([[0, 0, 64, 64], [10, 20, 40, 50], [5, 5, 60, 30],
+                      [0, 0, 0, 0], [30, 30, 63, 63]], np.float32)
+    valid = np.array([True, True, True, False, True])
+    jd = jdecode.Detections(boxes=jax.numpy.asarray(boxes), scores=None,
+                            classes=None, coeffs=jax.numpy.asarray(coeffs),
+                            valid=jax.numpy.asarray(valid))
+    want = np.asarray(jdecode.assemble_masks(
+        jax.numpy.asarray(protos.transpose(1, 2, 0)), jd, (64, 64)))
+    td = tdecode.Detections(boxes=torch.from_numpy(boxes), scores=None, classes=None,
+                            coeffs=torch.from_numpy(coeffs), valid=torch.from_numpy(valid))
+    cspec, pspec = tmesh.proto_einsum_specs()
+    for mdl in (2, 4):
+        total = sum(tdecode.assemble_masks(
+            tmesh._mdl_piece(torch.from_numpy(protos), pspec, i, mdl),
+            dataclasses.replace(td, coeffs=tmesh._mdl_piece(td.coeffs, cspec, i, mdl)),
+            (64, 64)) for i in range(mdl))
+        np.testing.assert_allclose(total.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
 def test_positional_debug_gives_an_overlay():

@@ -9,9 +9,9 @@ rasterised from them, are bit-equal to its. The images come from numpy
 warps that sample as ``cv2.warpAffine`` and ``cv2.warpPerspective`` do
 (bilinear, constant border): the inverse matrix in float64, source
 coordinates and weights in float32, rounded half to even; a pixel may differ
-from OpenCV's by one grey level. ``hsv_jitter`` is not here: the loader ships
-the gains and the train step applies them on the device
-(``augment_device.py``).
+from OpenCV's by one grey level. The loader ships HSV gains and the train
+step applies them on the device (``augment_device.py``); ``hsv_jitter`` is
+JAX's host form of the same jitter, OpenCV's uint8 HSV conversions in numpy.
 """
 
 from __future__ import annotations
@@ -268,6 +268,65 @@ def copy_paste(img: np.ndarray, polys: list[np.ndarray], classes: list[int],
         polys.append(q)
         classes.append(donor_classes[int(i)])
     return out, polys, classes
+
+
+# OpenCV's uint8 BGR -> HSV: fixed point with 12 fractional bits, H in [0, 180).
+_HSV_SHIFT = 12
+_SDIV = np.concatenate([[0], np.round((255 << _HSV_SHIFT) / np.arange(1, 256.0))]
+                       ).astype(np.int64)
+_HDIV = np.concatenate([[0], np.round((180 << _HSV_SHIFT) / (6 * np.arange(1, 256.0)))]
+                       ).astype(np.int64)
+# HSV -> BGR: which of (v, p, q, t) is b, g, r in each 60-degree sector.
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3],
+                         [2, 1, 0]])
+
+
+def bgr_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 BGR -> uint8 HSV as ``cv2.cvtColor(img,
+    cv2.COLOR_BGR2HSV)`` gives it (equal on all 2^24 colours)."""
+    b, g, r = (img[..., c].astype(np.int64) for c in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def hsv_to_bgr_u8(hsv: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 HSV (H in [0, 180)) -> uint8 BGR, within one grey level
+    of ``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` (OpenCV 5.0.0 differs on
+    0.015 % of the colours): float32 sectors, each channel truncated."""
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * f32(6.0 / 180)
+    s = hsv[..., 1].astype(f32) * f32(1.0 / 255)
+    v = hsv[..., 2].astype(f32) * f32(1.0 / 255)
+    sector = np.floor(h)
+    frac = h - sector
+    tab = np.stack([v, v * (f32(1) - s), v * (f32(1) - s * frac),
+                    v * (f32(1) - s * (f32(1) - frac))], -1)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector.astype(np.int64) % 6], -1)
+    return np.clip(np.floor(bgr * f32(255)), 0, 255).astype(np.uint8)
+
+
+def hsv_jitter(img: np.ndarray, rng: np.random.Generator,
+               cfg: AugmentConfig) -> np.ndarray:
+    """Random HSV gains (one uniform draw of three, JAX's stream) applied to
+    a uint8 BGR image through uint8 lookup tables in OpenCV's HSV: hue
+    rotated modulo 180, saturation and value scaled and clipped. Without
+    gains the image comes back as it is, and nothing is drawn."""
+    if not (cfg.hsv_h or cfg.hsv_s or cfg.hsv_v):
+        return img
+    gains = rng.uniform(-1, 1, 3) * [cfg.hsv_h, cfg.hsv_s, cfg.hsv_v] + 1
+    hsv = bgr_to_hsv_u8(img)
+    x = np.arange(256)
+    lut_h = ((x * gains[0]) % 180).astype(np.uint8)
+    lut_s = np.clip(x * gains[1], 0, 255).astype(np.uint8)
+    lut_v = np.clip(x * gains[2], 0, 255).astype(np.uint8)
+    merged = np.stack([lut_h[hsv[..., 0]], lut_s[hsv[..., 1]], lut_v[hsv[..., 2]]], -1)
+    return hsv_to_bgr_u8(merged)
 
 
 def flip_polys(polygons: list[np.ndarray], w: int) -> list[np.ndarray]:

@@ -74,6 +74,23 @@ def _box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
+def greedy_keep(boxes: torch.Tensor, cand_valid: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask: boxes (..., K, 4) xyxy sorted by score, the
+    class offset added, cand_valid (..., K) bool -> keep (..., K) bool.
+    Candidate i, while kept, drops every later j with IoU(i, j) above the
+    threshold. The plain twin of the CUDA kernel (``ops/cuda_nms.py``),
+    one step a candidate, every image at once."""
+    k = boxes.shape[-2]
+    iou = _box_iou(boxes, boxes)
+    order = torch.arange(k, device=boxes.device)
+    suppress = (iou > iou_threshold) & (order[None, :] > order[:, None])
+    keep = cand_valid.clone()
+    for i in range(k):
+        keep &= ~(suppress[..., i, :] & keep[..., i, None])
+    return keep
+
+
 @dataclasses.dataclass
 class Detections:
     """Padded, fixed-size detection set for one image, or for S images with
@@ -94,7 +111,8 @@ def nms(boxes: torch.Tensor, cls_logits: torch.Tensor, coeffs: torch.Tensor,
 
     boxes (A, 4), cls_logits (A, nc), coeffs (A, nm) for one image, or each
     with a leading stream dimension for S images: every step then serves all
-    the images at once, the greedy loop included.
+    the images at once, the greedy loop included (one kernel launch on the
+    card for all of them).
     Candidates are the top max_candidates by best-class confidence; equal
     scores keep index order (a stable sort), as the reference's top_k does.
     """
@@ -117,17 +135,16 @@ def nms(boxes: torch.Tensor, cls_logits: torch.Tensor, coeffs: torch.Tensor,
     cand_boxes = torch.take_along_dim(boxes, idx[..., None], dim=-2)
     cand_cls = torch.take_along_dim(cls, idx, dim=-1)
 
-    # Class-aware: offset boxes per class (the max_wh trick).
-    offs = cand_cls.float()[..., None] * 7680.0
-    iou = _box_iou(cand_boxes + offs, cand_boxes + offs)
+    # Class-aware: offset boxes per class (the max_wh trick). The greedy
+    # loop is one launch of the NMS kernel on the card, its plain twin on
+    # the CPU.
+    from vision_assist_tpu_torch.ops.cuda_nms import greedy_keep_cuda
 
-    order = torch.arange(max_candidates, device=dev)
-    suppress = (iou > iou_threshold) & (order[None, :] > order[:, None])
-    keep = cand_valid.clone()
-    for i in range(max_candidates):
-        keep &= ~(suppress[..., i, :] & keep[..., i, None])
+    offs = cand_cls.float()[..., None] * 7680.0
+    keep = greedy_keep_cuda(cand_boxes + offs, cand_valid, iou_threshold)
 
     # The first max_det kept (already in descending score order).
+    order = torch.arange(max_candidates, device=dev)
     kept_rank = torch.where(keep, order, max_candidates)
     sel = torch.argsort(kept_rank, dim=-1, stable=True)[..., :max_det]
     valid = torch.take_along_dim(kept_rank, sel, dim=-1) < max_candidates

@@ -6,8 +6,8 @@ scored at prototype resolution (mask_ratio 4). :func:`evaluate` has the JAX
 form (Flax-layout variables and a dataset directory); :func:`evaluate_dataset`
 scores a model's own weights on any labelled set. Evaluate the EMA parameters
 with the training batch statistics (``TrainState.eval_state_dict``). The
-greedy NMS loop runs its 1024 steps for every batch, each step serving the
-whole batch.
+greedy NMS of a batch is one launch of the NMS kernel on the card (its plain
+twin's 1024 steps, each serving the whole batch, on the CPU).
 """
 
 from __future__ import annotations

@@ -27,3 +27,7 @@ def laplacian_variance(image_bgr: torch.Tensor) -> torch.Tensor:
            + p[..., 1:-1, 2:] - 4.0 * g)
     return torch.var(lap, dim=(-2, -1), correction=0)
 
+
+def is_blurry(image_bgr: torch.Tensor, threshold: float = 100.0) -> torch.Tensor:
+    """The reference's blur gate: Laplacian variance below ``threshold``."""
+    return laplacian_variance(image_bgr) < threshold

@@ -1,11 +1,20 @@
-"""Lattice ops on the device: artificial-cell injection and binary-image
-rasterisation of walkable cells."""
+"""Lattice ops on the device: occupancy from a mask, artificial-cell
+injection and binary-image rasterisation of walkable cells."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def occupancy_from_mask(mask: torch.Tensor, grid_size: int = 20) -> torch.Tensor:
+    """Cell occupancy of a dense {0,1} or bool segmentation mask (..., H, W):
+    each cell's centre pixel, ``mask[centre_y, centre_x] > 0``, as the
+    reference tests a cell against the mask."""
+    h, w = mask.shape[-2:]
+    half = grid_size // 2
+    return mask[..., half:h:grid_size, half:w:grid_size] > 0
 
 
 def _artificial_column_mask(cols: int, frame_width: int, grid_size: int,

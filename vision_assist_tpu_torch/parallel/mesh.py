@@ -167,23 +167,45 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     return out
 
 
+def proto_einsum_specs() -> tuple[tuple[str | None, ...], tuple[str | None, ...]]:
+    """Where the mask assembly's operands split over 'mdl': the coefficients
+    (D, nm) and the prototypes (nm, Hp, Wp) (the port's channel-first
+    layout) on their shared contraction axis nm, so each rank holds nm/mdl
+    prototypes and its slice of every coefficient vector, computes a partial
+    (D, Hp, Wp) mask, and one all-reduce over mdl adds them
+    (:func:`assemble_masks_mdl`). A spec names the mesh axis of each
+    dimension, counted from the last, so a leading stream axis is left
+    whole."""
+    return (None, "mdl"), ("mdl", None, None)
+
+
+def _mdl_piece(x: torch.Tensor, spec: tuple[str | None, ...], index: int,
+               mdl: int) -> torch.Tensor:
+    """Rank ``index``'s piece of ``x`` under ``spec``: the dimension that
+    ``spec`` puts on 'mdl' cut into ``mdl`` equal contiguous pieces."""
+    dim = x.dim() - len(spec) + spec.index("mdl")
+    n = x.shape[dim]
+    if n % mdl:
+        raise ValueError(f"{n} does not split over mdl={mdl}")
+    return x.narrow(dim, index * n // mdl, n // mdl)
+
+
 def assemble_masks_mdl(protos: torch.Tensor, dets, input_hw: tuple[int, int],
                        mdl_index: int, mdl: int, group=None) -> torch.Tensor:
     """``models/decode.assemble_masks`` with its contraction split over the
-    mdl ranks: this rank assembles from its ``nm / mdl`` prototypes
-    (``protos`` (nm, Hp, Wp) and the coefficients' last axis, whole on every
-    rank) and one all-reduce adds the partial (D, Hp, Wp) masks. The box crop
-    multiplies by 0 or 1, so it commutes with the sum. Counterpart of the
-    JAX package's ``proto_einsum_specs`` consumer."""
+    mdl ranks as :func:`proto_einsum_specs` says: this rank assembles from
+    its ``nm / mdl`` prototypes (``protos`` (nm, Hp, Wp) and the
+    coefficients' last axis, whole on every rank) and one all-reduce adds
+    the partial (D, Hp, Wp) masks. The box crop multiplies by 0 or 1, so it
+    commutes with the sum."""
     from vision_assist_tpu_torch.models.decode import assemble_masks
 
-    nm = protos.shape[-3]
-    if nm % mdl:
-        raise ValueError(f"nm={nm} does not split over mdl={mdl}")
-    lo, hi = mdl_index * nm // mdl, (mdl_index + 1) * nm // mdl
-    part = assemble_masks(protos[..., lo:hi, :, :],
-                          dataclasses.replace(dets, coeffs=dets.coeffs[..., lo:hi]),
-                          input_hw)
+    coeff_spec, proto_spec = proto_einsum_specs()
+    part = assemble_masks(
+        _mdl_piece(protos, proto_spec, mdl_index, mdl),
+        dataclasses.replace(dets, coeffs=_mdl_piece(dets.coeffs, coeff_spec,
+                                                    mdl_index, mdl)),
+        input_hw)
     if mdl > 1:
         dist.all_reduce(part, group=group)
     return part
