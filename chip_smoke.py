@@ -193,16 +193,19 @@ result line:
              phase 16's numbers), detections, profile_pipeline and
              compare_pathfinders: each exits 0 and its headline numbers are
              printed. ``--tools-out DIR`` keeps each tool's JSON object there.
-23. nms      the NMS kernel (csrc/nms.cu) against its plain twin
-             (models/decode.py:greedy_keep) on the card, keep bit-equal, on
-             the inputs the served path hands it (one frame, K = 256; the 8
-             frames as 8 streams), on an evaluation batch of 16 (K = 1024,
-             one launch for the step, counted) and on seeded dense candidates
-             (K = 256 x 8, K = 1024 x 16); each timed (queued CUDA events)
-             beside its bound, the twin and torchvision's batched_nms where
-             it is installed; the eval step and its NMS with the twin and
-             with the kernel; profile_frame's device operations a frame with
-             the twin and with the kernel.
+23. nms      the NMS kernel (csrc/nms.cu: selection, the greedy keep mask
+             and the gather in one launch, a cluster of 8 CTAs an image)
+             against its plain twin (models/decode.py:nms_from_scores) on the
+             card, the five Detections outputs bit-equal, on the inputs the
+             served path hands its operator (one frame, K = 256; the 8 frames
+             as 8 streams), on an evaluation batch of 16 (K = 1024, one
+             launch for the step, counted), captured at the call, and on
+             seeded dense inputs (A = K = 256 x 8, 300 detection slots for
+             256 candidates, and 1024 x 16; A = 8400, K = 1024 x 16); each
+             timed (queued CUDA events) beside its bound and the twin; the
+             whole decode.nms call on the evaluation batch and on one served
+             frame, and its share of the eval step; profile_frame's device
+             operations a frame.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -1463,50 +1466,65 @@ def tools_phase(record: dict, out_dir: pathlib.Path, cuda_astar,
     return cuda_wavefront.launches, cuda_astar.launches
 
 
-def nms_bounds(boxes, valid) -> dict:
-    """The least time the card could take for these keep masks: bytes (the
-    boxes this run's data needs, 16 B a valid candidate's; each flag read
-    once and each keep flag written once, 1 B each) over the memory rate,
-    against the operations this run's data needed over the float32 rate: 14 a pair (i, j) with candidate i valid and
-    i < j < n, n one past the image's last valid candidate (the kernel's
-    pairs; the twin computes all K^2), and 3 a box for its area. Also the
-    same operations of the largest image on one SM (one image is one CTA),
-    and the bit mask's bytes (K * ceil(K / 32) words an image, kept in shared
-    memory), as if it went through device memory once each way."""
-    s, k = valid.shape
-    per_image = []
-    for ok in valid.cpu().numpy():
-        idx = ok.nonzero()[0]
-        n = int(idx[-1]) + 1 if len(idx) else 0
-        per_image.append(14 * int((n - 1 - idx).sum()) + 3 * k)
-    n_bytes = 16 * int(valid.sum()) + 2 * s * k
-    mask_bytes = s * k * ((k + 31) // 32) * 4
+def nms_bounds(args, dets) -> dict:
+    """The least time the card could take for this NMS: bytes over the
+    memory rate against the float operations over the float32 rate. Bytes:
+    each image's A scores read (the threshold needs them all), the n
+    candidates' boxes and classes (n = min(valid, K): the IoU and its class
+    offset need them) and the coefficients of the kept detections written
+    out, each read once, and the five outputs written once. Operations: 14
+    an IoU pair i < j < n, 8 a candidate (offset, area), one comparison an
+    anchor. Also the largest image's operations on one
+    cluster's 8 SMs (an image is one cluster), and the bit mask's bytes (row
+    i < n from word i / 32 to word ceil(n / 32), kept in shared memory) as if
+    it went through device memory once each way."""
+    boxes, scores, classes, coeffs, conf, _, k, _ = args
+    s, a = scores.shape
+    nm = coeffs.shape[-1]
+    conf_c = float(scores.new_tensor(conf).item())
+    n = [min(int(c), k) for c in scores.gt(conf_c).sum(-1).tolist()]
+    kept = dets.valid.sum(-1).cpu().tolist()
+    per_image = [14 * (x * (x - 1) // 2) + 8 * x + a for x in n]
+    d = dets.valid.shape[-1]
+    out_bytes = s * d * (4 * dets.boxes.element_size() + dets.scores.element_size() + 4
+                         + nm * dets.coeffs.element_size() + 1)
+    n_bytes = (s * a * scores.element_size()
+               + sum(n) * (4 * boxes.element_size() + classes.element_size())
+               + sum(kept) * nm * coeffs.element_size() + out_bytes)
+    mask_bytes = sum(4 * ((x + 31) // 32 - i // 32) for x in n for i in range(x))
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = sum(per_image) / FP32_OPS_PER_S * 1e3
-    return {"n_bytes": n_bytes, "n_ops": sum(per_image),
+    return {"n_bytes": n_bytes, "n_ops": sum(per_image), "n_valid": sum(n),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "one_sm_ms": max(per_image) / FP32_OPS_PER_S * N_SMS * 1e3,
+            "one_cluster_ms": max(per_image) / FP32_OPS_PER_S * N_SMS / 8 * 1e3,
             "mask_bytes": mask_bytes,
             "mask_ms": 2 * mask_bytes / HBM_BYTES_PER_S * 1e3}
 
 
-def dense_candidates(torch, s: int, k: int, seed: int, dev):
-    """Seeded stress inputs for the keep mask: (s, k) candidates in clusters,
-    three classes (the class offset added), every candidate valid but a few
-    holes; their order is their rank."""
+def seeded_nms_inputs(torch, s: int, a: int, valid: int | None, conf: float, seed: int,
+                      dev) -> tuple:
+    """Seeded inputs of the NMS kernel as decode.nms hands them over: float32
+    boxes (s, a, 4) in 16 clusters, bf16 best-class scores with ``valid``
+    anchors an image above ``conf`` (None: 97 %), the others below it, int64
+    classes of 3, bf16 coefficients (s, a, 32)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     centres = rng.uniform(40, 600, (s, 16, 2))
-    xy = centres[np.arange(s)[:, None], rng.integers(0, 16, (s, k))] \
-        + rng.normal(0, 8, (s, k, 2))
-    wh = rng.uniform(20, 90, (s, k, 2))
-    cls = rng.integers(0, 3, (s, k))
+    xy = centres[np.arange(s)[:, None], rng.integers(0, 16, (s, a))] \
+        + rng.normal(0, 8, (s, a, 2))
+    wh = rng.uniform(20, 90, (s, a, 2))
     boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
-    boxes += (cls.astype(np.float32) * np.float32(7680.0))[..., None]
-    valid = rng.random((s, k)) < 0.97
-    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+    scores = rng.uniform(0.0, 0.8 * conf, (s, a))
+    for b in range(s):
+        above = rng.random(a) < 0.97 if valid is None else rng.choice(a, valid, replace=False)
+        scores[b, above] = rng.uniform(2 * conf, 1.0, scores[b, above].shape)
+    return (torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(scores.astype(np.float32)).to(dev, torch.bfloat16),
+            torch.from_numpy(rng.integers(0, 3, (s, a))).to(dev),
+            torch.from_numpy(rng.normal(0, 1, (s, a, 32)).astype(np.float32)).to(
+                dev, torch.bfloat16))
 
 
 def profiled_frame(profile_frame) -> dict:
@@ -1520,14 +1538,17 @@ def profiled_frame(profile_frame) -> dict:
 
 
 def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
-    """Phase 23: the NMS kernel against its plain twin on the card, on the
-    inputs the served path gives it (one frame, and the 8 frames as 8
-    streams: K = 256), on an evaluation batch of 16 (K = 1024) and on seeded
-    dense candidates; its device time (launches queued behind a sleep)
-    beside its bound, the twin's and the library's; the eval step and its
-    NMS with the kernel and with the twin; profile_frame's device operations
-    a frame with the twin and with the kernel."""
+    """Phase 23: the NMS kernel against its plain twin on the card, five
+    outputs bit-equal, on the inputs the served path gives it (one frame, and
+    the 8 frames as 8 streams: K = 256), on an evaluation batch of 16 (K =
+    1024), all three captured at the operator's call, and on seeded dense
+    inputs (A = K = 256 x 8 and 1024 x 16; A = 8400, K = 1024 x 16); its
+    device time (launches queued behind a sleep) beside its bound and the
+    twin's; the whole decode.nms call on the evaluation batch and on one
+    served frame, the eval step and the NMS share of it; profile_frame's
+    device operations a frame."""
     import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from vision_assist_tpu_torch.data.augment import letterbox_np
     from vision_assist_tpu_torch.io.synthetic import WalkwaySet
@@ -1535,21 +1556,17 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
     from vision_assist_tpu_torch.models.evaluate import make_eval_step
     from vision_assist_tpu_torch.models.yolo import YoloSeg, convert_flax_variables
 
-    kernel = cuda_nms.greedy_keep_cuda
+    op = torch.ops.vision_assist_tpu_torch.nms_detections.default
     captured = []
 
-    def recording(boxes, valid, thr):
-        captured.append((boxes.clone(), valid.clone(), thr))
-        return kernel(boxes, valid, thr)
+    class Capture(TorchDispatchMode):
+        """Keeps a copy of the NMS operator's inputs at each call."""
 
-    @contextlib.contextmanager
-    def keep_mask_by(fn):
-        """nms computes its keep mask with ``fn`` (read at each call)."""
-        cuda_nms.greedy_keep_cuda = fn
-        try:
-            yield
-        finally:
-            cuda_nms.greedy_keep_cuda = kernel
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is op:
+                captured.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                      for x in args))
+            return func(*args, **(kwargs or {}))
 
     imgsz = int(rec["imgsz"])
     model = YoloSeg(rec["arch"], dtype=torch.bfloat16, param_dtype=torch.float32)
@@ -1569,84 +1586,79 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
         raise AssertionError(f"nms eval step: {cuda_nms.launches} NMS launches, "
                              f"{int(dets.valid.sum())} detections")
 
-    with keep_mask_by(recording):
+    with Capture():
         seg(frames[0])
         seg(np.stack(frames))
         step(imgs)
     names = ["served 256x1", "served 256x8", "eval 1024x16"]
     if len(captured) != len(names):
-        raise AssertionError(f"nms: {len(captured)} calls of the keep mask, not 3")
+        raise AssertionError(f"nms: {len(captured)} calls of the NMS operator, not 3")
     cases = dict(zip(names, captured))
-    for s, k, seed in ((8, 256, 1), (16, 1024, 2)):
-        cases[f"dense {k}x{s}"] = (*dense_candidates(torch, s, k, seed, dev), 0.7)
+    for s, a, k, seed in ((8, 256, 256, 1), (16, 1024, 1024, 2), (16, 8400, 1024, 3)):
+        # 97 % of the anchors valid, bf16 scores (many equal), int64 classes
+        cases[f"dense {a}x{k}x{s}"] = (
+            *seeded_nms_inputs(torch, s, a, None, 0.001, seed, dev), 0.001, 0.7, k, 300)
 
     timed, err = {}, 0.0
-    for name, (boxes, valid, thr) in cases.items():
-        got = kernel(boxes, valid, thr)
+    for name, args in cases.items():
+        got = cuda_nms.nms_cuda(*args)
         torch.cuda.synchronize()
-        want = decode.greedy_keep(boxes, valid, thr)
-        err = max(err, float((got.int() - want.int()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"NMS kernel differs from its twin on {name}: "
-                                 f"{int((got != want).sum())} flags")
-        bounds = nms_bounds(boxes, valid)
-        t = dict(bounds, ms=cuda_ms(lambda: kernel(boxes, valid, thr), reps=100,
-                                    queued=True),
-                 call_ms=cuda_ms(lambda: kernel(boxes, valid, thr), reps=100),
-                 plain_ms=cuda_ms(lambda: decode.greedy_keep(boxes, valid, thr),
-                                  reps=3, warmup=1),
-                 library_ms=None)
-        try:
-            from torchvision.ops import batched_nms
-        except ImportError:
-            batched_nms = None
-        if batched_nms is not None:
-            s, k = valid.shape
-            rank = torch.arange(k, 0, -1, device=dev, dtype=torch.float32).repeat(s, 1)
-            image = torch.arange(s, device=dev).repeat_interleave(k).reshape(s, k)
-            flat = (boxes[valid], rank[valid], image[valid])
-            t["library_ms"] = cuda_ms(lambda: batched_nms(*flat, thr), reps=20)
+        want = decode.nms_from_scores(*args)
+        for field in ("boxes", "scores", "classes", "coeffs", "valid"):
+            g, w = getattr(got, field), getattr(want, field)
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(
+                    f"NMS kernel differs from its twin on {name}, {field}: "
+                    f"{g.dtype} / {w.dtype}, {int((g != w).sum())} values")
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        t = dict(nms_bounds(args, want),
+                 ms=cuda_ms(lambda: cuda_nms.nms_cuda(*args), reps=100, queued=True),
+                 call_ms=cuda_ms(lambda: cuda_nms.nms_cuda(*args), reps=100),
+                 plain_ms=cuda_ms(lambda: decode.nms_from_scores(*args), reps=3, warmup=1),
+                 library_ms=None)       # no PyTorch call computes this function
         timed[name] = t
-        log(f"phase nms {name}: keep bit-equal to the twin ({int(valid.sum())} valid, "
-            f"{int(got.sum())} kept of {valid.numel()}); {t['ms']:.5f} ms on the device, "
-            f"{t['call_ms']:.5f} ms per back-to-back call, twin {t['plain_ms']:.3f} ms, "
-            "library (torchvision batched_nms) "
-            + ("absent on this machine" if t["library_ms"] is None
-               else f"{t['library_ms']:.5f} ms")
-            + f"; bound {t['bound_ms']:.6f} ms by {t['bound_by']} ({t['n_bytes']} B, "
-            f"{t['n_ops']} float ops), one-SM bound {t['one_sm_ms']:.6f} ms, bit mask "
-            f"{t['mask_bytes']} B ({t['mask_ms']:.6f} ms were it in device memory)")
+        s, a = args[1].shape
+        log(f"phase nms {name}: five outputs bit-equal to the twin (A {a}, "
+            f"{t['n_valid']} candidates, {int(want.valid.sum())} kept of "
+            f"{want.valid.numel()} slots, scores {args[1].dtype}); {t['ms']:.5f} ms on the "
+            f"device, {t['call_ms']:.5f} ms per back-to-back call, twin "
+            f"{t['plain_ms']:.3f} ms; bound {t['bound_ms']:.7f} ms by {t['bound_by']} "
+            f"({t['n_bytes']} B, {t['n_ops']} float ops), one-cluster bound "
+            f"{t['one_cluster_ms']:.6f} ms, bit mask {t['mask_bytes']} B "
+            f"({t['mask_ms']:.6f} ms were it in device memory)")
 
     with torch.no_grad():
         outs = model(imgs.float().permute(0, 3, 1, 2) / 255.0)
         boxes, cls_logits, coeffs = decode.decode_boxes(outs, 16)
     eval_kw = dict(conf_threshold=0.001, iou_threshold=0.7, max_candidates=1024,
                    max_det=300)
-    shares = {}
-    keep_fns = {"twin": decode.greedy_keep, "kernel": kernel}
-    for label, fn in keep_fns.items():
-        with keep_mask_by(fn):
-            step_ms = cuda_ms(lambda: step(imgs), reps=3, warmup=1)
-            nms_ms = cuda_ms(lambda: decode.nms(boxes, cls_logits, coeffs, **eval_kw),
-                             reps=3, warmup=1)
-        shares[label] = (step_ms, nms_ms)
-        log(f"phase nms eval step with the {label}: {step_ms:.3f} ms a batch of 16, "
-            f"nms {nms_ms:.3f} ms ({nms_ms / step_ms:.3f} of it)")
+    served_kw = dict(conf_threshold=seg.cfg.conf_threshold, iou_threshold=seg.cfg.iou_threshold,
+                     max_det=seg.cfg.max_detections)
+    step_ms = cuda_ms(lambda: step(imgs), reps=10, warmup=2)
+    nms_ms = cuda_ms(lambda: decode.nms(boxes, cls_logits, coeffs, **eval_kw), reps=50)
+    nms_queued_ms = cuda_ms(lambda: decode.nms(boxes, cls_logits, coeffs, **eval_kw),
+                            reps=50, queued=True)
+    log(f"phase nms eval step with the kernel: {step_ms:.3f} ms a batch of 16, decode.nms "
+        f"{nms_ms:.5f} ms a back-to-back call ({nms_ms / step_ms:.4f} of it), "
+        f"{nms_queued_ms:.5f} ms on the device (CUDA events)")
+    # One served frame: the first image of the batch at the served settings.
+    served = (boxes[0], cls_logits[0], coeffs[0])
+    served_ms = cuda_ms(lambda: decode.nms(*served, **served_kw), reps=50)
+    served_queued_ms = cuda_ms(lambda: decode.nms(*served, **served_kw), reps=50, queued=True)
+    log(f"phase nms served frame: decode.nms {served_ms:.5f} ms a back-to-back call, "
+        f"{served_queued_ms:.5f} ms on the device (CUDA events)")
 
     from vision_assist_tpu_torch.utils import profile_frame
 
-    frame_ops = {}
-    for label, fn in keep_fns.items():
-        with keep_mask_by(fn):
-            prof = profiled_frame(profile_frame)
-        frame_ops[label] = prof["device_ops_per_frame"]
-        log(f"phase nms profile_frame with the {label}: "
-            f"{prof['device_ops_per_frame']:.1f} device operations a frame, "
-            f"{prof['device_busy_ms_per_frame']:.3f} device ms busy of "
-            f"{prof['wall_ms_per_frame']:.3f} ms a frame (idle "
-            f"{prof['device_idle_share']:.3f}), top "
-            f"{[t['name'][:40] for t in prof['top_device_ms_per_frame']]}")
-    return {"timed": timed, "err": err, "shares": shares, "frame_ops": frame_ops}
+    prof = profiled_frame(profile_frame)
+    log(f"phase nms profile_frame with the kernel: "
+        f"{prof['device_ops_per_frame']:.1f} device operations a frame, "
+        f"{prof['device_busy_ms_per_frame']:.3f} device ms busy of "
+        f"{prof['wall_ms_per_frame']:.3f} ms a frame (idle "
+        f"{prof['device_idle_share']:.3f}), top "
+        f"{[t['name'][:40] for t in prof['top_device_ms_per_frame']]}")
+    return {"timed": timed, "err": err, "share": (step_ms, nms_ms), "served_call": served_ms,
+            "frame_ops": prof["device_ops_per_frame"]}
 
 
 def main() -> int:
@@ -2613,6 +2625,7 @@ def main() -> int:
     # -- 23. nms -------------------------------------------------------------------
     nms_run = nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms)
     nms_main, nms_eval = nms_run["timed"]["served 256x1"], nms_run["timed"]["eval 1024x16"]
+    nms_dense = nms_run["timed"]["dense 1024x1024x16"]
     log(f"phase nms took {time.perf_counter() - t8:.1f} s")
 
     print_card()
@@ -2661,11 +2674,12 @@ def main() -> int:
         "bound_ms_54x96": astar_big["bound_ms"],
         "bound_by_54x96": astar_big["bound_by"],
     }, {
-        # Replaces a compiled JAX loop, not a Pallas kernel.
+        # Replaces the jitted JAX nms after its sigmoid (top_k, the
+        # fori_loop, the gather), not a Pallas kernel.
         "name": "nms",
         "route": "cuda",
         "source": "vision_assist_tpu_torch/csrc/nms.cu",
-        "replaces": "vision_assist_tpu/models/decode.py:137",
+        "replaces": "vision_assist_tpu/models/decode.py:102",
         "launches": nms_launches,
         "max_abs_err": nms_run["err"],
         "ms": nms_main["ms"],
@@ -2678,8 +2692,12 @@ def main() -> int:
         "bound_ms_eval": nms_eval["bound_ms"],
         "bound_by_eval": nms_eval["bound_by"],
         "library_ms_eval": nms_eval["library_ms"],
-        "device_ops_a_frame_twin": nms_run["frame_ops"]["twin"],
-        "device_ops_a_frame": nms_run["frame_ops"]["kernel"],
+        "ms_dense_1024x16": nms_dense["ms"],
+        "bound_ms_dense_1024x16": nms_dense["bound_ms"],
+        "decode_nms_ms_eval": nms_run["share"][1],
+        "decode_nms_ms_served": nms_run["served_call"],
+        "eval_step_ms": nms_run["share"][0],
+        "device_ops_a_frame": nms_run["frame_ops"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

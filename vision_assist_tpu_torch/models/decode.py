@@ -79,8 +79,8 @@ def greedy_keep(boxes: torch.Tensor, cand_valid: torch.Tensor,
     """Greedy NMS keep mask: boxes (..., K, 4) xyxy sorted by score, the
     class offset added, cand_valid (..., K) bool -> keep (..., K) bool.
     Candidate i, while kept, drops every later j with IoU(i, j) above the
-    threshold. The plain twin of the CUDA kernel (``ops/cuda_nms.py``),
-    one step a candidate, every image at once."""
+    threshold. The greedy loop of the NMS kernel's plain twin
+    (``nms_from_scores``), one step a candidate, every image at once."""
     k = boxes.shape[-2]
     iou = _box_iou(boxes, boxes)
     order = torch.arange(k, device=boxes.device)
@@ -110,16 +110,30 @@ def nms(boxes: torch.Tensor, cls_logits: torch.Tensor, coeffs: torch.Tensor,
     semantics as ultralytics uses them, best-class-only path).
 
     boxes (A, 4), cls_logits (A, nc), coeffs (A, nm) for one image, or each
-    with a leading stream dimension for S images: every step then serves all
-    the images at once, the greedy loop included (one kernel launch on the
-    card for all of them).
-    Candidates are the top max_candidates by best-class confidence; equal
-    scores keep index order (a stable sort), as the reference's top_k does.
+    with a leading stream dimension for S images. Candidates are the top
+    max_candidates by best-class confidence; equal scores keep index order
+    (a stable sort), as the reference's top_k does. After the sigmoid and
+    the best class, everything is one launch of the NMS kernel on the card
+    for all the images (``ops/cuda_nms.py``), its plain twin
+    ``nms_from_scores`` on the CPU.
     """
-    dev = boxes.device
-    lead = boxes.shape[:-2]
     scores_all = torch.sigmoid(cls_logits)
     best, cls = torch.max(scores_all, dim=-1)
+    from vision_assist_tpu_torch.ops.cuda_nms import nms_cuda
+
+    return nms_cuda(boxes, best, cls, coeffs, conf_threshold, iou_threshold,
+                    max_candidates, max_det)
+
+
+def nms_from_scores(boxes: torch.Tensor, best: torch.Tensor, cls: torch.Tensor,
+                    coeffs: torch.Tensor, conf_threshold: float, iou_threshold: float,
+                    max_candidates: int, max_det: int) -> Detections:
+    """``nms`` after its sigmoid: best (..., A) best-class scores and cls
+    (..., A) their classes -> Detections. The plain twin of the NMS kernel
+    (``ops/cuda_nms.py``): a stable sort, the greedy loop ``greedy_keep``,
+    then the gather of the first max_det kept."""
+    dev = boxes.device
+    lead = boxes.shape[:-2]
     cls = cls.to(torch.int32)
 
     cand = torch.where(best > conf_threshold, best, NEG)
@@ -128,20 +142,16 @@ def nms(boxes: torch.Tensor, cls_logits: torch.Tensor, coeffs: torch.Tensor,
     top_scores, idx = top_scores[..., :k], idx[..., :k]
     if k < max_candidates:
         top_scores = torch.cat([top_scores, torch.full(
-            (*lead, max_candidates - k), NEG, device=dev)], dim=-1)
+            (*lead, max_candidates - k), NEG, dtype=cand.dtype, device=dev)], dim=-1)
         idx = torch.cat([idx, torch.zeros((*lead, max_candidates - k),
                                           dtype=idx.dtype, device=dev)], dim=-1)
     cand_valid = top_scores > conf_threshold
     cand_boxes = torch.take_along_dim(boxes, idx[..., None], dim=-2)
     cand_cls = torch.take_along_dim(cls, idx, dim=-1)
 
-    # Class-aware: offset boxes per class (the max_wh trick). The greedy
-    # loop is one launch of the NMS kernel on the card, its plain twin on
-    # the CPU.
-    from vision_assist_tpu_torch.ops.cuda_nms import greedy_keep_cuda
-
+    # Class-aware: offset boxes per class (the max_wh trick).
     offs = cand_cls.float()[..., None] * 7680.0
-    keep = greedy_keep_cuda(cand_boxes + offs, cand_valid, iou_threshold)
+    keep = greedy_keep(cand_boxes + offs, cand_valid, iou_threshold)
 
     # The first max_det kept (already in descending score order).
     order = torch.arange(max_candidates, device=dev)
