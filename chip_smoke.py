@@ -9,10 +9,11 @@ Phases, each printed on its own line, any failure exits non-zero with no
 result line:
 
 1. build     nvcc compiles the relax kernel (csrc/relax.cu), the A* kernel
-             (csrc/astar.cu) and the NMS kernel (csrc/nms.cu) for sm_90a and
-             g++ compiles the host engine of engine="exact"
+             (csrc/astar.cu), the NMS kernel (csrc/nms.cu) and the
+             fast-sweeping kernel (csrc/relax_sweep.cu) for sm_90a and g++
+             compiles the host engine of engine="exact"
              (planning/native/engine.cpp) and the PNG reader's unfilter
-             (io/png_unfilter.cpp), all five at once, into .torch_ext_build/,
+             (io/png_unfilter.cpp), all six at once, into .torch_ext_build/,
              and loads them.
 2. kernel    the relax kernel against its plain PyTorch twin, both on the
              card, on the 13 scenario lattices (one batched launch), on seeded
@@ -35,10 +36,28 @@ result line:
              synthetic frames; launch counts are zeroed just before and read
              just after, and must show the relax kernel and the NMS kernel
              each ran once per frame.
-4. sweep     the same frames through a FrameProcessor with the default
-             wavefront flags (plain relax_sweep, no kernel): answers and
-             path cells equal to the kernel path's on every frame; and the
-             replay of the 13 scenarios with those flags, card against CPU.
+4. sweep     the fast-sweeping kernel (csrc/relax_sweep.cu, the relaxation
+             of the default wavefront flags) against its twin
+             relax_sweep_field on the card, field and pass counts bit-equal
+             (and capped at 2 passes): the served lattice (32x32 B=1), the 8
+             served lattices (B=8), the 13 scenarios (64x36 B=13), the 1080p
+             corridor and a seeded 54x96 lattice (B=1) and seeded 64x36
+             lattices (B=13), each timed (queued CUDA events) beside its
+             bound (the operations of the line scans the kernel counts it
+             ran), its one-SM bound and the twin; relax on CUDA tensors (the
+             relax kernel, one launch) bit-equal to relax_field at 32x32 B=8
+             and 54x96, and a max_iters cap raising; the 8 frames through a
+             FrameProcessor with the default flags (counts zeroed before and
+             read after: one sweep launch a frame, no relax launch), answers
+             and path cells equal to the relax-kernel path's; __call__ p50
+             and quartiles over the bench's 30 frames with the sweep kernel
+             beside the relax-kernel path, the two interleaved frame by frame
+             (the first alternating), and the kernel and the twin timed on each
+             frame's own lattice; 3 steps of 8 streams through
+             MultiStreamProcessor (one sweep launch a step); 8 frames of the
+             program captured in one CUDA graph (8 launches captured, the
+             replay equal to per-frame calls); the 13 scenarios with those
+             flags, card against CPU.
 5. check     the kernel path on the card against itself on the CPU: replay
              of the 13 scenarios (answers and paths equal) and two frames
              with the model in float32 (TF32 off).
@@ -79,7 +98,7 @@ result line:
              aggregate frames/s printed beside the single-stream figures.
 10. timing   the relax kernel at the served lattice (32x32, B=1), at 32x32 B=8
              and at 64x36 B=13, each with its pass counts; an empty launch
-             through the same wrapper; the plain twin and plain relax_sweep;
+             through the same wrapper; the plain twin;
              the A* kernel at the served lattice, at 64x36 B=13 and at the
              54x96 corridor with its
              pops and relaxations (also the 8 served lattices as 8 streams of
@@ -155,7 +174,17 @@ result line:
              variables.msgpack, loaded back, its outputs bit-equal to the
              eager chain's, one NMS launch (counted); its seconds.
 18. goldens  `generate_goldens` into a temporary directory: JSON byte-equal
-             and arrays equal to tests/fixtures/goldens.
+             and arrays equal to tests/fixtures/goldens. Then goldens12:
+             generate_video_golden.run_sequence (16 frames through one
+             FrameProcessor, yolov8n-seg at imgsz 640 with
+             v8n_640_best.msgpack) over the six demo PNGs and 10 seeded
+             walkways written as PNG, float32 on the card against the CPU,
+             per-frame dicts equal, the frames bf16 changes counted;
+             generate_model_goldens's one-shot records of 12 of them; and
+             soup_sweep with one candidate (v8n_640_r2_best) at alpha 0.5 on
+             16 walkways (a PNG dataset) on the card: the base and two soups
+             evaluated, soup_sweep.json (and best.msgpack on a gain) written
+             into its --out only.
 19. visualiser  the debug overlay: the 1080p corridor and a seeded 54x96
              lattice through FrameProcessor(1080x1920, debug=True) for the
              exact, exact_device and kernel-wavefront engines on the card,
@@ -221,7 +250,8 @@ another source with the same C interface (another commit's
 ``csrc/astar.cu``), to time it on the same inputs:
 ``python3 chip_smoke.py --astar-only --astar-source <file>``.
 ``--train-only`` runs phases 12, 13 and 14 alone. ``--nms-only`` stops after
-the build and phase 23.
+the build and phase 23. ``--sweep-only`` stops after phase 4 (the build, the
+relax half of phase 2, phase 3 and phase 4).
 """
 
 from __future__ import annotations
@@ -1661,6 +1691,358 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
             "frame_ops": prof["device_ops_per_frame"]}
 
 
+def sweep_bounds(enter, scans) -> dict:
+    """The least time the card could take for this fast-sweeping relaxation:
+    bytes (each input read once, each output written once) over the memory
+    rate, against the float operations of the line scans this run's data
+    needed, over the float32 rate (a scan of a line of n cells: 7 a cell for
+    h, 2 a cell for the one-step shift, 3 a position for each level of the
+    doubling scan that has a partner; ``scans`` (B, 2) the scans of rows
+    and of columns each stream ran, as the kernel counts them, the lines
+    its need flags skip left out); and the same operations on one SM, since
+    one stream is one CTA."""
+    b, rows, cols = enter.shape
+
+    def line_ops(n):
+        levels = 0
+        s = 1
+        while s < n:
+            levels += n - s
+            s *= 2
+        return 7 * n + 2 * (n - 1) + 3 * levels
+
+    row_scans, col_scans = (int(x) for x in scans.sum(0))
+    n_bytes = 4 * (b * rows * cols + b * 2 + 16 + b * rows * cols * 4 + b + 2 * b)
+    n_ops = row_scans * line_ops(cols) + col_scans * line_ops(rows)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return {"n_bytes": n_bytes, "n_ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "one_sm_ms": ops_ms * N_SMS}
+
+
+def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
+                cuda_sweep, cuda_wavefront, fp_kernel) -> dict:
+    """Phase sweep: the fast-sweeping kernel against its twin, bit for bit
+    (field and passes), timed; relax on CUDA tensors through the relax
+    kernel; the default wavefront flags through FrameProcessor and
+    MultiStreamProcessor with their launches counted; a CUDA graph of frames
+    with the kernel in it. Returns the readings of the kernels line."""
+    import numpy as np
+
+    from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig
+    from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
+    from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
+    from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
+    from vision_assist_tpu_torch.pipeline.planner import make_plan_step
+    from vision_assist_tpu_torch.planning import wavefront
+    from vision_assist_tpu_torch.tools.diagnose_device_p50 import HoistUploads, _chain
+
+    sweep_pf = PathFinderConfig(engine="wavefront")
+    if sweep_pf.use_pallas_relax or not sweep_pf.use_sweep_relax:
+        raise AssertionError("the default wavefront flags are not relax_sweep")
+    scfg = cfg.replace(pathfinder=sweep_pf)
+
+    # -- the kernel against its twin ------------------------------------------------
+    def plan_fields(pcfg, occupancies):
+        """walkable, penalty, start of each occupancy's plan, stacked."""
+        plan = make_plan_step(pcfg, include_paths=False)
+        prs = [plan(occ if torch.is_tensor(occ) else torch.from_numpy(occ).to(dev))
+               for occ in occupancies]
+        return tuple(torch.stack([getattr(pr, k) for pr in prs])
+                     for k in ("walkable", "penalty", "start_rc"))
+
+    def plan_inputs(pcfg, occupancies):
+        walk, pen, start = plan_fields(pcfg, occupancies)
+        return wavefront.enter_cost(walk, pen, 20, 0.5), start
+
+    cfg_1080p = PipelineConfig(frame_height=1080, frame_width=1920)
+    fields = {"32x32 B=8 served": plan_fields(scfg, [seg(f).occupancy for f in frames]),
+              "54x96 B=1 corridor": plan_fields(cfg_1080p, [occupancy_1080p()])}
+    served = (wavefront.enter_cost(*fields["32x32 B=8 served"][:2], 20, 0.5),
+              fields["32x32 B=8 served"][2])
+    shapes = {"32x32 B=1 served": (served[0][-1:], served[1][-1:]),
+              "32x32 B=8 served": served,
+              "64x36 B=13 scenarios": scen_inputs,
+              "54x96 B=1 corridor": (wavefront.enter_cost(
+                  *fields["54x96 B=1 corridor"][:2], 20, 0.5),
+                  fields["54x96 B=1 corridor"][2]),
+              "54x96 B=1 random": plan_inputs(cfg_1080p, [random_1080p(7)]),
+              "64x36 B=13 random": random_inputs(torch, 64, 36, 13, 12, dev)}
+    timed, err = {}, 0.0
+    for name, (enter, start) in shapes.items():
+        cuda_sweep.reset_launches()
+        got, passes = cuda_sweep.relax_sweep_field_cuda(enter, start, turn)
+        torch.cuda.synchronize()
+        if cuda_sweep.launches != 1:
+            raise AssertionError(f"sweep {name}: {cuda_sweep.launches} launches")
+        ref, ref_passes = wavefront.relax_sweep_field(enter, start, turn)
+        err = max(err, float((got - ref).abs().max()))
+        if not (torch.equal(got, ref) and torch.equal(passes, ref_passes)):
+            raise AssertionError(f"sweep kernel differs from its twin on {name}: max "
+                                 f"abs err {float((got - ref).abs().max())}, passes "
+                                 f"{passes.tolist()} vs {ref_passes.tolist()}")
+        capped = cuda_sweep.relax_sweep_field_cuda(enter, start, turn, 2)
+        ref_capped = wavefront.relax_sweep_field(enter, start, turn, 2)
+        if not all(torch.equal(a, b) for a, b in zip(capped, ref_capped)):
+            raise AssertionError(f"sweep kernel capped at 2 passes differs on {name}")
+        rows, cols = enter.shape[1:]
+        _, _, scans = torch.ops.vision_assist_tpu_torch.relax_sweep(
+            enter, start.to(torch.int32), turn, rows * cols)
+        every = torch.tensor([2 * rows, 2 * cols], device=dev)
+        if not bool(((scans >= every) & (scans <= passes[:, None] * every)).all()):
+            raise AssertionError(f"sweep {name}: line scans {scans.tolist()} outside "
+                                 f"[one pass, every pass] of {every.tolist()} lines, "
+                                 f"passes {passes.tolist()}")
+
+        def call(enter=enter, start=start):
+            return cuda_sweep.relax_sweep_field_cuda(enter, start, turn)
+        bounds = sweep_bounds(enter, scans)
+        timed[name] = dict(bounds, passes=passes.tolist(), scans=scans.tolist(),
+                           ms=cuda_ms(call, reps=100, queued=True),
+                           call_ms=cuda_ms(call, reps=100),
+                           plain_ms=cuda_ms(lambda enter=enter, start=start:
+                                            wavefront.relax_sweep_field(enter, start,
+                                                                        turn),
+                                            reps=2, warmup=1),
+                           library_ms=None)
+        r = timed[name]
+        log(f"phase sweep kernel {name}: field and passes bit-equal to the twin (and "
+            f"capped at 2 passes); passes {r['passes']}, line scans (rows, columns) "
+            f"{r['scans']}; {r['ms']:.5f} ms on the "
+            f"device, {r['call_ms']:.5f} ms per back-to-back call, twin "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
+            f"({r['n_bytes']} B, {r['n_ops']} float ops), one-SM bound "
+            f"{r['one_sm_ms']:.6f} ms, library_ms null (no PyTorch call computes it)")
+    lib = cuda_sweep.build()
+    log(f"phase sweep kernel: {lib.relax_sweep_shared_bytes(54, 96)} bytes of shared "
+        f"memory a block at 54x96, {lib.relax_sweep_shared_bytes(32, 32)} at 32x32 "
+        f"(the card allows {cuda_sweep._shared_cap(torch.cuda.current_device())})")
+
+    # -- relax on CUDA tensors: the relax kernel, bit-equal to relax_field ------------
+    for name, (walk, pen, start) in fields.items():
+        cuda_wavefront.reset_launches()
+        got = wavefront.relax(walk, pen, start, angle_weight=cfg.pathfinder
+                              .wavefront_turn_weight)
+        torch.cuda.synchronize()
+        ref, _ = wavefront.relax_field(wavefront.enter_cost(walk, pen, 20, 0.5),
+                                       start, turn)
+        if cuda_wavefront.launches != 1 or not torch.equal(got, ref):
+            raise AssertionError(f"relax on the card at {name}: "
+                                 f"{cuda_wavefront.launches} launches, max abs err "
+                                 f"{float((got - ref).abs().max())}")
+        try:
+            wavefront.relax(walk, pen, start, max_iters=5)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("relax(max_iters=...) on the card did not raise")
+        log(f"phase sweep relax {name}: relax on CUDA tensors is one relax-kernel "
+            "launch, bit-equal to relax_field; a max_iters cap raises")
+
+    # -- the default wavefront flags through FrameProcessor ---------------------------
+    fp_sweep = FrameProcessor(scfg, segmenter=seg, device=dev)
+    fp_sweep(frames[0], now_ms=0)                # this configuration's first call
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    cuda_wavefront.reset_launches()
+    sweep_lat = []
+    for i, frame in enumerate(frames):
+        t0 = time.perf_counter()
+        res = fp_sweep(frame, now_ms=1000 + i * 33)
+        sweep_lat.append((time.perf_counter() - t0) * 1e3)
+        if res.final_answer != results[i].final_answer \
+                or path_cells(res) != path_cells(results[i]):
+            raise AssertionError(
+                f"sweep frame {i}: {res.final_answer} {path_cells(res)} vs the "
+                f"kernel path's {results[i].final_answer} {path_cells(results[i])}")
+    launches = cuda_sweep.launches
+    if launches != len(frames) or cuda_wavefront.launches:
+        raise AssertionError(f"default wavefront flags: {launches} sweep and "
+                             f"{cuda_wavefront.launches} relax launches in "
+                             f"{len(frames)} frames")
+    log(f"phase sweep frames: {len(frames)} frames with the default wavefront flags, "
+        f"answers and path cells equal to the relax-kernel path's, sweep launches "
+        f"{launches} (one a frame), relax launches 0")
+
+    # __call__ over the bench's frames: the default flags with the kernel beside
+    # the relax-kernel path, interleaved frame by frame, the one called first
+    # alternating; and the twin timed on each frame's own lattice.
+    bench = card_tools().bench_frames(30)
+    procs = {"default flags (sweep kernel)": fp_sweep, "relax kernel": fp_kernel}
+    for proc in procs.values():
+        proc(bench[0], now_ms=0)
+    call_ms = {label: [] for label in procs}
+    for i, frame in enumerate(bench):
+        for label in (list(procs) if i % 2 == 0 else list(procs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            procs[label](frame, now_ms=5000 + i * 33)
+            call_ms[label].append((time.perf_counter() - t0) * 1e3)
+    medians = {label: statistics.median(ms) for label, ms in call_ms.items()}
+    quartiles = {label: statistics.quantiles(ms, n=4) for label, ms in call_ms.items()}
+    bench_in = plan_inputs(scfg, [seg(f).occupancy for f in bench])
+    kernel_ms, twin_ms = [], []
+    for i in range(len(bench)):
+        one = (bench_in[0][i:i + 1], bench_in[1][i:i + 1])
+        got = cuda_sweep.relax_sweep_field_cuda(*one, turn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = wavefront.relax_sweep_field(*one, turn)
+        torch.cuda.synchronize()
+        twin_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"sweep kernel differs from its twin on bench frame {i}")
+        kernel_ms.append(cuda_ms(lambda one=one: cuda_sweep.relax_sweep_field_cuda(
+            *one, turn), reps=20, queued=True))
+    q_sweep, q_kernel = quartiles["default flags (sweep kernel)"], quartiles["relax kernel"]
+    log(f"phase sweep __call__ p50 over the bench's {len(bench)} frames, the two "
+        f"processors interleaved frame by frame (first one alternating): default "
+        f"wavefront flags with the sweep kernel "
+        f"{medians['default flags (sweep kernel)']:.3f} ms (quartiles {q_sweep[0]:.3f}-"
+        f"{q_sweep[2]:.3f}), relax-kernel path {medians['relax kernel']:.3f} ms "
+        f"(quartiles {q_kernel[0]:.3f}-{q_kernel[2]:.3f}); the relaxation of each "
+        f"frame's lattice, "
+        f"median: sweep kernel {statistics.median(kernel_ms):.5f} ms on the device, the "
+        f"twin called directly {statistics.median(twin_ms):.3f} ms (bit-equal on all "
+        f"{len(bench)})")
+
+    # -- a step of 8 streams: one sweep launch ----------------------------------------
+    n_streams, n_steps = 8, 3
+    steps = [np.stack([frames[(s + j) % len(frames)] for s in range(n_streams)])
+             for j in range(n_steps)]
+    msp = MultiStreamProcessor(scfg.replace(num_streams=n_streams), segmenter=seg,
+                               device=dev)
+    msp.process_frames(steps[0], now_ms=0)
+    torch.cuda.synchronize()
+    cuda_sweep.reset_launches()
+    stepped = [msp.process_frames(step, now_ms=1000 + j * 33)
+               for j, step in enumerate(steps)]
+    batch_launches = cuda_sweep.launches
+    msp.close()
+    if batch_launches != n_steps:
+        raise AssertionError(f"sweep batch: {batch_launches} launches in {n_steps} steps")
+    if any(r.final_answer not in ANSWERS for step in stepped for r in step):
+        raise AssertionError("sweep batch: a bad answer")
+    single = FrameProcessor(scfg, device=dev)
+    for j, step in enumerate(stepped):
+        for st, res in enumerate(step):
+            own = single.process_occupancy(res.occupancy, now_ms=0)
+            single.analyser.previous_instructions.clear()
+            if path_cells(own) != path_cells(res):
+                raise AssertionError(f"sweep batch step {j} stream {st}: paths differ "
+                                     "from the single-stream planner's")
+    log(f"phase sweep batch: {n_steps} steps of {n_streams} streams, sweep launches "
+        f"{batch_launches} (one a step), paths equal to the single-stream planner's")
+
+    # -- a CUDA graph of frames: the kernel captured, no host sync --------------------
+    fp_sweep._ensure_program()
+    device_fn = fp_sweep._device_fn
+    planes = torch.from_numpy(np.stack([bgr_to_i420_host(f) for f in frames])).to(dev)
+    ref = torch.stack([device_fn(planes[i]) for i in range(len(frames))])
+    hoist = HoistUploads()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), hoist:
+        _chain(device_fn, planes, None)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    hoist.recording = False
+    cuda_sweep.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with hoist, torch.cuda.graph(graph):
+        out, _ = _chain(device_fn, planes, None)
+    captured = cuda_sweep.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    if captured != len(frames) or not torch.equal(out, ref):
+        raise AssertionError(f"sweep graph: {captured} sweep launches captured for "
+                             f"{len(frames)} frames, payloads equal {torch.equal(out, ref)}")
+    graph_ms = card_tools().device_ms(lambda: graph.replay(), 5, dev, warmup=1)
+    del graph
+    log(f"phase sweep graph: {len(frames)} frames of the default-flags program captured "
+        f"in one CUDA graph (no host sync inside), {captured} sweep launches captured, "
+        f"replayed payloads bit-equal to per-frame calls; {graph_ms / len(frames):.4f} "
+        "device ms a frame")
+    return {"timed": timed, "err": err, "launches": launches,
+            "launches_batch": batch_launches, "launches_graph": captured,
+            "sweep_lat": sweep_lat, "medians": medians, "quartiles": quartiles,
+            "bench_kernel_ms": statistics.median(kernel_ms),
+            "bench_twin_ms": statistics.median(twin_ms)}
+
+
+def goldens12_phase(torch, dev) -> dict:
+    """Phase goldens12: the video golden's sequence on the card against the
+    CPU, float32, per-frame dicts equal (and the frames bf16 changes,
+    counted); the soup sweep with one blend evaluated on the card."""
+    import numpy as np
+
+    from vision_assist_tpu_torch import generate_model_goldens as gm
+    from vision_assist_tpu_torch import generate_video_golden as gv
+    from vision_assist_tpu_torch import soup_sweep
+    from vision_assist_tpu_torch.io.png import write_png
+    from vision_assist_tpu_torch.io.synthetic import WalkwaySet, walkway_frames, write_split
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_goldens12_"))
+    try:
+        frames_dir = work / "frames"
+        frames_dir.mkdir()
+        demo = sorted((REPO / "assets" / "demo").glob("*.png"))
+        for p in demo:
+            shutil.copy(p, frames_dir / p.name)
+        for i, frame in enumerate(walkway_frames(gv.N_FRAMES - len(demo), 640, 640,
+                                                 seed=12)):
+            write_png(frames_dir / f"walkway_{i:02d}.png", frame)
+        paths = sorted(frames_dir.glob("*.png"))
+        t0 = time.perf_counter()
+        card = gv.run_sequence(paths, gv.WEIGHTS, device=dev, dtype="float32")
+        t1 = time.perf_counter()
+        cpu = gv.run_sequence(paths, gv.WEIGHTS, device="cpu", dtype="float32")
+        t2 = time.perf_counter()
+        if card != cpu:
+            raise AssertionError("goldens12: the card's sequence differs from the CPU's: "
+                                 + str([(a, b) for a, b in zip(card, cpu) if a != b]))
+        if max(f["memory_timestamps"] for f in card) <= 1:
+            raise AssertionError("goldens12: no frame carries analyser memory")
+        bf16 = gv.run_sequence(paths, gv.WEIGHTS, device=dev)
+        differ = sum(a != b for a, b in zip(bf16, cpu))
+        records = gm.one_shot_records(paths[:gm.N_IMAGES], gv.WEIGHTS, device=dev,
+                                      dtype="float32")
+        log(f"phase goldens12 video: {len(paths)} frames ({len(demo)} demo PNGs and "
+            f"{len(paths) - len(demo)} seeded walkways) through run_sequence, float32 "
+            f"card equal to the CPU per frame ({t1 - t0:.1f} s on the card, "
+            f"{t2 - t1:.1f} s on the CPU), answers {[f['final_answer'] for f in card]},"
+            f" detections {[f['n_detections'] for f in card]}, memory "
+            f"{[f['memory_timestamps'] for f in card]}; bf16 on the card differs from "
+            f"float32 on {differ} of {len(paths)} frames; one-shot records of "
+            f"{len(records)} frames, walkable cells "
+            f"{[r['walkable_cells'] for r in records.values()]}")
+
+        write_split(WalkwaySet(16, 640, 640, seed=21), work / "soup", "valid")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            doc = soup_sweep.run_sweep([REPO / "assets" / "weights"
+                                        / "v8n_640_r2_best.msgpack"],
+                                       work / "soup", work / "out", alphas=[0.5],
+                                       device=dev)
+        secs = time.perf_counter() - t0
+        maps = [doc["baseline_map50_mask"]] + [r["map50_mask"] for r in doc["rows"]]
+        if not all(np.isfinite(m) and 0.0 <= m <= 1.0 for m in maps):
+            raise AssertionError(f"goldens12 soup: bad mAP {maps}")
+        written = sorted(p.name for p in (work / "out").iterdir())
+        if written != (["best.msgpack", "soup_sweep.json"] if doc["promoted"]
+                       else ["soup_sweep.json"]):
+            raise AssertionError(f"goldens12 soup: wrote {written}")
+        log(f"phase goldens12 soup: soup_sweep on the card, 16 walkways at imgsz 640 "
+            f"(bf16 compute, float32 weights): base mask mAP50 {maps[0]:.4f}, "
+            f"0.50*base + 0.50*r2 {maps[1]:.4f}, r2 alone {maps[2]:.4f}, promoted "
+            f"{doc['promoted']} ({doc['best']}); {secs:.1f} s for 3 evaluations; wrote "
+            f"{written} into --out only")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"differ_bf16": differ}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--relax-only", action="store_true",
@@ -1676,6 +2058,8 @@ def main() -> int:
                     help="run only the train, eval and train_model phases (12-14)")
     ap.add_argument("--nms-only", action="store_true",
                     help="stop after the NMS kernel's build, checks and timings")
+    ap.add_argument("--sweep-only", action="store_true",
+                    help="stop after phase sweep (the fast-sweeping kernel, phase 4)")
     ap.add_argument("--tools-out", type=pathlib.Path, default=None,
                     help="keep each tool's JSON object of phase 22 in this directory")
     args = ap.parse_args()
@@ -1715,7 +2099,7 @@ def main() -> int:
             from vision_assist_tpu_torch.planning import device_astar, native
         if not (args.relax_only or args.astar_only):
             from vision_assist_tpu_torch.io import png
-            from vision_assist_tpu_torch.ops import cuda_nms
+            from vision_assist_tpu_torch.ops import cuda_nms, cuda_sweep
             from vision_assist_tpu_torch.pipeline.multi_stream import (
                 MultiStreamProcessor,
             )
@@ -1763,18 +2147,19 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------------
     # One compiler process a source, all started together.
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(cuda_wavefront.build)]
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
         if not (args.relax_only or args.astar_only):
-            builds += [pool.submit(with_seconds, png.build), pool.submit(cuda_nms.build)]
+            builds += [pool.submit(with_seconds, png.build), pool.submit(cuda_nms.build),
+                       pool.submit(cuda_sweep.build)]
         built = [b.result() for b in builds]
     def how(mod):       # another commit's port (--root) may not say
         return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
 
     for mod in ([cuda_wavefront] if args.relax_only else [cuda_wavefront, cuda_astar]
-                if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms]):
+                if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms, cuda_sweep]):
         ptxas = [ln.strip() for ln in mod.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"phase build {mod.SOURCE.name}: {how(mod)} in "
@@ -1885,7 +2270,7 @@ def main() -> int:
             cache_k, cache_p = cache_k[0], cache_p[0]
         return cache_k, cache_p, err, plain_ms
 
-    if not args.relax_only:
+    if not (args.relax_only or args.sweep_only):
         lattices = list(scen)
         for seed in range(6):
             rng = np.random.default_rng(seed)
@@ -2047,7 +2432,6 @@ def main() -> int:
         print_card()
         return 0
 
-    relax_sweep = wavefront.relax_sweep
     cuda_wavefront.reset_launches()
     cuda_nms.reset_launches()
     results, lat = [], []
@@ -2089,31 +2473,19 @@ def main() -> int:
                     f"replay {name}: card {a.final_answer} {path_cells(a)} "
                     f"vs cpu {b.final_answer} {path_cells(b)}")
 
-    # -- 4. the default wavefront flags: plain relax_sweep, no kernel --------------------
-    sweep_pf = PathFinderConfig(engine="wavefront")
-    if sweep_pf.use_pallas_relax or not sweep_pf.use_sweep_relax:
-        raise AssertionError("the default wavefront flags are not relax_sweep")
-    fp_sweep = FrameProcessor(cfg.replace(pathfinder=sweep_pf), segmenter=seg,
-                              device=dev)
-    fp_sweep(frames[0], now_ms=0)                # the kernel path's first call
-    cuda_wavefront.reset_launches()
-    sweep_lat = []
-    for i, frame in enumerate(frames):
-        t0 = time.perf_counter()
-        res = fp_sweep(frame, now_ms=1000 + i * 33)
-        sweep_lat.append((time.perf_counter() - t0) * 1e3)
-        if res.final_answer != results[i].final_answer \
-                or path_cells(res) != path_cells(results[i]):
-            raise AssertionError(
-                f"sweep frame {i}: {res.final_answer} {path_cells(res)} vs the "
-                f"kernel path's {results[i].final_answer} {path_cells(results[i])}")
-    if cuda_wavefront.launches:
-        raise AssertionError("the default wavefront flags launched the kernel")
-    replay_card_vs_cpu(sweep_pf)
+    # -- 4. the default wavefront flags: the fast-sweeping kernel ------------------------
+    sweep_run = sweep_phase(torch, dev, cfg, seg, frames, results, cases[0][1:], turn,
+                            cuda_sweep, cuda_wavefront, fp)
+    sweep_lat = sweep_run["sweep_lat"]
+    replay_card_vs_cpu(PathFinderConfig(engine="wavefront"))
     log(f"phase sweep: ok, default wavefront flags, {N_FRAMES} frames with answers "
-        f"and path cells equal to the kernel path's, median latency "
-        f"{statistics.median(sweep_lat):.3f} ms; replay of {len(scen)} scenarios "
-        "equal on the card and the CPU")
+        f"and path cells equal to the relax-kernel path's, one sweep launch a frame, "
+        f"median latency {statistics.median(sweep_lat):.3f} ms; replay of {len(scen)} "
+        f"scenarios equal on the card and the CPU; elapsed "
+        f"{time.perf_counter() - t_start:.1f} s")
+    if args.sweep_only:
+        print_card()
+        return 0
 
     # -- 5. the card against the CPU -------------------------------------------------------
     replay_card_vs_cpu(cfg.pathfinder)
@@ -2422,15 +2794,6 @@ def main() -> int:
     main_shape = timed[shapes[0][0]]
     plain_ms = cuda_ms(lambda: relax_field(*served, turn), reps=5, warmup=1)
     log(f"timing relax plain twin 32x32 B=1: {plain_ms:.5f} ms")
-    kw = dict(angle_weight=cfg.pathfinder.wavefront_turn_weight)
-    sweep_ms = cuda_ms(lambda: relax_sweep(
-        plan.walkable, plan.penalty, plan.start_rc, **kw), reps=5, warmup=1)
-    walk8, pen8, start8 = random_lattices(torch, 32, 32, 8, 3, dev)
-    sweep8_ms = cuda_ms(lambda: [relax_sweep(w_, p_, s_, **kw) for w_, p_, s_
-                                        in zip(walk8, pen8, start8)], reps=2, warmup=1)
-    log(f"timing relax_sweep plain on the card: sweep_ms {sweep_ms:.5f} ms at 32x32 "
-        f"B=1 (served lattice), {sweep8_ms:.5f} ms for the 8 random 32x32 lattices "
-        "one after another")
 
     plane = torch.from_numpy(bgr_to_i420_host(frames[-1])).to(dev)
     fp._ensure_program()
@@ -2599,8 +2962,11 @@ def main() -> int:
     t3 = time.perf_counter()
     goldens_phase()
     t4 = time.perf_counter()
+    goldens12_phase(torch, dev)
     log(f"phase cli took {t1 - t0:.1f} s, bench {t2 - t1:.1f} s, export "
-        f"{t3 - t2:.1f} s, goldens {t4 - t3:.1f} s")
+        f"{t3 - t2:.1f} s, goldens {t4 - t3:.1f} s, goldens12 "
+        f"{time.perf_counter() - t4:.1f} s")
+    t4 = time.perf_counter()
 
     # -- 19. visualiser, 20. parallel ---------------------------------------------------
     vis_launches, relax_big, _ = visualiser_phase(torch, dev, cuda_astar, cuda_wavefront)
@@ -2628,6 +2994,8 @@ def main() -> int:
     nms_dense = nms_run["timed"]["dense 1024x1024x16"]
     log(f"phase nms took {time.perf_counter() - t8:.1f} s")
 
+    sweep_main = sweep_run["timed"]["32x32 B=1 served"]
+    sweep_big = sweep_run["timed"]["54x96 B=1 corridor"]
     print_card()
     print(json.dumps({"kernels": [{
         "name": "relax",
@@ -2698,6 +3066,31 @@ def main() -> int:
         "decode_nms_ms_served": nms_run["served_call"],
         "eval_step_ms": nms_run["share"][0],
         "device_ops_a_frame": nms_run["frame_ops"],
+    }, {
+        # Replaces the compiled JAX loop relax_sweep (lax.while_loop over
+        # passes of associative scans), not a Pallas kernel.
+        "name": "relax_sweep",
+        "route": "cuda",
+        "source": "vision_assist_tpu_torch/csrc/relax_sweep.cu",
+        "replaces": "vision_assist_tpu/planning/wavefront.py:181",
+        "launches": sweep_run["launches"],
+        "launches_batch": sweep_run["launches_batch"],
+        "launches_graph": sweep_run["launches_graph"],
+        "max_abs_err": sweep_run["err"],
+        "ms": sweep_main["ms"],
+        "plain_ms": sweep_main["plain_ms"],
+        "bound_ms": sweep_main["bound_ms"],
+        "bound_by": sweep_main["bound_by"],
+        "library_ms": sweep_main["library_ms"],
+        "ms_54x96": sweep_big["ms"],
+        "plain_ms_54x96": sweep_big["plain_ms"],
+        "bound_ms_54x96": sweep_big["bound_ms"],
+        "bound_by_54x96": sweep_big["bound_by"],
+        "call_p50_ms_default_flags": sweep_run["medians"]["default flags (sweep kernel)"],
+        "call_p50_ms_relax_kernel": sweep_run["medians"]["relax kernel"],
+        "call_quartiles_ms_default_flags": sweep_run["quartiles"][
+            "default flags (sweep kernel)"],
+        "call_quartiles_ms_relax_kernel": sweep_run["quartiles"]["relax kernel"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -212,4 +212,5 @@ def test_graph_replay_equals_per_frame_calls(cuda, engine):
     row = diagnose_device_p50.measure_engine(engine, seg, _card.bench_frames(2), 2, cuda)
     assert row["payloads_equal_per_frame_calls"] is True
     assert row["launches"] == {"relax": 2 if engine == "wavefront" else 0,
-                               "astar": 2 if engine == "exact_device" else 0}
+                               "astar": 2 if engine == "exact_device" else 0,
+                               "sweep": 0}

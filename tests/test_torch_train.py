@@ -211,6 +211,50 @@ def test_one_train_step_matches_jax(jax_runs, start, atol_p, atol_bs, rtol_loss)
     _assert_state_close(model, state, snaps[1], atol_p, atol_bs, 1e-5)
 
 
+def test_apply_gradients_gives_jax_next_state(jax_runs):
+    """``TrainState.apply_gradients(grads, new_batch_stats, ema_decay)`` from
+    the trained state, with seeded gradients, moved batch statistics and an
+    EMA decay of 0.9: parameters, EMA, batch statistics, momentum trace and
+    step equal JAX's ``apply_gradients`` from the same state, within the
+    optimizer chain's tolerance (rtol 2e-6, atol 1e-7; parameters and EMA
+    atol 1e-6). The gradients' global norm (~7.2) stays under the clip of
+    10: over 3.3 M float32 values XLA's and torch's sums of squares part by
+    ~5e-5 relative, which would scale a clipped update by as much; the clip
+    itself is held on a small tree by test_optimizer_chain_matches_optax."""
+    snap = jax_runs["trained", 1][0][0]
+    model = JaxYoloSeg(arch="yolov8n-seg", num_classes=1, dtype=jnp.float32)
+    jstate = jt.create_train_state(model, jax.random.PRNGKey(0), JCFG, 10)
+    jstate = jstate.replace(
+        params=serialization.from_state_dict(jstate.params, snap["params"]),
+        ema_params=serialization.from_state_dict(jstate.ema_params, snap["ema"]),
+        batch_stats=serialization.from_state_dict(jstate.batch_stats,
+                                                  snap["batch_stats"]))
+    rng = np.random.default_rng(4)
+    grads = jax.tree.map(lambda x: (rng.normal(0, 0.004, x.shape)).astype(np.float32),
+                         snap["params"])
+    assert 5 < float(optax.global_norm(grads)) < tt.MAX_GRAD_NORM
+    new_bs = jax.tree.map(lambda x: (x * 1.01 + 0.002).astype(np.float32),
+                          snap["batch_stats"])
+    jnext = jstate.apply_gradients(jax.tree.map(jnp.asarray, grads),
+                                   jax.tree.map(jnp.asarray, new_bs), 0.9)
+    want = jax.tree.map(np.array, {
+        "params": jnext.params, "batch_stats": jnext.batch_stats, "ema": jnext.ema_params,
+        "trace": jnext.opt_state[3][0].trace, "step": jnext.step})
+
+    model, state = _port_state(snap)
+    tgrads = ty.convert_flax_variables({"params": grads,
+                                        "batch_stats": snap["batch_stats"]}, model)
+    tbs = ty.convert_flax_variables({"params": snap["params"], "batch_stats": new_bs},
+                                    model)
+    got = state.apply_gradients({k: tgrads[k] for k in state.params},
+                                {k: tbs[k] for k in state.batch_stats}, 0.9)
+    assert got is state and state.step == int(want["step"]) == 1
+    _assert_state_close(model, state, want, 1e-6, 1e-7, 2e-6)
+    np.testing.assert_allclose(state.trace.numpy(),
+                               _flat_trace(want, model, state).numpy(),
+                               rtol=2e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_six_train_steps_match_jax_and_lower_the_loss(jax_runs, seed):
     """Each of six steps from the trained start, begun from JAX's state before

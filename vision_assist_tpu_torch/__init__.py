@@ -5,3 +5,19 @@ its module layout so that each counterpart is easy to find, imports nothing
 from it, and runs its entry points on ``device="cuda"`` unless the caller
 asks for the CPU.
 """
+
+__version__ = "0.1.0"
+
+from vision_assist_tpu_torch.config import PipelineConfig, replay_config
+from vision_assist_tpu_torch.types import Cell, Coordinate, FinalAnswer, Instruction, Peak
+
+__all__ = [
+    "PipelineConfig",
+    "replay_config",
+    "Cell",
+    "Coordinate",
+    "FinalAnswer",
+    "Instruction",
+    "Peak",
+    "__version__",
+]

@@ -31,7 +31,10 @@ from vision_assist_tpu_torch.data.augment import (
     mosaic4,
     random_affine,
 )
-from vision_assist_tpu_torch.data.dataset import polygons_to_overlap_mask
+from vision_assist_tpu_torch.data.dataset import (  # noqa: F401 (SegDataset: JAX's name here)
+    SegDataset,
+    polygons_to_overlap_mask,
+)
 from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
 
 

@@ -293,3 +293,24 @@ def synthesize(text: str, seed: int = 0) -> tuple[np.ndarray, int]:
     pad = np.zeros(int(0.04 * SAMPLE_RATE))
     return np.concatenate([pad, *parts, pad]), SAMPLE_RATE
 
+
+
+def main(argv=None) -> None:
+    """Write the spoken instruction cues (one WAV a FinalAnswer) into
+    ``--out``; the JAX script regenerates ``assets/audio`` in place.
+
+        python -m vision_assist_tpu_torch.io.speech --out DIR
+    """
+    import argparse
+
+    from vision_assist_tpu_torch.io import tts
+
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
+    ap.add_argument("--out", required=True, help="directory for the cue WAVs")
+    paths = tts.generate_cue_assets(ap.parse_args(argv).out, speech_backend=synthesize)
+    for name, p in paths.items():
+        print(name, "->", p)
+
+
+if __name__ == "__main__":
+    main()

@@ -146,6 +146,31 @@ class TrainState:
     ema_params: dict[str, torch.Tensor]
     tx: NesterovSGD
 
+    def apply_gradients(self, grads: Any, new_batch_stats: dict[str, torch.Tensor],
+                        ema_decay: float, *, grad_sum=None, sq_norm=None
+                        ) -> TrainState:
+        """JAX's ``TrainState.apply_gradients``, in place: one optimizer update
+        of the parameters from ``grads`` (a list in parameter order, or a
+        dict by key), the batch statistics set to ``new_batch_stats`` (a
+        train-mode forward has already moved the model's own, which are
+        then left as they are), the EMA moved toward the new parameters,
+        ``e + (1 - ema_decay) * (p - e)``, and the step counted. Returns the
+        state. ``grad_sum`` and ``sq_norm`` serve data-parallel training
+        (``NesterovSGD.update``)."""
+        params = list(self.params.values())
+        if isinstance(grads, dict):
+            grads = [grads[k] for k in self.params]
+        self.tx.update(params, list(grads), self.trace, self.step,
+                       grad_sum=grad_sum, sq_norm=sq_norm)
+        with torch.no_grad():
+            for k, v in new_batch_stats.items():
+                if v is not self.batch_stats[k]:
+                    self.batch_stats[k].copy_(v)
+            torch._foreach_lerp_(list(self.ema_params.values()), params,
+                                 1.0 - ema_decay)
+        self.step += 1
+        return self
+
     def eval_state_dict(self, model: YoloSeg) -> dict[str, torch.Tensor]:
         """``model.state_dict()`` with the EMA in place of the parameters: the
         weights evaluation runs with (EMA params, training batch stats)."""
@@ -228,9 +253,12 @@ def make_train_step(model: YoloSeg, loss_cfg: LossConfig, cfg: TrainConfig,
             out, targets, loss_cfg, cfg.imgsz,
             global_sum=collectives.sum if collectives else None)
         loss.backward()
-        state.tx.update(params, [p.grad for p in params], state.trace, state.step,
-                        grad_sum=collectives.grad_sum if collectives else None,
-                        sq_norm=collectives.sq_norm if collectives else None)
+        # ultralytics EMA ramp: d = decay * (1 - exp(-step / tau)), at the
+        # step count before this update.
+        decay = cfg.ema_decay * (1.0 - math.exp(-state.step / cfg.ema_ramp))
+        state.apply_gradients([p.grad for p in params], state.batch_stats, decay,
+                              grad_sum=collectives.grad_sum if collectives else None,
+                              sq_norm=collectives.sq_norm if collectives else None)
         if collectives is not None:
             # This rank's shares of the loss and its components, summed.
             keys = ("box", "seg", "cls", "dfl")
@@ -238,13 +266,6 @@ def make_train_step(model: YoloSeg, loss_cfg: LossConfig, cfg: TrainConfig,
                 [loss.detach()] + [metrics[k].detach() for k in keys]))
             loss = shares[0]
             metrics.update(zip(keys, shares[1:]))
-        # ultralytics EMA ramp: d = decay * (1 - exp(-step / tau)), at the
-        # step count before this update.
-        decay = cfg.ema_decay * (1.0 - math.exp(-state.step / cfg.ema_ramp))
-        with torch.no_grad():
-            torch._foreach_lerp_(list(state.ema_params.values()), params,
-                                 1.0 - decay)
-        state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return state, metrics

@@ -327,8 +327,7 @@ class YoloSeg(nn.Module):
         super().__init__()
         self.arch, self.reg_max, self.dtype = arch, reg_max, dtype
         self.param_dtype = dtype if param_dtype is None else param_dtype
-        is_v11 = "11" in arch
-        legacy = is_v11 and arch.endswith("-legacy")
+        is_v11, legacy = self.is_v11, self.is_v11_legacy
         letter = arch.replace("-legacy", "").replace("-seg", "")[-1]
         s = (SCALES_11 if is_v11 else SCALES)[letter]
         dt = dtype
@@ -424,6 +423,18 @@ class YoloSeg(nn.Module):
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
                         and m.weight.dtype == dtype:
                     m.to(self.param_dtype)
+
+    @property
+    def is_v11(self) -> bool:
+        return "11" in self.arch
+
+    @property
+    def is_v11_legacy(self) -> bool:
+        """arch "yolo11n-seg-legacy": the v11 variant the first y11n
+        checkpoint was trained with (no shortcut in the neck's C3k2, no c3k in
+        the P5 neck block, SiLU on the attention's qkv, pe and proj and on the
+        FFN's output)."""
+        return self.is_v11 and self.arch.endswith("-legacy")
 
     def forward(self, images: torch.Tensor) -> YoloSegOutputs:
         x = images.to(self.dtype)

@@ -7,6 +7,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vision_assist_tpu_torch.golden.lattice import (
+    artificial_column_mask,
+    artificial_start_row,
+)
+
 
 def occupancy_from_mask(mask: torch.Tensor, grid_size: int = 20) -> torch.Tensor:
     """Cell occupancy of a dense {0,1} or bool segmentation mask (..., H, W):
@@ -15,35 +20,6 @@ def occupancy_from_mask(mask: torch.Tensor, grid_size: int = 20) -> torch.Tensor
     h, w = mask.shape[-2:]
     half = grid_size // 2
     return mask[..., half:h:grid_size, half:w:grid_size] > 0
-
-
-def _artificial_column_mask(cols: int, frame_width: int, grid_size: int,
-                            half_span: int) -> np.ndarray:
-    """Boolean (cols,) mask of always-walkable columns centred on the frame:
-    x in range(W//2 - grid*half, W//2 + grid*(half+1), grid)."""
-    xs = np.arange(
-        frame_width // 2 - grid_size * half_span,
-        frame_width // 2 + grid_size * (half_span + 1),
-        grid_size,
-    )
-    mask = np.zeros(cols, dtype=bool)
-    valid = (xs >= 0) & (xs < cols * grid_size)
-    mask[(xs[valid] // grid_size)] = True
-    return mask
-
-
-def _artificial_start_row(frame_height: int, grid_size: int, frac: float,
-                          replay_rounding: bool) -> int:
-    """First lattice row that receives artificial cells. The live pipeline
-    rounds y = int(H*frac) up to a multiple of grid_size only when it is
-    misaligned; the replay harness always moves one cell down."""
-    y = int(frame_height * frac)
-    rem = y % grid_size
-    if replay_rounding:
-        y = y + (grid_size - rem)
-    else:
-        y = y + (grid_size - rem) % grid_size
-    return y // grid_size
 
 
 def inject_artificial_cells(
@@ -59,8 +35,8 @@ def inject_artificial_cells(
     """Always-walkable cells at the user's feet; static masks, elementwise OR.
     Returns (walkable, artificial) bool (R, C)."""
     rows, cols = occupancy.shape[-2], occupancy.shape[-1]
-    col_mask = _artificial_column_mask(cols, frame_width, grid_size, half_span)
-    start_row = _artificial_start_row(frame_height, grid_size, row_start_frac,
+    col_mask = artificial_column_mask(cols, frame_width, grid_size, half_span)
+    start_row = artificial_start_row(frame_height, grid_size, row_start_frac,
                                       replay_rounding)
     row_mask = np.zeros(rows, dtype=bool)
     if start_row < rows:

@@ -14,6 +14,7 @@ _BIG = 1 << 30
 
 # Orientation codes (match types.Peak.orientation)
 ORIENT_UP, ORIENT_LEFT, ORIENT_RIGHT = 0, 1, 2
+ORIENTATION_NAMES = ("up", "left", "right")
 
 
 @dataclasses.dataclass

@@ -16,9 +16,10 @@ Engines (``cfg.pathfinder.engine``):
   the card, its plain version on the CPU); its angle cache is cross-frame
   state that stays on the device, fed to and taken from every frame.
 * ``"wavefront"``: the batched approximate search; its relaxation runs as
-  plain fast sweeping (``relax_sweep``, the default), as the CUDA relax
-  kernel (``use_pallas_relax=True``) or as the plain per-cell twin
-  (``use_sweep_relax=False``).
+  fast sweeping (``relax_sweep``, the default: the sweep kernel on the card),
+  as the relax kernel (``use_pallas_relax=True``) or as the per-cell
+  relaxation (``use_sweep_relax=False``: the relax kernel too on the card).
+  On the CPU each runs its plain twin.
 """
 
 from __future__ import annotations

@@ -3,16 +3,17 @@
 The stream axis is a leading dimension of every op of the device program
 (the single-stream form is its S = 1 case), so one step of S streams costs
 the launches of one frame: one batch through the model, one pass of the
-greedy NMS loop, one relax launch (``engine="wavefront"`` with
-``use_pallas_relax``) or one A* launch (``engine="exact_device"``) with one
-CTA a stream, one (S, N) packed payload and one device->host copy. Per-stream
+NMS launch, one relaxation launch (``engine="wavefront"``: the sweep kernel
+with the default flags, the relax kernel with ``use_pallas_relax`` or
+``use_sweep_relax=False``) or one A* launch (``engine="exact_device"``) with
+one CTA a stream, one (S, N) packed payload and one device->host copy. Per-stream
 temporal state stays explicit: the instruction memory on the host, the exact
 host engines' angle caches (``engine="exact"``), and the (S, 1226) angle
 caches on the device (``engine="exact_device"``).
 
 With a mesh (``parallel/mesh.py``) the streams split into ``dp`` contiguous
 shards, one a device of the mesh's dp axis: each shard runs the same batched
-program on its own device (one relax or A* launch a device a step), all
+program on its own device (one relaxation or A* launch a device a step), all
 shards launched before any is waited for.
 
 The reference is strictly frame-at-a-time and has no counterpart.

@@ -48,10 +48,11 @@ def make_plan_step(cfg: PipelineConfig, replay_rounding: bool = False,
     device; for ``engine="exact_device"`` it is
     ``plan(occupancy, astar_cache)`` and the result carries the updated
     cache. A stack of S lattices (S, R, C), with caches (S, 1226), is
-    planned in one pass of every op: one relax launch or one A* launch for
-    all the streams. The wavefront engine relaxes by fast sweeping by default, by the
-    relax kernel (``use_pallas_relax``) or by the plain per-cell relaxation
-    (``use_sweep_relax=False``).
+    planned in one pass of every op: one relaxation launch or one A* launch
+    for all the streams. The wavefront engine relaxes by fast sweeping by
+    default (the sweep kernel on the card), by the relax kernel
+    (``use_pallas_relax``) or by the per-cell relaxation
+    (``use_sweep_relax=False``, the relax kernel too on the card).
 
     include_paths=False computes no path and no relaxation at all
     (PlanResult.paths is None): the pipeline then plans with the exact host

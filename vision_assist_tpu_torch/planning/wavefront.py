@@ -9,6 +9,12 @@ field. Everything is fixed-shape.
 ``dist[d] = min(dist[d], fl(fl(min_d'(fl(parent[d'] + T[d', d]))) + enter))``
 from 0 at the start cell and INF elsewhere, until a sweep changes nothing or
 ``R*C`` sweeps have run. Both reach the same fixed point bit for bit.
+
+:func:`relax_sweep_field` is the plain twin of the fast-sweeping kernel in
+``ops/cuda_sweep.py`` (``csrc/relax_sweep.cu``): the same passes of four
+directional min-plus scans, each scan in the kernel's level order, so the
+two fields are bit-equal. :func:`relax` and :func:`relax_sweep` launch the
+kernels on CUDA tensors and run the twins on CPU tensors.
 """
 
 from __future__ import annotations
@@ -149,14 +155,29 @@ def relax(walkable: torch.Tensor, penalty: torch.Tensor, start_rc: torch.Tensor,
           angle_exponent: float = 1.5, angle_denominator: float = 90.0,
           max_iters: int | None = None) -> torch.Tensor:
     """Single-source cost-to-come field dist (R, C, 4) over (cell, incoming
-    direction) states, computed by the plain twin; (S, R, C) lattices with
-    (S, 2) starts give (S, R, C, 4)."""
+    direction) states; (S, R, C) lattices with (S, 2) starts give
+    (S, R, C, 4).
+
+    On CUDA tensors the relax kernel computes it (``ops/cuda_wavefront.py``,
+    one launch for all the streams), bit-equal to the plain twin
+    :func:`relax_field`, which runs on CPU tensors. ``max_iters`` caps the
+    twin's Jacobi sweeps; the kernel runs line passes, which cannot honour
+    such a cap, so on the card a cap raises ``ValueError``."""
     single = walkable.dim() == 2
     turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
                         angle_exponent, angle_denominator, walkable.device)
     enter = enter_cost(walkable, penalty, grid_size, penalty_weight)
-    dist, _ = relax_field(enter[None] if single else enter,
-                          start_rc.reshape(-1, 2), turn, max_iters)
+    enter = enter[None] if single else enter
+    start = start_rc.to(enter.device).reshape(-1, 2)
+    if walkable.device.type == "cpu":
+        dist, _ = relax_field(enter, start, turn, max_iters)
+    elif max_iters is not None:
+        raise ValueError("relax: max_iters counts Jacobi sweeps, which the relax "
+                         "kernel does not run; a cap is taken on CPU tensors only")
+    else:
+        from vision_assist_tpu_torch.ops.cuda_wavefront import relax_field_cuda
+
+        dist, _ = relax_field_cuda(enter, start, turn)
     return dist[0] if single else dist
 
 
@@ -193,37 +214,32 @@ def _min_plus_scan(a: torch.Tensor, levels: list[torch.Tensor],
     return a
 
 
-def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
-                start_rc: torch.Tensor, *, grid_size: int = 20,
-                penalty_weight: float = 0.5, angle_weight: float = 1.5,
-                angle_grace_deg: float = 30.0, angle_exponent: float = 1.5,
-                angle_denominator: float = 90.0,
-                max_passes: int | None = None) -> torch.Tensor:
-    """Fast-sweeping form of :func:`relax`: the same min-plus fixed point in
-    far fewer iterations, dist (R, C, 4); (S, R, C) lattices with (S, 2)
-    starts give (S, R, C, 4).
+def relax_sweep_field(enter: torch.Tensor, start: torch.Tensor, turn: torch.Tensor,
+                      max_passes: int | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the fast-sweeping kernel.
+
+    enter (B, R, C) f32, start (B, 2) int, turn (4, 4) f32 ->
+    (dist (B, R, C, 4) f32, passes (B,) int32: the passes each stream ran,
+    the last of them being the one that changed nothing unless
+    ``max_passes`` (default R*C) stopped it first).
 
     Each pass runs four directional scans in Gauss-Seidel order (right,
-    left, down, up). One scan relaxes every straight run of its direction
-    at once: with h the best cost of standing at the parent cell ready to
-    step in direction d, ``x[c] = min(A[c], x[c-1] + enter[c])`` where
-    ``A = min(old, h_parent + enter)``, solved for all lines together by
-    :func:`_min_plus_scan`. A pass that changes nothing in any stream ends
-    the loop (one host sync per pass); at most ``R*C`` passes run. A pass
-    is a function of the field alone, so the passes a stream sits through
-    after it has converged leave its field as it is, bit for bit. The scan
+    left, down, up). The scan of direction d takes, at each cell, h the best
+    cost of standing there ready to step in direction d, sets
+    ``A[i] = min(old[i], h[i-1] + enter[i])`` along every line of that
+    direction (position 0 of a line stays), then solves
+    ``x[i] = min(A[i], x[i-1] + enter[i])`` for all lines together by
+    :func:`_min_plus_scan`. The loop runs until no stream changes (one host
+    sync per pass); a pass is a function of the field alone, so a stream
+    that has converged keeps its field bit for bit through the passes it
+    sits out, and its count stops where it converged. The scan
     re-associates the float32 sums along a run, so the field agrees with
-    :func:`relax` to round-off on reachable states, not bit for bit.
+    :func:`relax_field` to round-off on reachable states, not bit for bit.
     """
-    single = walkable.dim() == 2
-    if single:
-        walkable, penalty = walkable[None], penalty[None]
-    n_streams, rows, cols = walkable.shape
-    dev = walkable.device
-    turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
-                        angle_exponent, angle_denominator, dev)
-    enter = enter_cost(walkable, penalty, grid_size, penalty_weight)
-    start = start_rc.to(dev).long().reshape(n_streams, 2)
+    n_streams, rows, cols = enter.shape
+    dev = enter.device
+    start = start.to(dev).long().reshape(n_streams, 2)
     dist = torch.full((n_streams, 4, rows, cols), INF, dtype=torch.float32,
                       device=dev)
     dist[torch.arange(n_streams, device=dev), :, start[:, 0], start[:, 1]] = 0.0
@@ -233,6 +249,8 @@ def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
     ent = [enter if across[d] else enter.transpose(-1, -2) for d in range(4)]
     levels = [_scan_levels(ent[d], reverse[d]) for d in range(4)]
 
+    passes = torch.zeros(n_streams, dtype=torch.int32, device=dev)
+    active = torch.ones(n_streams, dtype=torch.bool, device=dev)
     for _ in range(rows * cols if max_passes is None else max_passes):
         new = dist.clone()
         for d in range(4):  # Gauss-Seidel: later scans see earlier updates
@@ -243,11 +261,38 @@ def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
             torch.minimum(here, _ahead_behind(h, 1, reverse[d])[1]
                           + _ahead_behind(ent[d], 1, reverse[d])[0], out=here)
             _min_plus_scan(a, levels[d], reverse[d])
-        changed = bool((new < dist).any())
+        passes += active.to(torch.int32)
+        active &= (new < dist).flatten(1).any(dim=1)
         dist = new
-        if not changed:
+        if not bool(active.any()):
             break
-    dist = dist.permute(0, 2, 3, 1).contiguous()
+    return dist.permute(0, 2, 3, 1).contiguous(), passes
+
+
+def relax_sweep(walkable: torch.Tensor, penalty: torch.Tensor,
+                start_rc: torch.Tensor, *, grid_size: int = 20,
+                penalty_weight: float = 0.5, angle_weight: float = 1.5,
+                angle_grace_deg: float = 30.0, angle_exponent: float = 1.5,
+                angle_denominator: float = 90.0,
+                max_passes: int | None = None) -> torch.Tensor:
+    """Fast-sweeping form of :func:`relax`: the same min-plus fixed point in
+    far fewer iterations, dist (R, C, 4); (S, R, C) lattices with (S, 2)
+    starts give (S, R, C, 4).
+
+    On CUDA tensors the fast-sweeping kernel computes it, all passes of all
+    streams in one launch (``ops/cuda_sweep.py``); on CPU tensors its plain
+    twin :func:`relax_sweep_field` does, bit for bit the same field. At most
+    ``max_passes`` passes run (default R*C, which never binds).
+    """
+    from vision_assist_tpu_torch.ops.cuda_sweep import relax_sweep_field_cuda
+
+    single = walkable.dim() == 2
+    turn = _scaled_turn(grid_size, angle_weight, angle_grace_deg,
+                        angle_exponent, angle_denominator, walkable.device)
+    enter = enter_cost(walkable, penalty, grid_size, penalty_weight)
+    dist, _ = relax_sweep_field_cuda(enter[None] if single else enter,
+                                     start_rc.to(enter.device).reshape(-1, 2), turn,
+                                     max_passes)
     return dist[0] if single else dist
 
 
@@ -339,9 +384,10 @@ def find_paths(walkable: torch.Tensor, penalty: torch.Tensor,
     goals each, the relaxation of all streams in one call.
 
     The relaxation defaults to the fast-sweeping form (:func:`relax_sweep`);
-    ``use_sweep=False`` selects the plain per-cell relaxation, and
-    ``use_pallas`` the hand-written relax kernel (its CUDA build on a CUDA
-    tensor, its plain twin on a CPU tensor).
+    ``use_sweep=False`` selects the plain per-cell relaxation
+    (:func:`relax`), and ``use_pallas`` the relax kernel's wrapper. Each runs
+    its kernel on a CUDA tensor, one launch for all the streams, and its
+    plain twin on a CPU tensor.
     """
     kw = dict(grid_size=grid_size, penalty_weight=penalty_weight,
               angle_weight=angle_weight, angle_grace_deg=angle_grace_deg,

@@ -156,8 +156,8 @@ def finish(result: dict, out: pathlib.Path | None) -> int:
 def served_config(engine: str = "exact", streams: int = 1):
     """The served configuration (640x640 frames sent as I420, grid 20) with
     ``engine``; ``wavefront`` with the relax kernel, as chip_smoke.py and
-    ``utils/profile_frame.py`` serve it (the default wavefront flags sync the
-    host once a sweep)."""
+    ``utils/profile_frame.py`` serve it (chip_smoke.py's phase sweep serves
+    the default wavefront flags, the sweep kernel)."""
     from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig
 
     pf = PathFinderConfig(engine=engine, use_pallas_relax=engine == "wavefront")

@@ -102,16 +102,18 @@ def _chain(device_fn, planes: torch.Tensor, cache):
 
 
 def _launch_counts() -> dict:
-    from vision_assist_tpu_torch.ops import cuda_astar, cuda_wavefront
+    from vision_assist_tpu_torch.ops import cuda_astar, cuda_sweep, cuda_wavefront
 
-    return {"relax": cuda_wavefront.launches, "astar": cuda_astar.launches}
+    return {"relax": cuda_wavefront.launches, "astar": cuda_astar.launches,
+            "sweep": cuda_sweep.launches}
 
 
 def _reset_launches() -> None:
-    from vision_assist_tpu_torch.ops import cuda_astar, cuda_wavefront
+    from vision_assist_tpu_torch.ops import cuda_astar, cuda_sweep, cuda_wavefront
 
     cuda_wavefront.reset_launches()
     cuda_astar.reset_launches()
+    cuda_sweep.reset_launches()
 
 
 def measure_engine(engine: str, seg, frames: np.ndarray, trials: int,
