@@ -42,9 +42,16 @@ result line:
              (and capped at 2 passes): the served lattice (32x32 B=1), the 8
              served lattices (B=8), the 13 scenarios (64x36 B=13), the 1080p
              corridor and a seeded 54x96 lattice (B=1) and seeded 64x36
-             lattices (B=13), each timed (queued CUDA events) beside its
-             bound (the operations of the line scans the kernel counts it
-             ran), its one-SM bound and the twin; relax on CUDA tensors (the
+             lattices (B=13), each at every cluster size of 1, 2, 4, 8 and
+             the fewest that the lattice takes (bit-equal, line scans
+             equal, timed) and timed (queued CUDA events) at the launch's
+             own beside its bound (the b levels once a launch and the
+             operations of the line scans the kernel counts it ran; PR 12's
+             count beside it), its one-SM and one-cluster bounds and the
+             twin; the cycles a section of one warp of every CTA
+             (utils/profile_sweep.py); phase build prints the registers,
+             stack and spills of every sweep kernel instance and fails on
+             a spill; relax on CUDA tensors (the
              relax kernel, one launch) bit-equal to relax_field at 32x32 B=8
              and 54x96, and a max_iters cap raising; the 8 frames through a
              FrameProcessor with the default flags (counts zeroed before and
@@ -1691,34 +1698,106 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
             "frame_ops": prof["device_ops_per_frame"]}
 
 
-def sweep_bounds(enter, scans) -> dict:
+def sweep_bounds(enter, scans, cluster: int) -> dict:
     """The least time the card could take for this fast-sweeping relaxation:
     bytes (each input read once, each output written once) over the memory
-    rate, against the float operations of the line scans this run's data
-    needed, over the float32 rate (a scan of a line of n cells: 7 a cell for
-    h, 2 a cell for the one-step shift, 3 a position for each level of the
-    doubling scan that has a partner; ``scans`` (B, 2) the scans of rows
-    and of columns each stream ran, as the kernel counts them, the lines
-    its need flags skip left out); and the same operations on one SM, since
-    one stream is one CTA."""
+    rate, against the float operations the function needs for this run's
+    data, over the float32 rate: the b levels of the doubling scan once a
+    launch for each direction (an addition a position with a partner, over
+    the levels the twin's _scan_levels makes), and for each line scan run
+    (``scans`` (B, 2) the scans of rows and of columns each stream ran, as
+    the kernel counts them, the lines its need flags skip left out) 7 a cell
+    for h, 2 a cell for the one-step shift and 2 a position with a partner
+    at each level of the doubling scan. Also the same operations on one SM
+    and on one cluster of ``cluster`` SMs (a stream is one cluster), and
+    PR 12's count (3 a position a level in every scan, the b levels redone
+    each time, none once a launch) with its bound."""
     b, rows, cols = enter.shape
 
-    def line_ops(n):
-        levels = 0
-        s = 1
-        while s < n:
-            levels += n - s
+    def partnered(n, last):
+        """Positions with a partner over the shifts 1, 2, 4, ... while
+        shift * last < n."""
+        total, s = 0, 1
+        while s * last < n:
+            total += n - s
             s *= 2
-        return 7 * n + 2 * (n - 1) + 3 * levels
+        return total
+
+    def line_ops(n, per_level):
+        return 7 * n + 2 * (n - 1) + per_level * partnered(n, 1)
 
     row_scans, col_scans = (int(x) for x in scans.sum(0))
     n_bytes = 4 * (b * rows * cols + b * 2 + 16 + b * rows * cols * 4 + b + 2 * b)
-    n_ops = row_scans * line_ops(cols) + col_scans * line_ops(rows)
+    levels = b * 2 * (rows * partnered(cols, 2) + cols * partnered(rows, 2))
+    n_ops = levels + row_scans * line_ops(cols, 2) + col_scans * line_ops(rows, 2)
+    n_ops_pr12 = row_scans * line_ops(cols, 3) + col_scans * line_ops(rows, 3)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     return {"n_bytes": n_bytes, "n_ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "one_sm_ms": ops_ms * N_SMS}
+            "one_sm_ms": ops_ms * N_SMS, "one_cluster_ms": ops_ms * N_SMS / cluster,
+            "n_ops_pr12": n_ops_pr12,
+            "bound_ms_pr12": max(bytes_ms, n_ops_pr12 / FP32_OPS_PER_S * 1e3)}
+
+
+def plan_fields(torch, dev, pcfg, occupancies):
+    """walkable, penalty, start of each occupancy's plan, stacked."""
+    from vision_assist_tpu_torch.pipeline.planner import make_plan_step
+
+    plan = make_plan_step(pcfg, include_paths=False)
+    prs = [plan(occ if torch.is_tensor(occ) else torch.from_numpy(occ).to(dev))
+           for occ in occupancies]
+    return tuple(torch.stack([getattr(pr, k) for pr in prs])
+                 for k in ("walkable", "penalty", "start_rc"))
+
+
+def plan_inputs(torch, dev, pcfg, occupancies):
+    """enter (B, R, C) and start (B, 2) of each occupancy's plan."""
+    from vision_assist_tpu_torch.planning import wavefront
+
+    walk, pen, start = plan_fields(torch, dev, pcfg, occupancies)
+    return wavefront.enter_cost(walk, pen, 20, 0.5), start
+
+
+def sweep_inputs(torch, dev, scfg=None, seg=None, frames=None, scen_inputs=None):
+    """The sweep kernel's six inputs of phase sweep, by name, as (enter,
+    start), and the plan fields (walkable, penalty, start) of two of them:
+    the served lattice of each of the 8 frames (32x32) through the flagship,
+    the 13 scenarios (64x36, the replay geometry), the 1080p corridor and a
+    seeded 54x96 lattice, and seeded 64x36 lattices. What is not given is
+    made as phase frames makes it: the served configuration with the default
+    wavefront flags, the flagship, the seeded 640x640 walkways."""
+    from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig
+    from vision_assist_tpu_torch.io.synthetic import walkway_frames
+    from vision_assist_tpu_torch.models import flagship
+    from vision_assist_tpu_torch.models.inference import Segmenter
+    from vision_assist_tpu_torch.planning import wavefront
+
+    if scfg is None:
+        scfg = PipelineConfig(frame_height=640, frame_width=640, transfer_format="i420",
+                              pathfinder=PathFinderConfig(engine="wavefront"))
+    if seg is None:
+        seg = Segmenter(flagship.model_config(), variables=flagship.load_flagship_variables(),
+                        example_hw=(640, 640), device=dev)
+    if frames is None:
+        frames = walkway_frames(N_FRAMES, 640, 640, seed=0)
+    if scen_inputs is None:
+        scen_inputs = replay_inputs(torch, [o for _, o in scenario_lattices()], dev)
+    cfg_1080p = PipelineConfig(frame_height=1080, frame_width=1920)
+    fields = {"32x32 B=8 served": plan_fields(torch, dev, scfg,
+                                              [seg(f).occupancy for f in frames]),
+              "54x96 B=1 corridor": plan_fields(torch, dev, cfg_1080p, [occupancy_1080p()])}
+    served = (wavefront.enter_cost(*fields["32x32 B=8 served"][:2], 20, 0.5),
+              fields["32x32 B=8 served"][2])
+    shapes = {"32x32 B=1 served": (served[0][-1:], served[1][-1:]),
+              "32x32 B=8 served": served,
+              "64x36 B=13 scenarios": scen_inputs,
+              "54x96 B=1 corridor": (wavefront.enter_cost(
+                  *fields["54x96 B=1 corridor"][:2], 20, 0.5),
+                  fields["54x96 B=1 corridor"][2]),
+              "54x96 B=1 random": plan_inputs(torch, dev, cfg_1080p, [random_1080p(7)]),
+              "64x36 B=13 random": random_inputs(torch, 64, 36, 13, 12, dev)}
+    return shapes, fields
 
 
 def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
@@ -1730,11 +1809,10 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
     with the kernel in it. Returns the readings of the kernels line."""
     import numpy as np
 
-    from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig
+    from vision_assist_tpu_torch.config import PathFinderConfig
     from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
     from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
     from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
-    from vision_assist_tpu_torch.pipeline.planner import make_plan_step
     from vision_assist_tpu_torch.planning import wavefront
     from vision_assist_tpu_torch.tools.diagnose_device_p50 import HoistUploads, _chain
 
@@ -1744,33 +1822,11 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
     scfg = cfg.replace(pathfinder=sweep_pf)
 
     # -- the kernel against its twin ------------------------------------------------
-    def plan_fields(pcfg, occupancies):
-        """walkable, penalty, start of each occupancy's plan, stacked."""
-        plan = make_plan_step(pcfg, include_paths=False)
-        prs = [plan(occ if torch.is_tensor(occ) else torch.from_numpy(occ).to(dev))
-               for occ in occupancies]
-        return tuple(torch.stack([getattr(pr, k) for pr in prs])
-                     for k in ("walkable", "penalty", "start_rc"))
-
-    def plan_inputs(pcfg, occupancies):
-        walk, pen, start = plan_fields(pcfg, occupancies)
-        return wavefront.enter_cost(walk, pen, 20, 0.5), start
-
-    cfg_1080p = PipelineConfig(frame_height=1080, frame_width=1920)
-    fields = {"32x32 B=8 served": plan_fields(scfg, [seg(f).occupancy for f in frames]),
-              "54x96 B=1 corridor": plan_fields(cfg_1080p, [occupancy_1080p()])}
-    served = (wavefront.enter_cost(*fields["32x32 B=8 served"][:2], 20, 0.5),
-              fields["32x32 B=8 served"][2])
-    shapes = {"32x32 B=1 served": (served[0][-1:], served[1][-1:]),
-              "32x32 B=8 served": served,
-              "64x36 B=13 scenarios": scen_inputs,
-              "54x96 B=1 corridor": (wavefront.enter_cost(
-                  *fields["54x96 B=1 corridor"][:2], 20, 0.5),
-                  fields["54x96 B=1 corridor"][2]),
-              "54x96 B=1 random": plan_inputs(cfg_1080p, [random_1080p(7)]),
-              "64x36 B=13 random": random_inputs(torch, 64, 36, 13, 12, dev)}
+    shapes, fields = sweep_inputs(torch, dev, scfg, seg, frames, scen_inputs)
     timed, err = {}, 0.0
     for name, (enter, start) in shapes.items():
+        rows, cols = enter.shape[1:]
+        chosen = cuda_sweep.cluster_size(rows, cols)
         cuda_sweep.reset_launches()
         got, passes = cuda_sweep.relax_sweep_field_cuda(enter, start, turn)
         torch.cuda.synchronize()
@@ -1786,19 +1842,35 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
         ref_capped = wavefront.relax_sweep_field(enter, start, turn, 2)
         if not all(torch.equal(a, b) for a, b in zip(capped, ref_capped)):
             raise AssertionError(f"sweep kernel capped at 2 passes differs on {name}")
-        rows, cols = enter.shape[1:]
         _, _, scans = torch.ops.vision_assist_tpu_torch.relax_sweep(
-            enter, start.to(torch.int32), turn, rows * cols)
+            enter, start.to(torch.int32), turn, rows * cols, chosen)
         every = torch.tensor([2 * rows, 2 * cols], device=dev)
         if not bool(((scans >= every) & (scans <= passes[:, None] * every)).all()):
             raise AssertionError(f"sweep {name}: line scans {scans.tolist()} outside "
                                  f"[one pass, every pass] of {every.tolist()} lines, "
                                  f"passes {passes.tolist()}")
 
-        def call(enter=enter, start=start):
-            return cuda_sweep.relax_sweep_field_cuda(enter, start, turn)
-        bounds = sweep_bounds(enter, scans)
+        def call(enter=enter, start=start, k=0):
+            return cuda_sweep.relax_sweep_field_cuda(enter, start, turn, cluster=k)
+        # Every cluster size the lattice takes of 1, 2, 4, 8 and the fewest,
+        # each bit-equal to the twin (field, passes, line scans), each timed.
+        by_cluster = {}
+        for k in sorted({1, 2, 4, 8, cuda_sweep.min_cluster(rows, cols)}):
+            if not cuda_sweep.takes(rows, cols, k):
+                continue
+            out_k = torch.ops.vision_assist_tpu_torch.relax_sweep(
+                enter, start.to(torch.int32), turn, rows * cols, k)
+            if not (torch.equal(out_k[0], ref) and torch.equal(out_k[1], ref_passes)
+                    and torch.equal(out_k[2], scans)):
+                raise AssertionError(f"sweep kernel in clusters of {k} differs on {name}")
+            by_cluster[k] = cuda_ms(lambda k=k: call(k=k), reps=100, queued=True)
+        log(f"phase sweep kernel {name}: CTAs a stream (k) and ms on the device, each "
+            f"bit-equal to the twin: " + ", ".join(f"k={k} {ms:.5f}"
+                                                  for k, ms in by_cluster.items())
+            + f"; the launch takes k={chosen}")
+        bounds = sweep_bounds(enter, scans, chosen)
         timed[name] = dict(bounds, passes=passes.tolist(), scans=scans.tolist(),
+                           cluster=chosen, by_cluster=by_cluster,
                            ms=cuda_ms(call, reps=100, queued=True),
                            call_ms=cuda_ms(call, reps=100),
                            plain_ms=cuda_ms(lambda enter=enter, start=start:
@@ -1811,13 +1883,27 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
             f"capped at 2 passes); passes {r['passes']}, line scans (rows, columns) "
             f"{r['scans']}; {r['ms']:.5f} ms on the "
             f"device, {r['call_ms']:.5f} ms per back-to-back call, twin "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.7f} ms by {r['bound_by']} "
             f"({r['n_bytes']} B, {r['n_ops']} float ops), one-SM bound "
-            f"{r['one_sm_ms']:.6f} ms, library_ms null (no PyTorch call computes it)")
+            f"{r['one_sm_ms']:.6f} ms, one-cluster bound {r['one_cluster_ms']:.6f} ms "
+            f"(k={chosen}); PR 12's count {r['n_ops_pr12']} float ops, bound "
+            f"{r['bound_ms_pr12']:.7f} ms; library_ms null (no PyTorch call computes it)")
     lib = cuda_sweep.build()
-    log(f"phase sweep kernel: {lib.relax_sweep_shared_bytes(54, 96)} bytes of shared "
-        f"memory a block at 54x96, {lib.relax_sweep_shared_bytes(32, 32)} at 32x32 "
-        f"(the card allows {cuda_sweep._shared_cap(torch.cuda.current_device())})")
+    log("phase sweep kernel: shared memory a CTA " + ", ".join(
+        f"{r}x{c} k={cuda_sweep.cluster_size(r, c)} "
+        f"{lib.relax_sweep_shared_bytes(r, c, cuda_sweep.cluster_size(r, c))} B"
+        for r, c in ((32, 32), (64, 36), (54, 96), (72, 128)))
+        + f" (the card allows {cuda_sweep._shared_cap(torch.cuda.current_device())})")
+
+    # -- cycles a section, from the stamped copy of the kernel ------------------------
+    from vision_assist_tpu_torch.utils import profile_sweep
+
+    names, records = profile_sweep.stamped_runs(shapes, turn)
+    for name, recs in records.items():
+        if not recs:
+            raise AssertionError(f"profile_sweep printed nothing for {name}")
+        for line in profile_sweep.summary(name, names, recs):
+            log(f"phase sweep cycles {line}")
 
     # -- relax on CUDA tensors: the relax kernel, bit-equal to relax_field ------------
     for name, (walk, pen, start) in fields.items():
@@ -1881,7 +1967,7 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
             call_ms[label].append((time.perf_counter() - t0) * 1e3)
     medians = {label: statistics.median(ms) for label, ms in call_ms.items()}
     quartiles = {label: statistics.quantiles(ms, n=4) for label, ms in call_ms.items()}
-    bench_in = plan_inputs(scfg, [seg(f).occupancy for f in bench])
+    bench_in = plan_inputs(torch, dev, scfg, [seg(f).occupancy for f in bench])
     kernel_ms, twin_ms = [], []
     for i in range(len(bench)):
         one = (bench_in[0][i:i + 1], bench_in[1][i:i + 1])
@@ -2162,8 +2248,18 @@ def main() -> int:
                 if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms, cuda_sweep]):
         ptxas = [ln.strip() for ln in mod.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
+        if hasattr(mod, "instances"):   # one line an instance (another commit may lack it)
+            kept = mod.instances(mod.build_log)
+            spilled = [i for i in kept if i["spill_stores"] or i["spill_loads"]]
+            ptxas = [f"{len(kept)} instances (slots of a row, of a column: registers, "
+                     f"stack frame B, spill stores/loads B) " + ", ".join(
+                         f"{i['slots']}: {i['registers']} {i['stack']} {i['spill_stores']}/"
+                         f"{i['spill_loads']}" for i in kept)]
         log(f"phase build {mod.SOURCE.name}: {how(mod)} in "
             f"{mod.build_seconds:.3f} s; " + "; ".join(ptxas))
+        if hasattr(mod, "instances") and (not kept or spilled):
+            raise AssertionError(f"{mod.SOURCE.name}: {len(kept)} instances read from "
+                                 f"ptxas, spills in {[i['slots'] for i in spilled]}")
     if not args.relax_only:
         if not built[2]:
             raise AssertionError("the native exact engine did not build (g++)")
@@ -3086,6 +3182,8 @@ def main() -> int:
         "plain_ms_54x96": sweep_big["plain_ms"],
         "bound_ms_54x96": sweep_big["bound_ms"],
         "bound_by_54x96": sweep_big["bound_by"],
+        "cluster": sweep_main["cluster"],
+        "cluster_54x96": sweep_big["cluster"],
         "call_p50_ms_default_flags": sweep_run["medians"]["default flags (sweep kernel)"],
         "call_p50_ms_relax_kernel": sweep_run["medians"]["relax kernel"],
         "call_quartiles_ms_default_flags": sweep_run["quartiles"][

@@ -7,14 +7,17 @@ rtol 1e-6 and atol 2e-3 on reachable states): the twin's doubling scan and
 JAX's associative scan associate the float32 sums along a run differently.
 The port's ``relax_sweep`` on CPU tensors is the twin, bit for bit.
 
-The CUDA kernel (``csrc/relax_sweep.cu``) keeps a line of a scan in one warp,
-position p = lane + 32*slot, and takes each level's partner by a shuffle or
-from another slot. A numpy emulation of exactly that index arithmetic and
-that level order must give the twin's field and pass counts bit for bit, on
-odd shapes and on the 54x96 lattice of a 1080x1920 frame; it guards the
-argument the kernel's bit-equality rests on. The kernel itself is held
-against the twin by the tests marked ``cuda`` (they skip without a card) and
-by chip_smoke.py.
+The CUDA kernel (``csrc/relax_sweep.cu``) runs a stream on a cluster of k
+CTAs, each warp the owner of at most one row and one column for the whole
+launch, position p = lane + 32*slot, and takes each level's partner by a
+shuffle or from another slot; the b levels of the doubling scan are made
+once a launch, and the two directions of a line longer than a warp read one
+kept set. A numpy emulation of exactly that ownership, that index arithmetic
+and that level order must give the twin's field, pass counts and line scans
+bit for bit, on odd shapes and on the 54x96 lattice of a 1080x1920 frame, at
+several k; it guards the argument the kernel's bit-equality rests on. The
+kernel itself is held against the twin by the tests marked ``cuda`` (they
+skip without a card) and by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -186,25 +189,81 @@ def _partners(x, s, has):
     return out
 
 
-def _emulate_sweep_kernel(enter, start, turn, max_passes=None):
-    """One stream of csrc/relax_sweep.cu in numpy float32: per pass the four
-    scans right, left, down, up; in a scan each line of that direction laid
-    out over (slot, lane), h at each cell, the one-step shift, then the
-    doubling levels over (a, b) while s < n, every sum one float32
-    addition. Only the lines the kernel's need flags mark are written (a
-    line is marked when a cell of it changes, cleared when it is scanned);
-    the scan of the others is computed too and must change nothing, which
-    is the argument the kernel's skip rests on. Returns (dist (R, C, 4),
-    passes, scans): scans the line scans run, of rows and of columns, as the
-    kernel counts them."""
+def _levels_as_read(lines, rev, registers):
+    """The b levels of the doubling scan as the kernel reads them, made once
+    before the first pass. ``lines`` (L, n) entry costs in cell order; the
+    scan runs in reverse when ``rev``. Returns b[k] (L, J, 32) at position
+    p = lane + 32*slot of the scan layout, NaN where the kernel reads
+    nothing (no partner at shift 2**k, or p >= n). In ``registers`` (lines
+    of at most 32 cells) each direction makes its own levels in its scan
+    layout; otherwise the line makes one forward set, kept in shared memory
+    as b[k][i] = the sum ending at cell i, and a reverse scan reads its
+    position p at cell n - 2 - p + 2**k."""
+    f32 = np.float32
+    n_lines, n = lines.shape
+    n_slots = -(-n // WARP)
+    p = np.arange(WARP)[None, :] + WARP * np.arange(n_slots)[:, None]   # (J, 32)
+    valid = p < n
+
+    def lay(order):
+        return np.where(valid, lines[:, np.where(valid, order, 0)], f32(0)).astype(f32)
+
+    def doubled(b):
+        out, k = [b], 1
+        with np.errstate(over="ignore", invalid="ignore"):
+            while 2 ** k < n:
+                s = 2 ** (k - 1)
+                has = np.broadcast_to(valid & (p >= s), b.shape)
+                b = np.where(has, b + _partners(b, s, has), b)
+                out.append(b)
+                k += 1
+        return out
+
+    if registers:                             # each direction its own
+        made = doubled(lay(n - 1 - p if rev else p))
+    else:                                     # shared memory: one forward set
+        kept = [x[:, valid] for x in doubled(lay(p))]   # (L, n) in cell order
+        made = [lay(n - 1 - p if rev else p)]
+        for k in range(1, len(kept)):
+            at = np.clip(n - 2 - p + 2 ** k if rev else p, 0, n - 1)
+            made.append(np.where(valid, kept[k][:, np.where(valid, at, 0)], f32(0)))
+    return [np.where(valid & (p >= 2 ** k), x, np.nan).astype(f32)
+            for k, x in enumerate(made)]
+
+
+def _emulate_sweep_kernel(enter, start, turn, max_passes=None, k=1):
+    """One stream of csrc/relax_sweep.cu in numpy float32, over a cluster of
+    k CTAs. CTA r's warp w owns row r*ceil(R/k) + w and column
+    r*ceil(C/k) + w for the whole launch; every CTA holds a replica of the
+    field. The b levels are made once, before the first pass
+    (``_levels_as_read``). Per pass the four scans right, left, down, up; in
+    a scan each line of that direction is laid out over (slot, lane) from
+    its owner's replica: h at each cell, the one-step shift, then the
+    doubling levels over a while s < n, every sum one float32 addition.
+    Only the lines whose need flag is set in their owner's memory are
+    written, into every replica; a change sets the flags of the crossing
+    lines in the CTAs that own them and both flags of its own line, and the
+    vote in the leader; a scan clears its own flag. The scan of the other
+    lines is computed too and must change nothing, which is the argument
+    the kernel's skip rests on. A barrier ends each orientation's half of a
+    pass (a warp runs its line's two directions back to back), and there
+    the replicas are equal.
+    Returns (dist (R, C, 4), passes, scans): scans the line scans run, of
+    rows and of columns, as the kernel counts them."""
     f32 = np.float32
     inf = f32(wavefront.INF)
     rows, cols = enter.shape
-    n_slots = -(-max(rows, cols) // WARP)
-    dist = np.full((4, rows, cols), inf, f32)
-    dist[:, start[0], start[1]] = 0
-    need = np.ones((4, max(rows, cols)), bool)
-    p = np.arange(WARP)[None, :] + WARP * np.arange(n_slots)[:, None]   # (J, 32)
+    n_lines, length = (rows, cols), (cols, rows)
+    per = (-(-rows // k), -(-cols // k))
+    owner = [np.arange(n_lines[o]) // per[o] for o in range(2)]
+    slot = [np.arange(n_lines[o]) % per[o] for o in range(2)]
+    replica = np.full((k, 4, rows, cols), inf, f32)
+    replica[:, :, start[0], start[1]] = 0
+    need = np.ones((k, 2, max(per), 2), bool)      # need[cta][orientation][warp][dir]
+    levels = {d: _levels_as_read(enter if d < 2 else enter.T, d in (1, 3),
+                                 length[d >> 1] <= WARP and n_lines[d >> 1] <= 3 * WARP)
+              for d in range(4)}
+    vote = 0                                       # the leader's
     passes = 0
     scans = [0, 0]
     if max_passes is None:
@@ -212,54 +271,65 @@ def _emulate_sweep_kernel(enter, start, turn, max_passes=None):
     with np.errstate(over="ignore", invalid="ignore"):
         while passes < max_passes:
             passes += 1
-            changed = False
             for d in range(4):
-                across, rev = d < 2, d in (1, 3)
-                n = cols if across else rows
+                o, rev = d >> 1, d & 1
+                n = length[o]
+                p = np.arange(WARP)[None, :] + WARP * np.arange(-(-n // WARP))[:, None]
                 valid = p < n
                 q = np.where(valid, (n - 1 - p) if rev else p, 0)      # index in line
 
                 def lay(x, fill):
-                    lines = x if across else x.T                       # (lines, n)
-                    return np.where(valid, lines[:, q], fill).astype(f32)
+                    lines = x if o == 0 else np.swapaxes(x, -1, -2)    # (.., lines, n)
+                    return np.where(valid, lines[..., q], fill).astype(f32)
 
-                xs = [lay(dist[k], inf) for k in range(4)]
+                own = replica[owner[o]]                                # each line's owner's
+                xs = [np.stack([lay(own[i, c], inf)[i] for i in range(n_lines[o])])
+                      for c in range(4)]
                 h = np.minimum(np.minimum(xs[0] + turn[0, d], xs[1] + turn[1, d]),
                                np.minimum(xs[2] + turn[2, d], xs[3] + turn[3, d]))
                 old = xs[d]
-                b = lay(enter, f32(0))
+                b = levels[d]
                 has = np.broadcast_to(valid & (p >= 1), old.shape)
-                a = np.where(has, np.minimum(old, _partners(h, 1, has) + b), old)
-                s = 1
+                a = np.where(has, np.minimum(old, _partners(h, 1, has) + lay(
+                    enter, f32(0))), old)
+                s, lk = 1, 0
                 while s < n:
                     has = np.broadcast_to(valid & (p >= s), old.shape)
-                    a_s, b_s = _partners(a, s, has), _partners(b, s, has)
-                    a, b = (np.where(has, np.minimum(a, a_s + b), a),
-                            np.where(has, b + b_s, b))
-                    s *= 2
+                    assert not np.isnan(b[lk][has]).any()
+                    a = np.where(has, np.minimum(a, _partners(a, s, has) + b[lk]), a)
+                    s, lk = 2 * s, lk + 1
                 moved = (a != old)[:, valid]                          # (lines, n)
-                run = need[d, :len(moved)].copy()
-                scans[0 if across else 1] += int(run.sum())
+                run = need[owner[o], o, slot[o], rev]
+                scans[o] += int(run.sum())
                 assert not moved[~run].any(), "a skipped line would have changed"
-                need[d, :len(moved)] = False
-                changed |= bool(moved.any())
-                lines = dist[d] if across else dist[d].T               # a view
-                lines[np.ix_(np.flatnonzero(run), q[valid])] = a[:, valid][run]
-                need[d & 2:(d & 2) + 2, :len(moved)] |= moved.any(axis=1)
-                cross = 2 if across else 0
-                need[cross:cross + 2, q[valid]] |= moved.any(axis=0)
-            if not changed:
+                moved &= run[:, None]
+                for r in range(k):                                   # every replica
+                    lines = replica[r, d] if o == 0 else replica[r, d].T      # a view
+                    lines[np.ix_(np.flatnonzero(run), q[valid])] = a[:, valid][run]
+                any_moved = moved.any(axis=1)
+                need[owner[o][run], o, slot[o][run], rev] = any_moved[run]
+                need[owner[o][any_moved], o, slot[o][any_moved], 1 - rev] = True
+                at = q[valid][moved.any(axis=0)]                       # crossing lines
+                need[owner[1 - o][at], 1 - o, slot[1 - o][at], :] = True
+                if any_moved.any():
+                    vote = passes
+                if rev:                                                # the barrier
+                    assert (replica == replica[:1]).all()
+            if vote < passes:
                 break
-    return dist.transpose(1, 2, 0), passes, scans
+    return replica[0].transpose(1, 2, 0), passes, scans
 
 
+@pytest.mark.parametrize("k", [1, 2, 4])
 @pytest.mark.parametrize("shape", [(1, 40), (1, 70), (40, 1), (7, 33), (33, 7),
                                    (32, 32), (54, 96)])
-def test_kernel_level_order_emulation_bit_equal_to_twin(shape):
-    """The kernel's rule (slot layout, shuffles, level order, a stream's own
-    early exit) against the twin on the same streams in one batched call:
-    field and pass counts bit-equal. 1 x 70 and 54 x 96 have lines longer
-    than a warp (slots and shifts of 32 and 64)."""
+def test_kernel_level_order_emulation_bit_equal_to_twin(shape, k):
+    """The kernel's rule (lines owned by (CTA, warp) over a cluster of k
+    CTAs, slot layout, shuffles, levels made once, level order, a stream's
+    own early exit, the cluster's vote) against the twin on the same streams
+    in one batched call: field and pass counts bit-equal. 1 x 70 and 54 x 96
+    have lines longer than a warp (slots and shifts of 32 and 64). The line
+    scans do not depend on k."""
     rows, cols = shape
     b = 2 if rows * cols > 2000 else 3
     walk, pen, start = _lattices(rows, cols, b, seed=rows * 1000 + cols)
@@ -267,7 +337,10 @@ def test_kernel_level_order_emulation_bit_equal_to_twin(shape):
     ref, ref_passes = wavefront.relax_sweep_field(enter, start_t, turn)
     for i in range(b):
         got, passes, scans = _emulate_sweep_kernel(enter[i].numpy(), start[i],
-                                                   turn.numpy())
+                                                   turn.numpy(), k=k)
+        if k > 1:
+            assert scans == _emulate_sweep_kernel(enter[i].numpy(), start[i],
+                                                  turn.numpy(), k=1)[2]
         np.testing.assert_array_equal(got, ref[i].numpy())
         assert passes == int(ref_passes[i])
         # the first pass scans every line; no pass scans more
@@ -278,8 +351,8 @@ def test_kernel_level_order_emulation_bit_equal_to_twin(shape):
 
 def test_kernel_emulation_on_the_1080p_corridor():
     """The corridor of tests/test_1080p_pipeline.py on its 54x96 lattice,
-    with the served turn weight: the emulation's field and passes are the
-    twin's."""
+    with the served turn weight, over the cluster the launch picks there:
+    the emulation's field and passes are the twin's."""
     occ = np.zeros((54, 96), bool)
     occ[20:54, 40:56] = True
     occ[20:30, 40:76] = True
@@ -288,11 +361,48 @@ def test_kernel_emulation_on_the_1080p_corridor():
     enter, start_t, turn = _field_inputs(occ[None], pen[None].astype(np.float32),
                                          start[None])
     ref, ref_passes = wavefront.relax_sweep_field(enter, start_t, turn)
-    got, passes, scans = _emulate_sweep_kernel(enter[0].numpy(), start, turn.numpy())
+    k = cuda_sweep.cluster_size(54, 96)
+    assert 1 < k <= cuda_sweep.MAX_CLUSTER
+    got, passes, scans = _emulate_sweep_kernel(enter[0].numpy(), start, turn.numpy(), k=k)
     np.testing.assert_array_equal(got, ref[0].numpy())
     assert passes == int(ref_passes[0]) >= 2
     # the need flags skip lines: fewer scans than every line of every pass
     assert scans[0] < 2 * 54 * passes and scans[1] < 2 * 96 * passes
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1), (2, 3), (5, 31), (32, 32), (33, 7),
+                                       (37, 63), (64, 65), (54, 96), (97, 129),
+                                       (3, 255), (256, 2)])
+def test_once_a_launch_levels_equal_scan_levels(rows, cols):
+    """The b levels as the kernel makes them once a launch and reads them
+    (in registers, its own set a direction, for lines of at most a warp; in
+    shared memory one forward set, the reverse scan reading the sum of the
+    same cells at cell n - 2 - p + 2**k) are the twin's _scan_levels, bit
+    for bit, at every position a level reads, in all four directions; odd
+    lengths too, and lines of at most a warp both ways."""
+    rng = np.random.default_rng(rows * 1000 + cols)
+    # costs with many significant bits, so that another association shows
+    enter = (rng.random((rows, cols)) * 7 + 0.05).astype(np.float32)
+    for d, (dr, dc) in enumerate(wavefront.MOVES.tolist()):
+        lines = enter if dc else enter.T
+        rev = dr + dc < 0
+        ref = wavefront._scan_levels(torch.from_numpy(np.ascontiguousarray(lines)), rev)
+        n = lines.shape[1]
+        for registers in ((False, True) if n <= WARP else (False,)):
+            got = _levels_as_read(lines, rev, registers)
+            assert len(got) == len(ref) == max(1, _n_levels(n))
+            p = np.arange(WARP)[None, :] + WARP * np.arange(-(-n // WARP))[:, None]
+            cells = np.where(p < n, (n - 1 - p) if rev else p, 0)
+            for level, (g, r) in enumerate(zip(got, ref)):
+                read = ~np.isnan(g)
+                assert read.sum() == lines.shape[0] * max(0, n - 2 ** level)
+                np.testing.assert_array_equal(g[read], r.numpy()[:, cells][read],
+                                              err_msg=f"direction {d} level {level}")
+
+
+def _n_levels(n):
+    """Doubling levels of a line of n cells: shifts 1, 2, 4, ... below n."""
+    return int(np.ceil(np.log2(n))) if n > 1 else 0
 
 
 # -- the wrapper and its operator --------------------------------------------------------
@@ -339,6 +449,98 @@ def test_the_card_path_is_one_operator_with_no_host_sync():
     assert cuda_sweep.launches == 0
 
 
+def test_cluster_sizes_and_shared_memory():
+    """The launch's cluster: between the fewest CTAs that give each warp at
+    most one line a side and 8, its shared memory (a replica of the field
+    and the levels of the CTA's own lines longer than a warp, level 0 the
+    entry costs) within a CTA's. The served 32x32 lattice and the 1080p and
+    1440p ones are taken; 4K UHD (108x192) is not."""
+    assert cuda_sweep.shared_bytes(32, 32, 1) == 4 * 4 * 32 * 33
+    # columns of 20 cells beside rows of 100: their levels leave the registers
+    assert cuda_sweep.shared_bytes(20, 100, 4) == 4 * (4 * 20 * 101 + 5 * 7 * 100
+                                                      + 25 * 5 * 20)
+    per_rows, per_cols = 18, 32                    # 54x96 in clusters of 3
+    assert cuda_sweep.shared_bytes(54, 96, 3) == 4 * (4 * 54 * 97 + per_rows * 7 * 96
+                                                     + per_cols * 6 * 54)
+    for rows, cols in ((1, 1), (32, 32), (64, 36), (54, 96), (72, 128), (1, 256),
+                       (256, 1), (33, 7)):
+        k = cuda_sweep.cluster_size(rows, cols)
+        assert cuda_sweep.takes(rows, cols, k) and not cuda_sweep.takes(rows, cols, 9)
+        assert cuda_sweep.min_cluster(rows, cols) <= k <= cuda_sweep.MAX_CLUSTER
+        assert cuda_sweep.shared_bytes(rows, cols, k) <= cuda_sweep.SHARED_CAP
+        assert k * cuda_sweep.WARPS >= max(rows, cols)
+    assert not cuda_sweep.takes(54, 96, 2) and not cuda_sweep.takes(1, 257, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_sweep.cluster_size(108, 192)
+
+
+def test_ptxas_instances_are_read():
+    """The build's ptxas report is read an instance at a time: the slots of
+    a row and of a column, registers, spill bytes."""
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi3ELi2EEE"
+        "vPKfPKiS2_PfPiS5_iiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi3ELi2EEE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers, 396 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi1EEE"
+        "vPKfPKiS2_PfPiS5_iiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi1EEE",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 396 bytes smem"])
+    assert cuda_sweep.instances(log) == [
+        {"slots": (3, 2), "registers": 56, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        {"slots": (8, 1), "registers": 64, "stack": 8, "spill_stores": 4, "spill_loads": 12}]
+
+
+def test_profile_sweep_stamps_every_section():
+    """utils/profile_sweep.py turns the kernel's markers into clock stamps:
+    the four sections of a scan pass and the launch's setup, one report; and
+    it reads the stamped kernel's lines back, per pass."""
+    from vision_assist_tpu_torch.utils import profile_sweep
+
+    src, names = profile_sweep.instrumented_source(cuda_sweep.SOURCE.read_text())
+    assert names == ["loads, h and the shift", "levels", "store and need flags",
+                     "barrier wait", "setup"]
+    assert "// @profile " not in src and src.count("printf(") == 1
+    assert src.count("prof_last_ = now_") == len(names) and "min(0u, blockDim.x - 32u)" in src
+    assert "min(992u, blockDim.x - 32u)" in profile_sweep.instrumented_source(
+        cuda_sweep.SOURCE.read_text(), warp=31)[0]
+    text = ("noise\nsweep-profile stream 0 rank 1 passes 4 start 100 end 900 cycles "
+            "48 80 12 400 1000\nsweep-profile stream 0 rank 0 passes 4 start 90 end 950 "
+            "cycles 52 84 16 396 900\n")
+    recs = profile_sweep.parse(text, names)
+    assert [(r["rank"], r["ns"], r["per_pass"]["levels"]) for r in recs] == [
+        (1, 800, 20.0), (0, 860, 21.0)]
+    (line,) = profile_sweep.summary("x", names, recs)
+    assert "2 CTA(s), passes 4" in line and "setup 950 cycles once" in line
+    assert "levels 20" in line and "total 136" in line
+    with pytest.raises(RuntimeError, match="not found once"):
+        profile_sweep.instrumented_source(src)
+
+
+def test_the_card_path_refuses_what_the_kernel_does_not_take():
+    """On (fake) CUDA tensors the wrapper raises before any launch for a
+    cluster outside [the fewest CTAs, 8] and for a lattice no cluster's
+    shared memory holds; a cluster it takes is passed to the operator."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    mode, (e96, s1, turn, e4k) = _fake_cuda(torch.zeros(1, 54, 96), torch.zeros(1, 2),
+                                            torch.zeros(4, 4), torch.zeros(1, 108, 192))
+    with mode:
+        for bad in (2, 9):
+            with pytest.raises(ValueError, match="clusters of"):
+                cuda_sweep.relax_sweep_field_cuda(e96, s1, turn, cluster=bad)
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_sweep.relax_sweep_field_cuda(e4k, s1, turn)
+        graph = make_fx(lambda e, s, t: cuda_sweep.relax_sweep_field_cuda(
+            e, s, t, cluster=4), tracing_mode="fake")(e96, s1, turn).graph
+    (op,) = [n for n in graph.nodes if "relax_sweep" in str(n.target)]
+    assert op.args[-2:] == (54 * 96, 4)
+    assert cuda_sweep.launches == 0
+
+
 # -- on the card -----------------------------------------------------------------------
 
 
@@ -350,24 +552,34 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
 @pytest.mark.parametrize("shape,b", [((32, 32), 1), ((32, 32), 8), ((54, 96), 1),
                                      ((64, 36), 13), ((1, 70), 3), ((70, 1), 3)])
-def test_sweep_kernel_bit_equal_to_twin_on_card(cuda, shape, b):
+def test_sweep_kernel_bit_equal_to_twin_on_card(cuda, shape, b, cluster):
+    """In clusters of ``cluster`` CTAs a stream (0: the launch's choice) the
+    kernel's field and passes are the twin's and its line scans the
+    emulation's; a cluster the lattice does not take raises."""
     walk, pen, start = _lattices(*shape, b, seed=shape[0] + b)
     enter, start_t, turn = _field_inputs(walk, pen, start, device=cuda)
+    k = cluster or cuda_sweep.cluster_size(*shape)
+    if not cuda_sweep.takes(*shape, k):
+        with pytest.raises(ValueError):
+            cuda_sweep.relax_sweep_field_cuda(enter, start_t, turn, cluster=k)
+        return
     cuda_sweep.reset_launches()
-    got, passes = cuda_sweep.relax_sweep_field_cuda(enter, start_t, turn)
+    got, passes = cuda_sweep.relax_sweep_field_cuda(enter, start_t, turn, cluster=k)
     torch.cuda.synchronize()
     assert cuda_sweep.launches == 1
     ref, ref_passes = wavefront.relax_sweep_field(enter, start_t, turn)
     assert torch.equal(got, ref) and torch.equal(passes, ref_passes)
     _, _, scans = torch.ops.vision_assist_tpu_torch.relax_sweep(
-        enter, start_t.to(torch.int32), turn, shape[0] * shape[1])
+        enter, start_t.to(torch.int32), turn, shape[0] * shape[1], k)
     for i in range(b):
         want = _emulate_sweep_kernel(enter[i].cpu().numpy(), start[i],
-                                     turn.cpu().numpy())[2]
+                                     turn.cpu().numpy(), k=k)[2]
         assert scans[i].tolist() == want
-    capped, capped_passes = cuda_sweep.relax_sweep_field_cuda(enter, start_t, turn, 2)
+    capped, capped_passes = cuda_sweep.relax_sweep_field_cuda(enter, start_t, turn, 2,
+                                                              cluster=k)
     ref, ref_passes = wavefront.relax_sweep_field(enter, start_t, turn, 2)
     assert torch.equal(capped, ref) and torch.equal(capped_passes, ref_passes)
 

@@ -5,9 +5,11 @@ Counterpart of the compiled JAX device loop
 ``vision_assist_tpu/planning/wavefront.py::relax_sweep`` (a
 ``lax.while_loop`` of passes, each four ``lax.associative_scan``s), the
 relaxation of the default wavefront flags: all passes of B streams in one
-launch, one CTA a stream, the field and the entry costs in shared memory, one
-warp a line of a scan (see ``csrc/relax_sweep.cu`` for the design and what
-bounds it). The field is bit-equal to the plain twin
+launch, a thread-block cluster of k CTAs a stream, each CTA with a replica of
+the field and the doubling scan's levels of its own lines (level 0 the entry
+costs) in shared memory, each warp the owner of at most one row and one
+column for the whole launch (see ``csrc/relax_sweep.cu`` for the design and
+what bounds it). ``cluster_size`` picks k from the lattice. The field is bit-equal to the plain twin
 ``planning/wavefront.py:relax_sweep_field``, and the pass counts are the
 twin's.
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import pathlib
+import re
 import time
 
 import torch
@@ -36,6 +39,9 @@ SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "relax_sweep.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 MAX_LINE = 256         # kMaxSlots * kWarp in csrc/relax_sweep.cu
+MAX_CLUSTER = 8        # kMaxCluster: the portable cluster size
+WARPS = 32             # kMaxWarps: the most warps a CTA runs
+SHARED_CAP = 232448 - 512   # an H100 block's opt-in shared memory less the kernel's static
 
 # Kernel launches since the last reset_launches(); one per operator call on
 # CUDA tensors (B streams share a launch).
@@ -61,20 +67,97 @@ def build() -> ctypes.CDLL:
     lib_path, build_log, compiled = compile_shared(
         nvcc(), NVCC_FLAGS, SOURCE, "relax_sweep")
     lib = ctypes.CDLL(str(lib_path))
-    lib.relax_sweep_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    lib.relax_sweep_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.relax_sweep_launch.restype = ctypes.c_int
-    lib.relax_sweep_shared_bytes.argtypes = [ctypes.c_int] * 2
+    lib.relax_sweep_shared_bytes.argtypes = [ctypes.c_int] * 3
     lib.relax_sweep_shared_bytes.restype = ctypes.c_longlong
     lib.relax_sweep_shared_cap.argtypes = [ctypes.c_int]
     lib.relax_sweep_shared_cap.restype = ctypes.c_int
     lib.relax_sweep_max_line.restype = ctypes.c_int
-    if lib.relax_sweep_max_line() != MAX_LINE:
+    lib.relax_sweep_max_cluster.restype = ctypes.c_int
+    if (lib.relax_sweep_max_line(), lib.relax_sweep_max_cluster()) != (MAX_LINE, MAX_CLUSTER):
         raise RuntimeError(f"{SOURCE.name} takes lines of {lib.relax_sweep_max_line()} "
-                           f"cells, this wrapper expects {MAX_LINE}")
+                           f"cells and clusters of {lib.relax_sweep_max_cluster()}, this "
+                           f"wrapper expects {MAX_LINE} and {MAX_CLUSTER}")
+    for rows, cols, k in ((32, 32, 1), (64, 36, 2), (54, 96, 4), (1, 256, 8)):
+        if lib.relax_sweep_shared_bytes(rows, cols, k) != shared_bytes(rows, cols, k):
+            raise RuntimeError(f"{SOURCE.name} lays out shared memory unlike "
+                               "cuda_sweep.shared_bytes")
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
+
+
+def _ceil_log2(x: int) -> int:
+    return 0 if x <= 1 else 1 + _ceil_log2((x + 1) // 2)
+
+
+def shared_bytes(rows: int, cols: int, k: int) -> int:
+    """Dynamic shared memory of one CTA of a rows x cols lattice in a
+    cluster of k CTAs a stream: the replica of the field (its four
+    directions, rows x (cols | 1) float32 each) and the b levels 0.. of the
+    CTA's own lines, level 0 being the entry costs, except where they are
+    in registers: lines of at most 32 cells whose crossing lines are at most
+    96 (``layout`` and ``in_registers`` in the source)."""
+    def kept(n, other, per):
+        return 0 if n <= 32 and other <= 96 else per * _ceil_log2(n) * n
+
+    return 4 * (4 * rows * (cols | 1) + kept(cols, rows, -(-rows // k))
+                + kept(rows, cols, -(-cols // k)))
+
+
+def min_cluster(rows: int, cols: int) -> int:
+    """The fewest CTAs a stream that give each warp at most one line a side."""
+    return -(-max(rows, cols) // WARPS)
+
+
+def takes(rows: int, cols: int, k: int) -> bool:
+    """Whether the kernel takes a rows x cols lattice in clusters of k CTAs
+    a stream: each warp at most one line a side, and the shared memory
+    within a CTA's."""
+    return (max(rows, cols) <= MAX_LINE and min_cluster(rows, cols) <= k <= MAX_CLUSTER
+            and shared_bytes(rows, cols, k) <= SHARED_CAP)
+
+
+def cluster_size(rows: int, cols: int) -> int:
+    """The CTAs a stream the launch takes for a rows x cols lattice, by the
+    device times of every k on the six sweep inputs of ``chip_smoke.py``
+    (``PERF.md`` section 6, PR 13): one CTA while both sides are at most 32
+    cells (the served 32x32 lattice: every k > 1 was slower), else 4 CTAs
+    (the fastest or within 1 % of it at 64x36 and 54x96), or more where a
+    side is longer than 128 cells or 4 CTAs' shared memory does not hold it:
+    the fewest that give each warp at most one line a side and fit. Raises
+    ValueError when no cluster of up to 8 does."""
+    first = 1 if max(rows, cols) <= WARPS else max(4, min_cluster(rows, cols))
+    for k in range(first, MAX_CLUSTER + 1):
+        if takes(rows, cols, k):
+            return k
+    raise ValueError(f"relax_sweep kernel: a {rows}x{cols} lattice needs "
+                     f"{shared_bytes(rows, cols, MAX_CLUSTER)} bytes of shared memory a "
+                     f"CTA even in a cluster of {MAX_CLUSTER}; a CTA has {SHARED_CAP}")
+
+
+_INSTANCE = re.compile(r"Compiling entry function '\w*relax_sweep_kernelILi(\d+)ELi(\d+)E")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def instances(log: str) -> list[dict]:
+    """Each kernel instance ``ptxas -v`` reports in ``log``: the slots of a
+    row and of a column, registers a thread, stack frame, spill stores and
+    spill loads (bytes; summed over every function ptxas lists with it)."""
+    out = []
+    for block in re.split(r"ptxas info\s*: (?=Compiling entry function)", log)[1:]:
+        m = _INSTANCE.match(block)
+        regs = re.search(r"Used (\d+) registers", block)
+        frames = [[int(x) for x in f] for f in _FRAME.findall(block)]
+        if m and regs and frames:
+            out.append({"slots": (int(m.group(1)), int(m.group(2))),
+                        "registers": int(regs.group(1)),
+                        "stack": sum(f[0] for f in frames),
+                        "spill_stores": sum(f[1] for f in frames),
+                        "spill_loads": sum(f[2] for f in frames)})
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,32 +169,42 @@ def _shared_cap(index: int) -> int:
 @torch.library.custom_op("vision_assist_tpu_torch::relax_sweep",
                          mutates_args=(), device_types="cuda")
 def _sweep_op(enter: torch.Tensor, start: torch.Tensor, turn: torch.Tensor,
-              max_passes: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              max_passes: int, cluster: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch over (B, R, C) float32 entry costs, (B, 2) int32 starts and
-    the (4, 4) float32 turn costs -> dist (B, R, C, 4), passes (B,), and the
-    line scans each stream ran (B, 2): of rows, of columns. The lines the
-    need flags skip are not counted, so the scans are the work this run's
-    data needed (``chip_smoke.py`` builds the kernel's bound from them)."""
+    the (4, 4) float32 turn costs, ``cluster`` CTAs a stream -> dist
+    (B, R, C, 4), passes (B,), and the line scans each stream ran (B, 2): of
+    rows, of columns. The lines the need flags skip are not counted, so the
+    scans are the work this run's data needed (``chip_smoke.py`` builds the
+    kernel's bound from them)."""
     global launches
     dev = enter.device
     b, rows, cols = enter.shape
     lib = build()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    need, cap = lib.relax_sweep_shared_bytes(rows, cols), _shared_cap(index)
+    need, cap = lib.relax_sweep_shared_bytes(rows, cols, cluster), _shared_cap(index)
     if need > cap:
-        raise ValueError(f"relax_sweep kernel: a {rows}x{cols} lattice needs {need} "
-                         f"bytes of shared memory, a block has {cap}")
+        raise ValueError(f"relax_sweep kernel: a {rows}x{cols} lattice in clusters of "
+                         f"{cluster} needs {need} bytes of shared memory a CTA, a CTA "
+                         f"has {cap}")
     ins = [x.contiguous() for x in (enter, start, turn)]
     out = torch.empty((b, rows, cols, 4), dtype=torch.float32, device=dev)
     passes = torch.empty((b,), dtype=torch.int32, device=dev)
     scans = torch.empty((b, 2), dtype=torch.int32, device=dev)
     err = lib.relax_sweep_launch(*(x.data_ptr() for x in ins), out.data_ptr(),
                                  passes.data_ptr(), scans.data_ptr(), b, rows, cols,
-                                 max_passes, index,
+                                 max_passes, cluster, index,
                                  torch.cuda.current_stream(dev).cuda_stream)
     if err == -1:
-        raise ValueError(f"relax_sweep kernel: a {rows}x{cols} lattice has lines "
-                         f"longer than the {MAX_LINE} cells it takes")
+        raise ValueError(f"relax_sweep kernel: a {rows}x{cols} lattice in clusters of "
+                         f"{cluster}: lines of at most {MAX_LINE} cells, and "
+                         f"{min_cluster(rows, cols)} to {MAX_CLUSTER} CTAs a stream")
+    if err == -2:
+        raise ValueError(f"relax_sweep kernel: a {rows}x{cols} lattice in clusters of "
+                         f"{cluster} does not fit a CTA's shared memory")
+    if err == -3:
+        raise RuntimeError(f"relax_sweep kernel: no cluster of {cluster} CTAs with "
+                           f"{need} bytes of shared memory can be placed on the card")
     if err != 0:
         raise RuntimeError(f"relax_sweep kernel launch failed: cudaError {err}")
     launches += 1
@@ -119,7 +212,7 @@ def _sweep_op(enter: torch.Tensor, start: torch.Tensor, turn: torch.Tensor,
 
 
 @_sweep_op.register_fake
-def _(enter, start, turn, max_passes):
+def _(enter, start, turn, max_passes, cluster):
     b, rows, cols = enter.shape
     return (enter.new_empty((b, rows, cols, 4)),
             enter.new_empty((b,), dtype=torch.int32),
@@ -127,12 +220,13 @@ def _(enter, start, turn, max_passes):
 
 
 def relax_sweep_field_cuda(enter: torch.Tensor, start: torch.Tensor,
-                           turn: torch.Tensor, max_passes: int | None = None
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
+                           turn: torch.Tensor, max_passes: int | None = None,
+                           cluster: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """enter (B, R, C) f32, start (B, 2) int, turn (4, 4) f32 ->
     (dist (B, R, C, 4) f32, passes (B,) int32), both equal to the plain twin
     ``relax_sweep_field``, which runs instead for a CPU tensor. At most
-    ``max_passes`` passes (default R*C, which never binds)."""
+    ``max_passes`` passes (default R*C, which never binds). ``cluster`` CTAs
+    a stream on the card (0: ``cluster_size``'s choice)."""
     if enter.device.type == "cpu":
         return relax_sweep_field(enter, start, turn, max_passes)
     if enter.device.type != "cuda":
@@ -148,7 +242,12 @@ def relax_sweep_field_cuda(enter: torch.Tensor, start: torch.Tensor,
                          f"kernel takes lines of 1 to {MAX_LINE} cells")
     if any(x.device != enter.device for x in (start, turn)):
         raise ValueError("relax_sweep_field_cuda: the inputs lie on different devices")
+    k = int(cluster) or cluster_size(rows, cols)
+    if not min_cluster(rows, cols) <= k <= MAX_CLUSTER:
+        raise ValueError(f"relax_sweep_field_cuda: clusters of {k} CTAs for a {rows}x{cols} "
+                         f"lattice; the kernel takes {min_cluster(rows, cols)} to "
+                         f"{MAX_CLUSTER}")
     dist, passes, _ = torch.ops.vision_assist_tpu_torch.relax_sweep(
         enter.float(), start.to(torch.int32), turn.float(),
-        rows * cols if max_passes is None else int(max_passes))
+        rows * cols if max_passes is None else int(max_passes), k)
     return dist, passes
