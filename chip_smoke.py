@@ -21,7 +21,7 @@ result line:
              20x27 lattice with 3: the field bit-equal. The kernel's pass
              counts are printed beside the twin's sweep counts, not compared.
              Then the A* kernel against its plain version, both on the card,
-             on the 13 scenarios and on six seeded random 64x36 lattices (all
+             on the 13 scenarios and on three seeded random 64x36 lattices (all
              goals of a lattice in one launch, three on a random lattice; the
              cache carried from lattice to lattice): cells, lengths, validity
              and the cache's NaN pattern equal, costs and cache values within
@@ -156,7 +156,7 @@ result line:
              rule train_model.collapse_decision says on those records; seconds
              and images/s an epoch, the step's wait on the loader, the final
              EMA mask mAP50; then the augmenting loader alone over 32
-             batches, ms a batch at the driver's worker count, 3, 2 and 1,
+             batches, ms a batch at the driver's worker count and at 1,
              the host CPU share, and each part of a sample timed
              (utils/profile_loader.py), the card idle. No planning
              kernel runs in 12-14 (counts zeroed before, read after).
@@ -242,6 +242,27 @@ result line:
              whole decode.nms call on the evaluation batch and on one served
              frame, and its share of the eval step; profile_frame's device
              operations a frame.
+24. large    the global forms of the relax, sweep and A* kernels (their
+             per-cell state in device memory, for lattices past one CTA's
+             shared memory) against their plain twins on the card, bit-equal
+             (relax: field; sweep: field and passes; A*: cells, lengths,
+             costs, cache, pops and relaxations): forced on the served 32x32
+             lattice (B=1 and the 8 frames as B=8), the 1080p corridor and
+             seeded 64x36 lattices (B=13; for A* seeded walkways), each timed
+             (queued CUDA events) beside the shared form; the wrapper's own
+             pick at 4K UHD (108x192 and 192x108, B=1 and B=8, seeded), for
+             relax and sweep also at lines of up to 256 cells (144x256 B=2,
+             256x256 B=1) and for A* 1440p (72x128, seeded walkways), timed
+             beside its bound and the twin; max_abs_err of the global forms'
+             line is the largest difference measured there. Then 3 seeded 2160x3840 walkways through FrameProcessor with
+             the flagship for each of the four engines and 2 of 1440x2560 for
+             exact_device, counts zeroed before and read after: one
+             global-form launch a frame of the engine's kernel and no
+             shared-form launch; each answer and its path cells equal to the
+             CPU's planner (device="cpu") on the card's occupancy. A step of 8
+             streams of seeded 108x192 walkways through MultiStreamProcessor
+             for exact_device and both wavefront paths: one launch of the
+             global form a step, every stream equal to the CPU's.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -258,7 +279,8 @@ another source with the same C interface (another commit's
 ``python3 chip_smoke.py --astar-only --astar-source <file>``.
 ``--train-only`` runs phases 12, 13 and 14 alone. ``--nms-only`` stops after
 the build and phase 23. ``--sweep-only`` stops after phase 4 (the build, the
-relax half of phase 2, phase 3 and phase 4).
+relax half of phase 2, phase 3 and phase 4). ``--large-only`` runs the build
+and phase 24 alone.
 """
 
 from __future__ import annotations
@@ -834,11 +856,11 @@ def train_model_phase(torch, rec, n_train=64, n_valid=32, frame_hw=(640, 640),
 
     # The augmenting loader alone, the card idle: an epoch of 8 passes of the
     # cached set (32 batches, so each of the driver's workers packs several)
-    # at the driver's worker count, 3, 2 and 1, with each part of a sample
+    # at the driver's worker count and at 1, with each part of a sample
     # timed (utils/profile_loader.py).
     ds = SegDataset(data, "train", cache_images=imgsz)
     workers = train_model._parser().get_default("workers")
-    counts = tuple(sorted({workers, 3, 2, 1}, reverse=True))
+    counts = tuple(sorted({workers, 1}, reverse=True))
     prof = profile_loader.profile(ds, imgsz, batch, counts, repeat=8)
     cores = len(os.sched_getaffinity(0))
     for w in counts:
@@ -2057,6 +2079,278 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
             "bench_twin_ms": statistics.median(twin_ms)}
 
 
+def walkway_lattice(rows: int, cols: int, seed: int):
+    """A walkway 4 to 6 cells wide wandering up the lower 36 rows of a rows x
+    cols occupancy lattice, seeded (tests/test_torch_4k.py's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    occ = np.zeros((rows, cols), bool)
+    centre = cols // 2
+    for r in range(rows - 1, max(rows - 37, 0), -1):
+        centre = int(np.clip(centre + rng.integers(-2, 3), cols // 8, cols - cols // 8))
+        half = int(rng.integers(2, 4))
+        occ[r, centre - half:centre + half] = True
+    return occ
+
+
+def large_phase(torch, dev, turn, cuda_wavefront, cuda_sweep, cuda_astar) -> dict:
+    """Phase large: the three lattice kernels' global forms, whose per-cell
+    state lives in device memory, for lattices past one CTA's shared memory.
+    Each global form against its plain twin on the card, bit-equal (relax:
+    field; sweep: field and passes; A*: cells, lengths, costs, cache, pops
+    and relaxations), forced on the existing inputs and timed there beside
+    the shared form; the wrapper's own pick at 4K UHD (108x192 and 192x108,
+    B = 1 and 8), for relax and sweep at 144x256 B = 2 and 256x256 B = 1
+    (lines of 256 cells, the sweep's cap) and, for A*, 1440p (72x128), timed
+    beside its bound and the twin. Then 3 seeded 2160x3840 walkways through FrameProcessor for each
+    engine and 2 of 1440x2560 for exact_device on the card, counts zeroed
+    before and read after each engine's frames (one global-form launch a
+    frame, no shared-form launch), each result's answer and path cells equal
+    to the CPU's planner on the card's occupancy; and a step of 8 streams of
+    seeded 108x192 walkways through MultiStreamProcessor for each kernel
+    engine: one global-form launch, every stream equal to the CPU's. Returns
+    the readings of the kernels line."""
+    import numpy as np
+
+    from vision_assist_tpu_torch.config import PathFinderConfig, PipelineConfig, replay_config
+    from vision_assist_tpu_torch.io.synthetic import walkway_frames
+    from vision_assist_tpu_torch.models import flagship
+    from vision_assist_tpu_torch.models.inference import Segmenter
+    from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
+    from vision_assist_tpu_torch.planning import device_astar, wavefront
+
+    t0 = time.perf_counter()
+    small, _ = sweep_inputs(torch, dev)
+    small = {n: small[n] for n in ("32x32 B=1 served", "32x32 B=8 served",
+                                   "54x96 B=1 corridor", "64x36 B=13 random")}
+    picks = {f"{r}x{c} B={b}": random_inputs(torch, r, c, b, 40 + r + b, dev)
+             for r, c, bs in ((108, 192, (1, 8)), (192, 108, (1, 8)), (144, 256, (2,)),
+                              (256, 256, (1,))) for b in bs}
+    readings = {"relax": {}, "sweep": {}, "astar": {}}
+
+    def relax_call(enter, start, form):
+        return cuda_wavefront.relax_field_cuda(enter, start, turn, form=form)
+
+    def sweep_call(enter, start, form):
+        return cuda_sweep.relax_sweep_field_cuda(enter, start, turn, form=form)
+
+    for name, (enter, start) in {**small, **picks}.items():
+        rows, cols = enter.shape[1:]
+        forced = name in small
+        ref = wavefront.relax_field(enter, start, turn)[0]
+        ref_sweep, ref_passes = wavefront.relax_sweep_field(enter, start, turn)
+        reps = 100 if rows * cols <= 64 * 36 else 20
+        for form in (("shared", "global") if forced else (None,)):
+            chosen = cuda_wavefront.pick_form(rows, cols, form)
+            got, passes = relax_call(enter, start, form)
+            err = float((got - ref).abs().max())
+            if not torch.equal(got, ref):
+                raise AssertionError(f"relax kernel ({chosen} form) differs from its twin "
+                                     f"on {name}: max abs err {err}")
+            r = dict(relax_bounds(enter, int(passes.sum())), form=chosen, err=err,
+                     passes=passes.tolist(),
+                     ms=cuda_ms(lambda: relax_call(enter, start, form), reps=reps,
+                                queued=True))
+            if chosen == "global":
+                r["plain_ms"] = cuda_ms(lambda: wavefront.relax_field(enter, start, turn),
+                                        reps=1, warmup=0)
+            readings["relax"][name, chosen] = r
+            log(f"phase large relax {name} {chosen} form{' (forced)' if forced else ''}: "
+                f"field bit-equal to the twin, passes {r['passes']}, {r['ms']:.5f} ms on "
+                f"the device, bound {r['bound_ms']:.6f} ms by {r['bound_by']}, one-SM "
+                f"bound {r['one_sm_ms']:.6f} ms"
+                + (f", twin {r['plain_ms']:.3f} ms" if "plain_ms" in r else ""))
+
+            chosen, k = cuda_sweep.launch_plan(rows, cols, 0, form)
+            got, passes = sweep_call(enter, start, form)
+            err = float((got - ref_sweep).abs().max())
+            if not (torch.equal(got, ref_sweep) and torch.equal(passes, ref_passes)):
+                raise AssertionError(f"sweep kernel ({chosen} form) differs from its twin "
+                                     f"on {name}: max abs err {err}, passes "
+                                     f"{passes.tolist()} vs {ref_passes.tolist()}")
+            op = (torch.ops.vision_assist_tpu_torch.relax_sweep if chosen == "shared"
+                  else torch.ops.vision_assist_tpu_torch.relax_sweep_global)
+            scans = op(enter, start.to(torch.int32), turn, rows * cols, k)[2]
+            r = dict(sweep_bounds(enter, scans, k), form=chosen, cluster=k, err=err,
+                     passes=passes.tolist(), scans=scans.tolist(),
+                     ms=cuda_ms(lambda: sweep_call(enter, start, form), reps=reps,
+                                queued=True))
+            if chosen == "global":
+                r["plain_ms"] = cuda_ms(lambda: wavefront.relax_sweep_field(
+                    enter, start, turn), reps=1, warmup=0)
+            readings["sweep"][name, chosen] = r
+            log(f"phase large sweep {name} {chosen} form, k={k}"
+                f"{' (forced)' if forced else ''}: field and passes bit-equal to the "
+                f"twin, passes {r['passes']}, line scans {r['scans']}, {r['ms']:.5f} ms "
+                f"on the device, bound {r['bound_ms']:.7f} ms by {r['bound_by']}, "
+                f"one-cluster bound {r['one_cluster_ms']:.6f} ms"
+                + (f", twin {r['plain_ms']:.3f} ms" if "plain_ms" in r else ""))
+    log(f"phase large relax and sweep: done in {time.perf_counter() - t0:.1f} s")
+
+    # -- the A* kernel ---------------------------------------------------------------
+    t1 = time.perf_counter()
+    serve_cfg = PipelineConfig(frame_height=640, frame_width=640, transfer_format="i420")
+    seg = Segmenter(flagship.model_config(), variables=flagship.load_flagship_variables(),
+                    example_hw=(640, 640), device=dev)
+    served = [astar_inputs(torch, serve_cfg, seg(f).occupancy, False)
+              for f in walkway_frames(N_FRAMES, 640, 640, seed=0)]
+    rcfg = replay_config()
+    cfgs = {(32, 32): serve_cfg, (64, 36): rcfg,
+            (54, 96): PipelineConfig(frame_height=1080, frame_width=1920)}
+
+    def stacked(cfg, occupancies, replay_rounding=False):
+        inps = [astar_inputs(torch, cfg, torch.from_numpy(o).to(dev), replay_rounding)
+                for o in occupancies]
+        return [torch.stack(x) for x in zip(*inps)]
+
+    small_astar = {
+        "32x32 B=1 served": [x[None] for x in served[-1]],
+        "32x32 B=8 served": [torch.stack(x) for x in zip(*served)],
+        "54x96 B=1 corridor": stacked(cfgs[54, 96], [occupancy_1080p()]),
+        "64x36 B=13 random": stacked(rcfg, [walkway_lattice(64, 36, 70 + i)
+                                           for i in range(13)], True)}
+    pick_astar = {}
+    for hw in ((2160, 3840), (3840, 2160), (1440, 2560)):
+        cfg = PipelineConfig(frame_height=hw[0], frame_width=hw[1])
+        rows, cols = cfg.lattice_rows, cfg.lattice_cols
+        cfgs[rows, cols] = cfg
+        for b in ((1,) if hw[0] == 1440 else (1, 8)):
+            pick_astar[f"{rows}x{cols} B={b}"] = stacked(
+                cfg, [walkway_lattice(rows, cols, 60 + i) for i in range(b)])
+    for name, inp in {**small_astar, **pick_astar}.items():
+        b, rows, cols = inp[0].shape
+        forced = name in small_astar
+        cfg = cfgs[rows, cols]
+        kw = dict(grid_size=cfg.grid.grid_size, max_len=cfg.pathfinder.max_path_len)
+        fresh = device_astar.empty_cache(dev)
+        tp = time.perf_counter()
+        refs = [device_astar.device_astar_paths_plain(*(x[i] for x in inp), fresh,
+                                                      return_counts=True, **kw)
+                for i in range(b)]
+        plain_ms = (time.perf_counter() - tp) * 1e3
+        for form in (("shared", "global") if forced else (None,)):
+            chosen = cuda_astar.pick_form(rows, cols, form)
+            cells, lengths, costs, cache, stats = cuda_astar.astar_paths_cuda(
+                *inp, fresh.repeat(b, 1), form=form, **kw)
+            for i, (ref, ref_cache, counts) in enumerate(refs):
+                if not (torch.equal(cells[i], ref.cells) and torch.equal(lengths[i], ref.lengths)
+                        and torch.equal(costs[i], ref.costs)
+                        and torch.equal(cache[i].nan_to_num(-1.0), ref_cache.nan_to_num(-1.0))
+                        and stats[i].tolist() == [list(c) for c in counts]):
+                    raise AssertionError(
+                        f"A* kernel ({chosen} form) differs from its plain version on "
+                        f"{name} stream {i}: lengths {lengths[i].tolist()} vs "
+                        f"{ref.lengths.tolist()}, (pops, relaxations) {stats[i].tolist()} "
+                        f"vs {counts}")
+            # The largest absolute difference in costs (where a path was found)
+            # and in cache values: 0 where all is bit-equal, as checked above.
+            err = max(max(float((costs[i][ref.valid] - ref.costs[ref.valid]).abs().max())
+                          if ref.valid.any() else 0.0,
+                          float((cache[i] - ref_cache).nan_to_num().abs().max()))
+                      for i, (ref, ref_cache, _) in enumerate(refs))
+
+            def call(inp=inp, cache=cache, form=form, kw=kw):
+                return cuda_astar.astar_paths_cuda(*inp, cache, form=form, **kw)
+            stats = call()[4]
+            pops, relaxations = (int(v) for v in stats.sum(dim=(0, 1)))
+            most = int(stats[..., 0].sum(dim=1).max())
+            r = dict(astar_bounds(b, rows * cols, inp[3].shape[1], kw["max_len"], pops,
+                                  relaxations), form=chosen, plain_ms=plain_ms, pops=pops,
+                     err=err,
+                     ms=cuda_ms(call, reps=20 if rows * cols > 6000 else 100, queued=True))
+            r["us_a_pop"] = r["ms"] / max(most, 1) * 1e3
+            readings["astar"][name, chosen] = r
+            log(f"phase large astar {name} {chosen} form{' (forced)' if forced else ''}: "
+                f"cells, lengths, costs, cache, pops and relaxations bit-equal to the plain "
+                f"version; {int(inp[4].sum())} searches, {pops} pops, {relaxations} "
+                f"relaxations (most pops in one stream {most}); {r['ms']:.5f} ms on the "
+                f"device ({r['us_a_pop']:.3f} us a pop of the slowest stream, the cache "
+                f"as one pass left it), bound {r['bound_ms']:.6f} ms by {r['bound_by']}, "
+                f"plain version {plain_ms:.1f} ms")
+    log(f"phase large astar: done in {time.perf_counter() - t1:.1f} s")
+
+    # -- frames of 2160x3840 for every engine, and of 1440x2560 for exact_device --------
+    t2 = time.perf_counter()
+    variables = flagship.load_flagship_variables()
+    engines = {"exact": PathFinderConfig(engine="exact"),
+               "exact_device": PathFinderConfig(engine="exact_device"),
+               "wavefront": PathFinderConfig(engine="wavefront"),
+               "wavefront_kernel": PathFinderConfig(engine="wavefront",
+                                                    use_pallas_relax=True)}
+    mods = {"relax": cuda_wavefront, "sweep": cuda_sweep, "astar": cuda_astar}
+    want_global = {"exact": None, "exact_device": "astar", "wavefront": "sweep",
+                   "wavefront_kernel": "relax"}
+    frame_launches = {}
+    for hw, labels, n in (((2160, 3840), list(engines), 3), ((1440, 2560), ["exact_device"], 2)):
+        cfg = PipelineConfig(frame_height=hw[0], frame_width=hw[1])
+        seg_hw = Segmenter(flagship.model_config(), variables=variables, example_hw=hw,
+                           device=dev)
+        frames = walkway_frames(n, hw[0], hw[1], seed=16)
+        for label in labels:
+            pcfg = cfg.replace(pathfinder=engines[label])
+            card = FrameProcessor(pcfg, segmenter=seg_hw, device=dev)
+            cpu = FrameProcessor(pcfg, device="cpu")
+            warm = card(frames[0], now_ms=0)       # this configuration's first call
+            cpu.process_occupancy(warm.occupancy, now_ms=0)
+            torch.cuda.synchronize()
+            for mod in mods.values():
+                mod.reset_launches()
+            results = [card(f, now_ms=1000 + i * 33) for i, f in enumerate(frames)]
+            torch.cuda.synchronize()
+            got = {k: dict(m.launches_by_form) for k, m in mods.items()}
+            frame_launches[label, hw] = got
+            kernel = want_global[label]
+            want = {k: {"shared": 0, "global": n if k == kernel else 0} for k in mods}
+            if got != want:
+                raise AssertionError(f"large {label} {hw[0]}x{hw[1]}: launches by form "
+                                     f"{got}, not {want}")
+            answers = []
+            for i, a in enumerate(results):
+                b = cpu.process_occupancy(a.occupancy, now_ms=1000 + i * 33)
+                if a.final_answer != b.final_answer or path_cells(a) != path_cells(b):
+                    raise AssertionError(
+                        f"large {label} {hw[0]}x{hw[1]} frame {i}: card {a.final_answer} "
+                        f"{path_cells(a)} vs cpu {b.final_answer} {path_cells(b)}")
+                answers.append(a.final_answer)
+            log(f"phase large frames {hw[0]}x{hw[1]} ({cfg.lattice_rows}x"
+                f"{cfg.lattice_cols}) {label}: {n} walkways, answers {answers}, path cells "
+                f"{[sum(len(p.cells) for p in r.paths) for r in results]}, equal to the CPU's "
+                f"planner on the card's occupancy; launches by form in {n} frames {got}")
+    log(f"phase large frames: done in {time.perf_counter() - t2:.1f} s")
+
+    # -- a step of 8 streams at 4K UHD: one launch of the global form ---------------
+    t3 = time.perf_counter()
+    from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
+
+    cfg = PipelineConfig(frame_height=2160, frame_width=3840, num_streams=8)
+    occ8 = np.stack([walkway_lattice(cfg.lattice_rows, cfg.lattice_cols, 80 + i)
+                     for i in range(8)])
+    for label in ("exact_device", "wavefront", "wavefront_kernel"):
+        pcfg = cfg.replace(pathfinder=engines[label])
+        card = MultiStreamProcessor(pcfg, device=dev)
+        for mod in mods.values():
+            mod.reset_launches()
+        got_card = card.process_occupancies(occ8, now_ms=0)
+        torch.cuda.synchronize()
+        got = {k: dict(m.launches_by_form) for k, m in mods.items()}
+        kernel = want_global[label]
+        want = {k: {"shared": 0, "global": int(k == kernel)} for k in mods}
+        if got != want:
+            raise AssertionError(f"large batch {label}: launches by form {got}, not {want}")
+        got_cpu = MultiStreamProcessor(pcfg, device="cpu").process_occupancies(occ8, now_ms=0)
+        for i, (a, b) in enumerate(zip(got_card, got_cpu)):
+            if a.final_answer != b.final_answer or path_cells(a) != path_cells(b):
+                raise AssertionError(f"large batch {label} stream {i}: card {a.final_answer} "
+                                     f"vs cpu {b.final_answer}")
+        log(f"phase large batch 2160x3840 {label}: a step of 8 streams (seeded walkway "
+            f"lattices), one launch of the {kernel} kernel's global form, answers and path "
+            f"cells of every stream equal to the CPU's; launches by form {got}")
+    log(f"phase large batch: done in {time.perf_counter() - t3:.1f} s; phase large took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"readings": readings, "frame_launches": frame_launches}
+
+
 def goldens12_phase(torch, dev) -> dict:
     """Phase goldens12: the video golden's sequence on the card against the
     CPU, float32, per-frame dicts equal (and the frames bf16 changes,
@@ -2146,6 +2440,8 @@ def main() -> int:
                     help="stop after the NMS kernel's build, checks and timings")
     ap.add_argument("--sweep-only", action="store_true",
                     help="stop after phase sweep (the fast-sweeping kernel, phase 4)")
+    ap.add_argument("--large-only", action="store_true",
+                    help="build the kernels and run phase large (24) alone")
     ap.add_argument("--tools-out", type=pathlib.Path, default=None,
                     help="keep each tool's JSON object of phase 22 in this directory")
     args = ap.parse_args()
@@ -2232,14 +2528,20 @@ def main() -> int:
         return 0
 
     # -- 1. build ------------------------------------------------------------------
-    # One compiler process a source, all started together.
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    # One compiler process a source, all started together; phase sweep's
+    # stamped copy of the sweep kernel too, where that phase runs.
+    from vision_assist_tpu_torch.utils import profile_sweep
+
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(cuda_wavefront.build)]
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
         if not (args.relax_only or args.astar_only):
             builds += [pool.submit(with_seconds, png.build), pool.submit(cuda_nms.build),
                        pool.submit(cuda_sweep.build)]
+        if not (args.relax_only or args.astar_only or args.nms_only or args.large_only) \
+                and hasattr(profile_sweep, "prebuild"):
+            builds.append(pool.submit(with_seconds, profile_sweep.prebuild))
         built = [b.result() for b in builds]
     def how(mod):       # another commit's port (--root) may not say
         return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
@@ -2248,13 +2550,28 @@ def main() -> int:
                 if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms, cuda_sweep]):
         ptxas = [ln.strip() for ln in mod.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
+        if hasattr(mod, "FORMS") and not hasattr(mod, "instances"):   # relax, A*: a form each
+            from vision_assist_tpu_torch.utils.build import ptxas_entries
+
+            ptxas = [f"{'global' if 'ILb1E' in e['name'] else 'shared'} form: "
+                     f"{e['registers']} registers, stack frame {e['stack']} B, spill "
+                     f"stores/loads {e['spill_stores']}/{e['spill_loads']} B"
+                     for e in ptxas_entries(mod.build_log)]
         if hasattr(mod, "instances"):   # one line an instance (another commit may lack it)
             kept = mod.instances(mod.build_log)
-            spilled = [i for i in kept if i["spill_stores"] or i["spill_loads"]]
-            ptxas = [f"{len(kept)} instances (slots of a row, of a column: registers, "
-                     f"stack frame B, spill stores/loads B) " + ", ".join(
-                         f"{i['slots']}: {i['registers']} {i['stack']} {i['spill_stores']}/"
-                         f"{i['spill_loads']}" for i in kept)]
+            # No shared instance may spill. The global form's one instance calls
+            # its scan as a function, and what it spills is what it saves across
+            # the call: at most 64 B stored and 80 B loaded (PERF.md section 6),
+            # so a spill inside the scan, or a larger one, fails here too.
+            most = {"global": (64, 80)}
+            spilled = [i for i in kept
+                       if i["spill_stores"] > most.get(i.get("form"), (0, 0))[0]
+                       or i["spill_loads"] > most.get(i.get("form"), (0, 0))[1]]
+            ptxas = [f"{len(kept)} instances (form, slots of a row, of a column: "
+                     f"registers, stack frame B, spill stores/loads B) " + ", ".join(
+                         f"{i.get('form', 'shared')} {i['slots']}: {i['registers']} "
+                         f"{i['stack']} {i['spill_stores']}/{i['spill_loads']}"
+                         for i in kept)]
         log(f"phase build {mod.SOURCE.name}: {how(mod)} in "
             f"{mod.build_seconds:.3f} s; " + "; ".join(ptxas))
         if hasattr(mod, "instances") and (not kept or spilled):
@@ -2267,6 +2584,16 @@ def main() -> int:
             f"{native.build_seconds:.3f} s")
     if not (args.relax_only or args.astar_only):
         log(f"phase build {png.SOURCE.name}: built or loaded in {built[3][1]:.3f} s")
+    if len(built) == 7:
+        log(f"phase build the stamped copy of {cuda_sweep.SOURCE.name} (phase sweep's "
+            f"cycles, utils/profile_sweep.py): built beside the others in {built[6][1]:.3f} s")
+
+    if args.large_only:
+        turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
+                            90.0, dev)
+        large_phase(torch, dev, turn, cuda_wavefront, cuda_sweep, cuda_astar)
+        print_card()
+        return 0
 
     if args.nms_only:
         variables = flagship.load_flagship_variables()
@@ -2368,7 +2695,7 @@ def main() -> int:
 
     if not (args.relax_only or args.sweep_only):
         lattices = list(scen)
-        for seed in range(6):
+        for seed in range(3):
             rng = np.random.default_rng(seed)
             lattices.append((f"random{seed}",
                              rng.random((64, 36)) > rng.uniform(0.25, 0.5)))
@@ -2387,7 +2714,7 @@ def main() -> int:
         # JAX package's 1080p test (all its goals) and a seeded lattice (its
         # first goal).
         lib = cuda_astar.build()
-        log(f"phase kernel astar 54x96: {lib.astar_shared_bytes(54, 96)} bytes of "
+        log(f"phase kernel astar 54x96: {lib.astar_shared_bytes(54, 96, 0)} bytes of "
             f"shared memory a block, the card allows "
             f"{cuda_astar._shared_cap(torch.cuda.current_device())}")
         cache_k = cache_p = device_astar.empty_cache(dev)
@@ -3088,7 +3415,13 @@ def main() -> int:
     nms_run = nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms)
     nms_main, nms_eval = nms_run["timed"]["served 256x1"], nms_run["timed"]["eval 1024x16"]
     nms_dense = nms_run["timed"]["dense 1024x1024x16"]
-    log(f"phase nms took {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    log(f"phase nms took {t9 - t8:.1f} s")
+
+    # -- 24. large -----------------------------------------------------------------
+    large_run = large_phase(torch, dev, turn, cuda_wavefront, cuda_sweep, cuda_astar)
+    large = large_run["readings"]
+    uhd = (2160, 3840)
 
     sweep_main = sweep_run["timed"]["32x32 B=1 served"]
     sweep_big = sweep_run["timed"]["54x96 B=1 corridor"]
@@ -3189,7 +3522,40 @@ def main() -> int:
         "call_quartiles_ms_default_flags": sweep_run["quartiles"][
             "default flags (sweep kernel)"],
         "call_quartiles_ms_relax_kernel": sweep_run["quartiles"]["relax kernel"],
-    }]}), flush=True)
+    }, *({
+        # The global form of each lattice kernel, for lattices past one CTA's
+        # shared memory: its launches are phase large's 2160x3840 frames
+        # (1440x2560 for A*: launches_1440p), its times the wrapper's pick at
+        # 108x192 B=1 beside the shared and global forms forced at 32x32 B=1,
+        # max_abs_err the largest over every global-form input of the phase.
+        "name": f"{name}_global",
+        "route": "cuda",
+        "source": f"vision_assist_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": large_run["frame_launches"][engine, uhd][key]["global"],
+        "max_abs_err": max(r["err"] for (_, form), r in large[key].items()
+                           if form != "shared"),
+        "ms": large[key]["108x192 B=1", "global"]["ms"],
+        "plain_ms": large[key]["108x192 B=1", "global"]["plain_ms"],
+        "bound_ms": large[key]["108x192 B=1", "global"]["bound_ms"],
+        "bound_by": large[key]["108x192 B=1", "global"]["bound_by"],
+        "library_ms": None,
+        "ms_32x32_shared": large[key]["32x32 B=1 served", "shared"]["ms"],
+        "ms_32x32_global": large[key]["32x32 B=1 served", "global"]["ms"],
+        "ms_192x108_b8": large[key]["192x108 B=8", "global"]["ms"],
+        **({"ms_256x256": large[key]["256x256 B=1", "global"]["ms"]} if key != "astar" else {}),
+        **({"launches_1440p": large_run["frame_launches"]["exact_device", (1440, 2560)][
+                "astar"]["global"],
+            "ms_72x128": large[key]["72x128 B=1", "global"]["ms"],
+            "bound_ms_72x128": large[key]["72x128 B=1", "global"]["bound_ms"]}
+           if key == "astar" else {}),
+    } for name, key, source, replaces, engine in (
+        ("relax", "relax", "relax.cu", "vision_assist_tpu/ops/pallas_wavefront.py:121",
+         "wavefront_kernel"),
+        ("relax_sweep", "sweep", "relax_sweep.cu",
+         "vision_assist_tpu/planning/wavefront.py:181", "wavefront"),
+        ("astar", "astar", "astar.cu", "vision_assist_tpu/planning/device_astar.py:77",
+         "exact_device")))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

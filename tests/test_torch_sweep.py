@@ -454,7 +454,10 @@ def test_cluster_sizes_and_shared_memory():
     most one line a side and 8, its shared memory (a replica of the field
     and the levels of the CTA's own lines longer than a warp, level 0 the
     entry costs) within a CTA's. The served 32x32 lattice and the 1080p and
-    1440p ones are taken; 4K UHD (108x192) is not."""
+    1440p ones are taken by the shared form; 4K UHD (108x192, 192x108) is
+    not, and the launch takes the global form there, at the fewest CTAs, its
+    levels of every line in device memory; lines longer than 256 cells
+    raise."""
     assert cuda_sweep.shared_bytes(32, 32, 1) == 4 * 4 * 32 * 33
     # columns of 20 cells beside rows of 100: their levels leave the registers
     assert cuda_sweep.shared_bytes(20, 100, 4) == 4 * (4 * 20 * 101 + 5 * 7 * 100
@@ -470,8 +473,20 @@ def test_cluster_sizes_and_shared_memory():
         assert cuda_sweep.shared_bytes(rows, cols, k) <= cuda_sweep.SHARED_CAP
         assert k * cuda_sweep.WARPS >= max(rows, cols)
     assert not cuda_sweep.takes(54, 96, 2) and not cuda_sweep.takes(1, 257, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_sweep.cluster_size(108, 192)
+    for rows, cols in ((108, 192), (192, 108)):
+        assert not any(cuda_sweep.takes(rows, cols, k) for k in range(1, 9))
+        assert cuda_sweep.cluster_size(rows, cols) == cuda_sweep.min_cluster(rows, cols) == 6
+        assert cuda_sweep.launch_plan(rows, cols) == ("global", 6)
+        assert cuda_sweep.level_bytes(rows, cols, 6) == 4 * (18 * 8 * 192 + 32 * 7 * 108)
+        assert cuda_sweep.field_bytes(rows, cols) == 16 * rows * (cols | 1)
+    assert cuda_sweep.launch_plan(72, 128) == ("shared", 7)
+    assert cuda_sweep.launch_plan(256, 256) == ("global", 8)
+    assert cuda_sweep.level_bytes(256, 256, 8) == 4 * 2 * 32 * 8 * 256
+    # lines of a warp or less keep their levels too (none in registers)
+    assert cuda_sweep.level_bytes(32, 32, 1) == 4 * 2 * 32 * 5 * 32
+    for rows, cols in ((1, 257), (257, 3)):
+        with pytest.raises(ValueError, match="lines of 1 to 256"):
+            cuda_sweep.cluster_size(rows, cols)
 
 
 def test_ptxas_instances_are_read():
@@ -479,19 +494,36 @@ def test_ptxas_instances_are_read():
     a row and of a column, registers, spill bytes."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi3ELi2EEE"
-        "vPKfPKiS2_PfPiS5_iiii' for 'sm_90a'",
-        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi3ELi2EEE",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi3ELi2ELb0EEE"
+        "vPKfPKiS2_PfPiS5_S4_S4_iiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi3ELi2ELb0EEE",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 56 registers, used 1 barriers, 396 bytes smem",
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi1EEE"
-        "vPKfPKiS2_PfPiS5_iiii' for 'sm_90a'",
-        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi1EEE",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi1ELb0EEE"
+        "vPKfPKiS2_PfPiS5_S4_S4_iiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi1ELb0EEE",
         "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
-        "ptxas info    : Used 64 registers, used 1 barriers, 396 bytes smem"])
+        "ptxas info    : Used 64 registers, used 1 barriers, 396 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi8ELb1EEE"
+        "vPKfPKiS2_PfPiS5_S4_S4_iiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi8ELi8ELb1EEE",
+        "    48 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 396 bytes smem",
+        # a build of the kernel before it had two forms
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118relax_sweep_kernelILi2ELi2EEE"
+        "vPKfPKiS2_PfPiS5_iiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118relax_sweep_kernelILi2ELi2EEE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 48 registers, used 1 barriers, 396 bytes smem"])
     assert cuda_sweep.instances(log) == [
-        {"slots": (3, 2), "registers": 56, "stack": 0, "spill_stores": 0, "spill_loads": 0},
-        {"slots": (8, 1), "registers": 64, "stack": 8, "spill_stores": 4, "spill_loads": 12}]
+        {"form": "shared", "slots": (3, 2), "registers": 56, "stack": 0, "spill_stores": 0,
+         "spill_loads": 0},
+        {"form": "shared", "slots": (8, 1), "registers": 64, "stack": 8, "spill_stores": 4,
+         "spill_loads": 12},
+        {"form": "global", "slots": (8, 8), "registers": 64, "stack": 48, "spill_stores": 0,
+         "spill_loads": 0},
+        {"form": "shared", "slots": (2, 2), "registers": 48, "stack": 0, "spill_stores": 0,
+         "spill_loads": 0}]
 
 
 def test_profile_sweep_stamps_every_section():
@@ -522,22 +554,33 @@ def test_profile_sweep_stamps_every_section():
 
 def test_the_card_path_refuses_what_the_kernel_does_not_take():
     """On (fake) CUDA tensors the wrapper raises before any launch for a
-    cluster outside [the fewest CTAs, 8] and for a lattice no cluster's
-    shared memory holds; a cluster it takes is passed to the operator."""
+    cluster outside [the fewest CTAs, 8], for lines longer than 256 cells
+    and for a forced shared form that does not fit; a cluster it takes is
+    passed to the shared form's operator, and a lattice no cluster's shared
+    memory holds (4K UHD) goes to the global form's, at 6 CTAs a stream."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    mode, (e96, s1, turn, e4k) = _fake_cuda(torch.zeros(1, 54, 96), torch.zeros(1, 2),
-                                            torch.zeros(4, 4), torch.zeros(1, 108, 192))
+    mode, (e96, s1, turn, e4k, e257) = _fake_cuda(
+        torch.zeros(1, 54, 96), torch.zeros(1, 2), torch.zeros(4, 4),
+        torch.zeros(1, 108, 192), torch.zeros(1, 4, 257))
     with mode:
         for bad in (2, 9):
             with pytest.raises(ValueError, match="clusters of"):
                 cuda_sweep.relax_sweep_field_cuda(e96, s1, turn, cluster=bad)
+        with pytest.raises(ValueError, match="lines of 1 to 256"):
+            cuda_sweep.relax_sweep_field_cuda(e257, s1, turn)
         with pytest.raises(ValueError, match="shared memory"):
-            cuda_sweep.relax_sweep_field_cuda(e4k, s1, turn)
+            cuda_sweep.relax_sweep_field_cuda(e4k, s1, turn, form="shared")
         graph = make_fx(lambda e, s, t: cuda_sweep.relax_sweep_field_cuda(
             e, s, t, cluster=4), tracing_mode="fake")(e96, s1, turn).graph
+        graph4k = make_fx(lambda e, s, t: cuda_sweep.relax_sweep_field_cuda(
+            e, s, t), tracing_mode="fake")(e4k, s1, turn).graph
     (op,) = [n for n in graph.nodes if "relax_sweep" in str(n.target)]
+    assert "relax_sweep_global" not in str(op.target)
     assert op.args[-2:] == (54 * 96, 4)
+    (op,) = [n for n in graph4k.nodes if "relax_sweep" in str(n.target)]
+    assert "relax_sweep_global" in str(op.target)
+    assert op.args[-2:] == (108 * 192, 6)
     assert cuda_sweep.launches == 0
 
 
@@ -558,11 +601,12 @@ def cuda():
 def test_sweep_kernel_bit_equal_to_twin_on_card(cuda, shape, b, cluster):
     """In clusters of ``cluster`` CTAs a stream (0: the launch's choice) the
     kernel's field and passes are the twin's and its line scans the
-    emulation's; a cluster the lattice does not take raises."""
+    emulation's; a cluster the lattice does not take (fewer CTAs than give
+    each warp one line a side) raises."""
     walk, pen, start = _lattices(*shape, b, seed=shape[0] + b)
     enter, start_t, turn = _field_inputs(walk, pen, start, device=cuda)
     k = cluster or cuda_sweep.cluster_size(*shape)
-    if not cuda_sweep.takes(*shape, k):
+    if k < cuda_sweep.min_cluster(*shape):
         with pytest.raises(ValueError):
             cuda_sweep.relax_sweep_field_cuda(enter, start_t, turn, cluster=k)
         return

@@ -74,6 +74,25 @@
 // A path longer than max_len is reported as no path, as the reference does;
 // unlike the reference, whose fixed path buffer is corrupt by then, the
 // search itself stays exact (it equals the host twin's).
+//
+// Two forms of one kernel. The shared form keeps the whole search in shared
+// memory, as above: lattices of up to about 7,400 cells (a 1080x1920 frame's
+// 54x96 lattice is 5,184; 1440p's 72x128, 9,216, does not fit). The global
+// form keeps in shared memory what every pop scans or may read anywhere:
+// fkey with its segments, the cache and its penalties, and the key table
+// (86 KB of keys at 4K UHD's 108x192, 104 KB in all). What a pop touches
+// only at the popped cell and its four neighbours (g, mbase, pbase, pen,
+// hval, plen, hist and the flags, 25 B a cell) is in per-stream scratch in
+// device memory (`scratch`, astar_scratch_bytes a stream, allocated by the
+// caller: 518 KB at 108x192). One warp still runs a search and one CTA a
+// stream, so one SM serves every access, __syncwarp and __syncthreads order
+// them as they order shared memory, and every operation is the shared
+// form's in the same order: the same costs, paths, pops and relaxations. A
+// pop's loads of those fields come from L1 or L2 instead of shared memory,
+// and they sit on the pop's chain: ~1.0 us a pop at 108x192 against
+// 0.55-0.65 for the shared form (PERF.md section 6). The global form takes
+// lattices whose keys and tables fit a block's shared memory: up to 53,248
+// cells (a 256x208 lattice).
 
 #include <cuda_runtime.h>
 // @profile include
@@ -121,14 +140,24 @@ __host__ __device__ inline long long padded_cells(long long n) {
   return (n + seg - 1) / seg * seg;
 }
 
+// Bytes a cell of g, mbase, pbase, pen, hval (32 bits), plen, hist (16 bits)
+// and the flags (byte): the part of the state that the global form keeps in
+// device memory.
+constexpr long long kCellBytes = 4 * 5 + 2 * 2 + 1;
+
 // Bytes of dynamic shared memory for n cells: fkey (padded to whole
-// segments), g, mbase, pbase, pen, hval (32 bits), plen, hist (16 bits),
-// flags (byte), the cache with the penalties of its entries, and the table
-// of cache keys by hist.
-__host__ __device__ inline long long shared_bytes(long long n) {
-  const long long bytes =
-      4 * (padded_cells(n) + 5 * n + 2 * kCacheSize) + 2 * (2 * n + kHistSize) + n;
+// segments), the cache with the penalties of its entries, and the table of
+// cache keys by hist; in the shared form also g, mbase, pbase, pen, hval,
+// plen, hist and the flags.
+__host__ __device__ inline long long shared_bytes(long long n, bool global) {
+  const long long bytes = 4 * (padded_cells(n) + 2 * kCacheSize) + 2 * kHistSize +
+                          (global ? 0 : kCellBytes * n);
   return (bytes + 15) / 16 * 16;
+}
+
+// Bytes of the global form's scratch a stream, whole 16-byte lines.
+__host__ __device__ inline long long scratch_bytes(long long n) {
+  return (kCellBytes * n + 15) / 16 * 16;
 }
 
 struct Search {
@@ -208,7 +237,10 @@ __device__ __forceinline__ void take_min(unsigned& lf, unsigned& lt, unsigned f,
 // segment j of the open set. The loads of a pop are started together, ahead
 // of the tests that need them: the node's fields with its segment's keys,
 // then the neighbours' fields.
-__device__ void search(const Search& s, int goal, int lane, int& pops, int& relaxations,
+// One instance a form, so that each is compiled against its own layout;
+// inlined, so that the state's pointers stay in registers.
+template <bool kGlobal>
+__device__ __forceinline__ void search(const Search& s, int goal, int lane, int& pops, int& relaxations,
                        bool& found) {
   const uint4* fkey4 = reinterpret_cast<const uint4*>(s.fkey);
   const int shift = s.shift;
@@ -360,13 +392,17 @@ __device__ void search(const Search& s, int goal, int lane, int& pops, int& rela
   // @profile report
 }
 
+// kGlobal: g, mbase, pbase, pen, hval, plen, hist and the flags in `scratch`
+// (scratch_bytes a stream), the rest in shared memory; else all in shared
+// memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict__ penalty,
              const int* __restrict__ start, const int* __restrict__ goals,
              const unsigned char* __restrict__ goals_valid, const float* __restrict__ cache_in,
              int* __restrict__ cells, int* __restrict__ lengths, float* __restrict__ costs,
-             float* __restrict__ cache_out, int* __restrict__ stats, int rows, int cols,
-             int k_goals, Params p) {
+             float* __restrict__ cache_out, int* __restrict__ stats,
+             unsigned char* __restrict__ scratch, int rows, int cols, int k_goals, Params p) {
   extern __shared__ uint4 smem4[];
   const int n = rows * cols;
   const int n_pad = static_cast<int>(padded_cells(n));
@@ -377,17 +413,31 @@ astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict
 
   Search s;
   s.fkey = reinterpret_cast<unsigned*>(smem4);
-  s.g = reinterpret_cast<float*>(s.fkey + n_pad);
-  s.mbase = s.g + n;
-  s.pbase = s.g + 2 * n;
-  s.pen = s.g + 3 * n;
-  s.hval = s.g + 4 * n;
-  s.cache = s.g + 5 * n;
-  s.pcache = s.cache + kCacheSize;
-  s.plen = reinterpret_cast<unsigned short*>(s.pcache + kCacheSize);
-  s.hist = s.plen + n;
-  s.wkey = s.hist + n;
-  s.flags = reinterpret_cast<unsigned char*>(s.wkey + kHistSize);
+  if constexpr (kGlobal) {
+    s.cache = reinterpret_cast<float*>(s.fkey + n_pad);
+    s.pcache = s.cache + kCacheSize;
+    s.wkey = reinterpret_cast<unsigned short*>(s.pcache + kCacheSize);
+    s.g = reinterpret_cast<float*>(scratch + static_cast<size_t>(b) * scratch_bytes(n));
+    s.mbase = s.g + n;
+    s.pbase = s.g + 2 * n;
+    s.pen = s.g + 3 * n;
+    s.hval = s.g + 4 * n;
+    s.plen = reinterpret_cast<unsigned short*>(s.g + 5 * n);
+    s.hist = s.plen + n;
+    s.flags = reinterpret_cast<unsigned char*>(s.hist + n);
+  } else {
+    s.g = reinterpret_cast<float*>(s.fkey + n_pad);
+    s.mbase = s.g + n;
+    s.pbase = s.g + 2 * n;
+    s.pen = s.g + 3 * n;
+    s.hval = s.g + 4 * n;
+    s.cache = s.g + 5 * n;
+    s.pcache = s.cache + kCacheSize;
+    s.plen = reinterpret_cast<unsigned short*>(s.pcache + kCacheSize);
+    s.hist = s.plen + n;
+    s.wkey = s.hist + n;
+    s.flags = reinterpret_cast<unsigned char*>(s.wkey + kHistSize);
+  }
   s.rows = rows;
   s.shift = seg_shift(n);
   s.p = p;
@@ -446,7 +496,7 @@ astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict
       __syncthreads();
 
       // Warp 0 searches; the other warps wait at the barrier below.
-      if (tid < 32) search(s, goal, lane, pops, relaxations, found);
+      if (tid < 32) search<kGlobal>(s, goal, lane, pops, relaxations, found);
     }
     if (tid == 0) {
       int len = 0;
@@ -486,9 +536,15 @@ astar_kernel(const unsigned char* __restrict__ walkable, const float* __restrict
 
 }  // namespace
 
-// Dynamic shared memory one stream of a rows x cols lattice needs, in bytes.
-extern "C" long long astar_shared_bytes(int rows, int cols) {
-  return shared_bytes(static_cast<long long>(rows) * cols);
+// Dynamic shared memory one stream of a rows x cols lattice needs in the
+// shared form (global = 0) or the global form (global = 1), in bytes.
+extern "C" long long astar_shared_bytes(int rows, int cols, int global) {
+  return shared_bytes(static_cast<long long>(rows) * cols, global != 0);
+}
+
+// The global form's scratch a stream, in bytes.
+extern "C" long long astar_scratch_bytes(int rows, int cols) {
+  return scratch_bytes(static_cast<long long>(rows) * cols);
 }
 
 // The most dynamic shared memory one block of the kernel can have on card
@@ -505,35 +561,39 @@ extern "C" int astar_shared_cap(int device) {
 // (B, K, 2) i32, goals_valid (B, K) u8, cache_in (B, 1226) f32 -> cells
 // (B, K, L, 2) i32 (-1 padded), lengths (B, K) i32, costs (B, K) f32,
 // cache_out (B, 1226) f32, stats (B, K, 2) i32 (pops, relaxations); all
-// pointers on card `device`. Returns the
-// cudaError_t of the launch (0 on success); launches on `stream`, does not
-// synchronise. This library carries its own CUDA runtime, so the card is set
-// here when it is not the current one, and the kernel's shared-memory limit
-// is raised only when a launch needs more than any before it.
+// pointers on card `device`. The global form when `scratch` is not null
+// (B * astar_scratch_bytes(R, C) bytes on the card, 16-byte aligned), else
+// the shared form. Returns the cudaError_t of the launch (0 on success);
+// launches on `stream`, does not synchronise. This library carries its own
+// CUDA runtime, so the card is set here when it is not the current one, and
+// each form's shared-memory limit is raised only when a launch needs more
+// than any before it.
 extern "C" int astar_launch(const unsigned char* walkable, const float* penalty, const int* start,
                             const int* goals, const unsigned char* goals_valid,
                             const float* cache_in, int* cells, int* lengths, float* costs,
                             float* cache_out, int* stats, int batch, int rows, int cols,
                             int k_goals, int max_len, float grid, float grace_deg, float exponent,
                             float denominator, float penalty_w, float angle_w, int store_radians,
-                            int device, void* stream) {
+                            unsigned char* scratch, int device, void* stream) {
   constexpr int kMaxDevices = 64;
-  static long long configured[kMaxDevices] = {};
+  static long long configured[2][kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long smem = astar_shared_bytes(rows, cols);
-  if (smem > configured[device]) {
-    err = cudaFuncSetAttribute(astar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool global = scratch != nullptr;
+  const auto kernel = global ? astar_kernel<true> : astar_kernel<false>;
+  const long long smem = astar_shared_bytes(rows, cols, global);
+  if (smem > configured[global][device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured[device] = smem;
+    configured[global][device] = smem;
   }
   const Params p{grid, grace_deg, exponent, denominator, penalty_w, angle_w, store_radians, max_len};
-  astar_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       walkable, penalty, start, goals, goals_valid, cache_in, cells, lengths, costs, cache_out,
-      stats, rows, cols, k_goals, p);
+      stats, scratch, rows, cols, k_goals, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,6 +49,20 @@
 // 64x36. Loads for 8 cells are issued ahead of the 8 dependent chain steps.
 // Built without --use_fast_math; there are no multiplies, so no contraction
 // into FMA can change a rounding.
+//
+// Two forms of one kernel. The shared form above takes lattices whose five
+// planes fit a block's shared memory (232,448 B on the H100: up to 2800x1580
+// frames at grid 20). The global form keeps the same five planes, the same
+// layout and the same line passes in per-stream scratch in device memory
+// (`scratch`, relax_shared_bytes a stream, allocated by the caller): 429 KB
+// a stream at 4K UHD (108x192), L2-resident. One CTA still runs a stream,
+// so one SM serves every access of it and __syncthreads orders them as it
+// orders shared memory; the argument above is about the order of updates,
+// not the memory they live in, so the field is the same. Nothing in the
+// global form is bounded by shared memory. What bounds it: the L2 round trip
+// of each chain step's volatile loads (a step loads 4 cells ahead, not 8,
+// to stay within 64 registers with 64-bit addresses); 6-7 ms at 108x192 B=1
+// against 0.05 ms for the shared form at 54x96 (PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -91,23 +105,30 @@ __device__ __forceinline__ float chain_cells(volatile float* dd, const volatile 
   return x;
 }
 
+// kGlobal: the five planes in `scratch` (5 * np floats a stream), else in
+// shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
 relax_kernel(const float* __restrict__ enter, const int* __restrict__ start,
              const float* __restrict__ turn, float* __restrict__ out,
-             int* __restrict__ passes_out, int rows, int cols, int stride,
-             int max_passes) {
+             int* __restrict__ passes_out, float* __restrict__ scratch, int rows, int cols,
+             int stride, int max_passes) {
   extern __shared__ float smem[];
   __shared__ float T[16];
   const int np = (rows + 2) * stride;
-  volatile float* dist = smem;  // [4][np]
-  float* ent = smem + 4 * np;   // [np]
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int b = blockIdx.x;
+  float* state = kGlobal ? scratch + static_cast<size_t>(b) * 5 * np : smem;
+  // Cells a chain step loads ahead: fewer where addresses are 64 bits, to
+  // stay within 64 registers.
+  constexpr int kStep = kGlobal ? kChunk / 2 : kChunk;
+  volatile float* dist = state;  // [4][np]
+  float* ent = state + 4 * np;   // [np]
   const int n = rows * cols;
   const float* enter_b = enter + static_cast<size_t>(b) * n;
 
-  for (int p = tid; p < 5 * np; p += nthreads) smem[p] = kInf;
+  for (int p = tid; p < 5 * np; p += nthreads) state[p] = kInf;
   if (tid < 16) T[tid] = turn[tid];
   __syncthreads();
   for (int i = tid; i < n; i += nthreads) {
@@ -155,8 +176,8 @@ relax_kernel(const float* __restrict__ enter, const int* __restrict__ start,
       const float tdd = T[5 * d];
       float x = kInf;  // the halo's value: nothing enters from off the lattice
       int j = 0;
-      for (; j + kChunk <= len; j += kChunk, p += kChunk * step)
-        x = chain_cells<kChunk>(dd, q1, q2, q3, ent, p, step, t1, t2, t3, tdd, x, changed);
+      for (; j + kStep <= len; j += kStep, p += kStep * step)
+        x = chain_cells<kStep>(dd, q1, q2, q3, ent, p, step, t1, t2, t3, tdd, x, changed);
       for (; j < len; ++j, p += step)
         x = chain_cells<1>(dd, q1, q2, q3, ent, p, step, t1, t2, t3, tdd, x, changed);
     }
@@ -174,7 +195,8 @@ relax_kernel(const float* __restrict__ enter, const int* __restrict__ start,
 
 }  // namespace
 
-// Dynamic shared memory one stream of a rows x cols lattice needs, in bytes.
+// Dynamic shared memory one stream of a rows x cols lattice needs in the
+// shared form, in bytes; the global form's scratch a stream is as large.
 extern "C" long long relax_shared_bytes(int rows, int cols) {
   return 5LL * (rows + 2) * padded_stride(cols) * static_cast<long long>(sizeof(float));
 }
@@ -190,14 +212,16 @@ extern "C" int relax_shared_cap(int device) {
 }
 
 // enter (B, R, C) f32, start (B, 2) i32, turn (4, 4) f32 -> out (B, R, C, 4)
-// f32 and passes (B,) i32, all pointers on card `device`. Returns the
-// cudaError_t of the launch (0 on success); launches on `stream`, does not
-// synchronise. This library carries its own CUDA runtime, so the card is
-// set here when it is not the current one, and the kernel's shared-memory
-// limit is raised only when a launch needs more than any before it.
+// f32 and passes (B,) i32, all pointers on card `device`; the global form
+// when `scratch` is not null (B * relax_shared_bytes(R, C) bytes on the card),
+// else the shared form. Returns the cudaError_t of the launch (0 on
+// success); launches on `stream`, does not synchronise. This library carries
+// its own CUDA runtime, so the card is set here when it is not the current
+// one, and the shared form's shared-memory limit is raised only when a
+// launch needs more than any before it.
 extern "C" int relax_launch(const float* enter, const int* start, const float* turn,
                             float* out, int* passes, int batch, int rows, int cols,
-                            int max_passes, int device, void* stream) {
+                            int max_passes, float* scratch, int device, void* stream) {
   constexpr int kMaxDevices = 64;
   static long long configured[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
@@ -205,16 +229,22 @@ extern "C" int relax_launch(const float* enter, const int* start, const float* t
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  int threads = 2 * (round_up_warp(rows) + round_up_warp(cols));
+  threads = threads < kMinThreads ? kMinThreads : (threads > kMaxThreads ? kMaxThreads : threads);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (scratch != nullptr) {
+    relax_kernel<true><<<batch, threads, 0, s>>>(enter, start, turn, out, passes, scratch, rows,
+                                                 cols, padded_stride(cols), max_passes);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long smem = relax_shared_bytes(rows, cols);
   if (smem > configured[device]) {
-    err = cudaFuncSetAttribute(relax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(relax_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[device] = smem;
   }
-  int threads = 2 * (round_up_warp(rows) + round_up_warp(cols));
-  threads = threads < kMinThreads ? kMinThreads : (threads > kMaxThreads ? kMaxThreads : threads);
-  relax_kernel<<<batch, threads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      enter, start, turn, out, passes, rows, cols, padded_stride(cols), max_passes);
+  relax_kernel<false><<<batch, threads, static_cast<size_t>(smem), s>>>(
+      enter, start, turn, out, passes, nullptr, rows, cols, padded_stride(cols), max_passes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -92,6 +92,31 @@
 // exact. The launch also writes, per stream, how many line scans ran (of
 // rows, of columns): the operations this run's data needed.
 //
+// Two forms. The shared form is the design above: a replica of the field in
+// every CTA's shared memory, which bounds the lattice (at grid 20, 1440p's
+// 72x128 at k = 7 or 8; 4K UHD's 108x192 needs 331,776 B a CTA for the
+// replica alone, past a block's 232,448). The global form keeps ONE copy of
+// the field a stream in device memory (`field`, 16*R*(C|1) B a stream:
+// 333 KB at 108x192, L2-resident), shared by the cluster's CTAs: a scan
+// writes a changed value once, there, instead of into k replicas. The kept
+// levels of each CTA's own lines follow the fields in the same allocation
+// (`levels`, 207 KB a CTA at 108x192); the need flags, the vote and the
+// barriers stay in shared memory. Field reads and writes go through L2
+// (ld.global.cg / st.global.cg), so no SM reads a line of the field from
+// its L1 that another SM's CTA has since written; the cluster barrier
+// (release on arrive, acquire on wait) orders a half pass's writes before
+// the next half's reads, as it orders the distributed shared memory of the
+// shared form. A half pass reads and writes what it read and wrote in the
+// shared form, in the same order, so the field, the passes and the line
+// scans are the same. It is one instance, 8 slots a line, whatever the
+// lattice; its k is the fewest CTAs that give each warp at most one line a
+// side (6 at 108x192), so it takes any lattice of lines of at most 256
+// cells. The field and the levels are addressed as the stream's base and a
+// 32-bit offset a lane, and the scan is a call, which keeps it within 64
+// registers. What bounds it: a scan's loads of the field and the levels
+// are L2 round trips, taken a slot at a time; ~2 ms at 108x192 B=1
+// (PERF.md section 6).
+//
 // The "@profile" comments mark the kernel's sections; utils/profile_sweep.py
 // turns them into clock stamps in a copy of this file.
 
@@ -139,20 +164,23 @@ __host__ __device__ constexpr bool in_registers(int n, int other) {
 // dist[4][R][C|1], then the b levels 0.. of its own rows, then of its own
 // columns (none where they are in registers). A line of n cells keeps
 // ceil_log2(n) levels of n floats; the entry costs are level 0, so the
-// replica holds no copy of them.
+// replica holds no copy of them. The global form (`global`) has no replica
+// and keeps every line's levels, in device memory.
 struct Layout {
   int per[2];        // lines a CTA owns: rows, columns
   long long lev[2];  // floats of kept levels: rows, columns
   long long floats;
 };
 
-__host__ __device__ constexpr Layout layout(int rows, int cols, int k) {
+__host__ __device__ constexpr Layout layout(int rows, int cols, int k, bool global = false) {
   Layout l{};
   l.per[0] = ceil_div(rows, k);
   l.per[1] = ceil_div(cols, k);
-  l.lev[0] = in_registers(cols, rows) ? 0 : 1LL * l.per[0] * ceil_log2(cols) * cols;
-  l.lev[1] = in_registers(rows, cols) ? 0 : 1LL * l.per[1] * ceil_log2(rows) * rows;
-  l.floats = 4LL * rows * (cols | 1) + l.lev[0] + l.lev[1];
+  const bool reg_rows = !global && in_registers(cols, rows);
+  const bool reg_cols = !global && in_registers(rows, cols);
+  l.lev[0] = reg_rows ? 0 : 1LL * l.per[0] * ceil_log2(cols) * cols;
+  l.lev[1] = reg_cols ? 0 : 1LL * l.per[1] * ceil_log2(rows) * rows;
+  l.floats = (global ? 0 : 4LL * rows * (cols | 1)) + l.lev[0] + l.lev[1];
   return l;
 }
 
@@ -268,10 +296,14 @@ __device__ __forceinline__ void level_in_place(float (&x)[J], int s, int n, int 
 // The levels b_0, b_1, ... of a line of n > 32 cells, cell p at index
 // base + p*step of the stream's entry costs in device memory, made in
 // forward order (the twin's _scan_levels: b_k[p] = b_{k-1}[p] + b_{k-1}[p-s],
-// s = 2**(k-1)) and kept at lev[k*n + p].
-template <int J>
+// s = 2**(k-1)) and kept at lev[k*n + p]. With kOpaque (the global form's
+// levels in device memory) each store's offset is made anew, so no 64-bit
+// address is kept from one level to the next.
+template <int J, bool kOpaque = false>
 __device__ __forceinline__ void keep_levels(const float* enter, int base, int step, int n,
                                             int lane, float* lev) {
+  if (n <= 1) return;  // no level is read, and none is laid out
+  const auto at = [](int i) { return kOpaque ? opaque(i) : i; };
   float b[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
@@ -281,7 +313,7 @@ __device__ __forceinline__ void keep_levels(const float* enter, int base, int st
   }
 #pragma unroll
   for (int j = 0; j < J; ++j)
-    if (lane + kWarp * j < n) lev[lane + kWarp * j] = b[j];
+    if (lane + kWarp * j < n) lev[at(lane + kWarp * j)] = b[j];
 #pragma unroll
   for (int k = 1; k < kLevels<J>; ++k) {
     if ((1 << k) >= n) break;
@@ -289,7 +321,7 @@ __device__ __forceinline__ void keep_levels(const float* enter, int base, int st
                       [](int, float x, float partner) { return __fadd_rn(x, partner); });
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      if (lane + kWarp * j < n) lev[k * n + lane + kWarp * j] = b[j];
+      if (lane + kWarp * j < n) lev[at(k * n + lane + kWarp * j)] = b[j];
   }
 }
 
@@ -321,11 +353,16 @@ struct Publish {
   float inv_per_cross;  // 1 / per_cross: (at + 0.5) * it floors to at / per_cross
 };
 
-// One line of the scan of direction d: n positions, position p at shared
-// index base + p*step (forward) or base + (n-1-p)*step (reverse). Writes
-// what changed into every replica of the cluster and flags the crossing
-// lines through those cells. Returns whether this lane changed a value.
-template <int J, bool kReg>
+// One line of the scan of direction d: n positions, position p at index
+// base + p*step (forward) or base + (n-1-p)*step (reverse) of dist. Writes
+// what changed into every replica of the cluster (the global form: into the
+// one field in device memory) and flags the crossing lines through those
+// cells. Returns whether this lane changed a value. The kept levels are at
+// the shared::cta address `lev`, or in the global form at dist[lev], in the
+// same allocation as the field. The global form addresses the field and the
+// levels as the stream's base and a 32-bit offset a lane, which keeps it
+// within 64 registers.
+template <int J, bool kReg, bool kGlobal>
 __device__ __forceinline__ bool scan_line(float* dist, const float* T, int np, int d,
                                           int base, int step, int n, unsigned lev,
                                           const float (&reg)[kRegLevels], const Publish& pub,
@@ -340,8 +377,11 @@ __device__ __forceinline__ bool scan_line(float* dist, const float* T, int np, i
   // only read where slot j's position has a partner at shift 2**k and is < n.
   const unsigned lv = lev + 4 * (rev ? n - 2 - lane : lane);
   const auto level = [&](int k, int j) -> float {
+    const int at = rev ? k * n - kWarp * j + (1 << k) : k * n + kWarp * j;
     if constexpr (kReg) return reg[k];
-    else return ld_shared(lv + 4 * (rev ? k * n - kWarp * j + (1 << k) : k * n + kWarp * j));
+    else if constexpr (kGlobal)  // the offset made anew at each read
+      return dist[opaque(static_cast<int>(lev) + (rev ? n - 2 - lane : lane) + at)];
+    else return ld_shared(lv + 4 * at);
   };
   const float t0 = T[0 * 4 + d], t1 = T[1 * 4 + d], t2 = T[2 * 4 + d], t3 = T[3 * 4 + d];
   // (a) h at each cell and (b) the one-step shift, a[p] = min(old[p],
@@ -350,13 +390,26 @@ __device__ __forceinline__ bool scan_line(float* dist, const float* T, int np, i
   float a[J];
   float carry = 0.0f;
   const float* c = cell0;
+  int co = opaque(base) + c0 * step;  // the global form: slot j's offset in dist
 #pragma unroll
-  for (int j = 0; j < J; ++j, c += jump) {
+  for (int j = 0; j < J; ++j, c += jump, co += jump) {
     const int p = lane + kWarp * j;
     float h = kInf;
     a[j] = kInf;
     if (p < n) {
-      const float x0 = c[0], x1 = c[np], x2 = c[2 * np], x3 = c[3 * np];
+      float x0, x1, x2, x3;
+      if constexpr (kGlobal) {
+        const float* at = dist + opaque(co);
+        x0 = __ldcg(at);
+        x1 = __ldcg(at + np);
+        x2 = __ldcg(at + 2 * np);
+        x3 = __ldcg(at + 3 * np);
+      } else {
+        x0 = c[0];
+        x1 = c[np];
+        x2 = c[2 * np];
+        x3 = c[3 * np];
+      }
       h = fminf(fminf(__fadd_rn(x0, t0), __fadd_rn(x1, t1)),
                 fminf(__fadd_rn(x2, t2), __fadd_rn(x3, t3)));
       a[j] = d == 0 ? x0 : d == 1 ? x1 : d == 2 ? x2 : x3;
@@ -397,15 +450,21 @@ __device__ __forceinline__ bool scan_line(float* dist, const float* T, int np, i
     const int p = lane + kWarp * j;
     if (p >= n) continue;
     const int at = c0 + j * dc;                  // the crossing line through this cell
-    if (__float_as_int(a[j]) == __float_as_int(dist[q])) continue;  // a <= old, no NaN
-    dist[q] = a[j];
+    if constexpr (kGlobal) {
+      if (__float_as_int(a[j]) == __float_as_int(__ldcg(dist + q))) continue;
+      __stcg(dist + q, a[j]);
+    } else {
+      if (__float_as_int(a[j]) == __float_as_int(dist[q])) continue;  // a <= old, no NaN
+      dist[q] = a[j];
+    }
     const int owner = static_cast<int>(__fmul_rz(static_cast<float>(opaque(at)) + 0.5f,
                                                  pub.inv_per_cross));
     const unsigned flag = pub.need + 4 * (at - owner * pub.per_cross);
     if (owner == pub.rank) st_shared_u16(flag, 0x0101);
     else st_cluster_u16(mapa(flag, owner), 0x0101);
-    for (int r = 0; r < pub.k; ++r)
-      if (r != pub.rank) st_cluster(mapa(pub.dist + 4 * q, r), a[j]);
+    if constexpr (!kGlobal)
+      for (int r = 0; r < pub.k; ++r)
+        if (r != pub.rank) st_cluster(mapa(pub.dist + 4 * q, r), a[j]);
     moved = true;
     if constexpr (J >= 4) asm volatile("" ::: "memory");
   }
@@ -413,11 +472,38 @@ __device__ __forceinline__ bool scan_line(float* dist, const float* T, int np, i
   return moved;
 }
 
-template <int JR, int JC>
+// scan_line as a call: the global form takes it so, since inlined it needs
+// more than its 64 registers a thread once the field's addresses are 64 bits
+// and spills inside the scan; as a call, what spills is what the caller
+// saves across the call (phase build of chip_smoke.py prints it).
+template <int J, bool kReg, bool kGlobal>
+__device__ __noinline__ bool scan_line_call(float* dist, const float* T, int np, int d,
+                                            int base, int step, int n, unsigned lev,
+                                            const float (&reg)[kRegLevels], const Publish& pub,
+                                            int lane) {
+  return scan_line<J, kReg, kGlobal>(dist, T, np, d, base, step, n, lev, reg, pub, lane);
+}
+
+template <int J, bool kReg, bool kGlobal>
+__device__ __forceinline__ bool scan(float* dist, const float* T, int np, int d, int base,
+                                     int step, int n, unsigned lev,
+                                     const float (&reg)[kRegLevels], const Publish& pub,
+                                     int lane) {
+  if constexpr (kGlobal)
+    return scan_line_call<J, kReg, kGlobal>(dist, T, np, d, base, step, n, lev, reg, pub, lane);
+  else
+    return scan_line<J, kReg, kGlobal>(dist, T, np, d, base, step, n, lev, reg, pub, lane);
+}
+
+// kGlobal: the field in `field` (4 * R * (C|1) floats a stream) and the kept
+// levels in `levels` (lev[0] + lev[1] floats a CTA), which follows the
+// fields in the same allocation.
+template <int JR, int JC, bool kGlobal>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ start,
                    const float* __restrict__ turn, float* __restrict__ out,
-                   int* __restrict__ passes_out, int* __restrict__ scans_out, int rows,
+                   int* __restrict__ passes_out, int* __restrict__ scans_out,
+                   float* __restrict__ field, float* __restrict__ levels, int rows,
                    int cols, int max_passes, int k) {
   extern __shared__ float smem[];
   __shared__ float T[16];
@@ -429,16 +515,20 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
   __shared__ int ran[kMaxCluster][2];    // leader: each CTA's line scans (rows, columns)
   __shared__ int cta_ran[2];
   // @profile declare
-  const Layout lay = layout(rows, cols, k);
+  const Layout lay = layout(rows, cols, k, kGlobal);
   const int stride = cols | 1, np = rows * stride;
-  float* dist = smem;                    // [4][rows][stride]
-  float* lev_rows = smem + 4 * np;       // [rows a CTA][levels][cols]
-  float* lev_cols = lev_rows + lay.lev[0];
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid % kWarp, warp = tid / kWarp;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int stream = blockIdx.x / k;
+  float* dist = smem;                    // [4][rows][stride]
+  float* lev_rows = smem + 4 * np;       // [rows a CTA][levels][cols]
+  if constexpr (kGlobal) {
+    dist = field + static_cast<size_t>(stream) * 4 * np;
+    lev_rows = levels + static_cast<size_t>(blockIdx.x) * (lay.lev[0] + lay.lev[1]);
+  }
+  float* lev_cols = lev_rows + lay.lev[0];
   const int n = rows * cols;
   const float* enter_b = enter + static_cast<size_t>(stream) * n;
 
@@ -447,19 +537,26 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
   const int row = rank * lay.per[0] + warp, col = rank * lay.per[1] + warp;
   const bool has_row = warp < lay.per[0] && row < rows;
   const bool has_col = warp < lay.per[1] && col < cols;
-  constexpr bool kRegRows = JR == 1 && JC <= 3, kRegCols = JC == 1 && JR <= 3;  // in_registers
+  constexpr bool kRegRows = !kGlobal && JR == 1 && JC <= 3;  // in_registers
+  constexpr bool kRegCols = !kGlobal && JC == 1 && JR <= 3;
   const float e_row = kRegRows && has_row && lane < cols ? enter_b[row * cols + lane] : 0.0f;
   const float e_col = kRegCols && has_col && lane < rows ? enter_b[lane * cols + col] : 0.0f;
   const float t = tid < 16 ? turn[tid] : 0.0f;
   const int sr = start[2 * stream], sc = start[2 * stream + 1];
-  for (int p = tid; p < 4 * np; p += nthreads) dist[p] = kInf;
+  if constexpr (kGlobal) {  // the cluster's CTAs fill the stream's field in turn
+    const int at = sr >= 0 && sr < rows && sc >= 0 && sc < cols ? sr * stride + sc : -1;
+    for (int p = rank * nthreads + tid; p < 4 * np; p += k * nthreads)
+      __stcg(dist + p, p % np == at ? 0.0f : kInf);
+  } else {
+    for (int p = tid; p < 4 * np; p += nthreads) dist[p] = kInf;
+  }
   for (int p = tid; p < 2 * kMaxWarps * 4; p += nthreads) (&need[0][0][0])[p] = 1;
   if (tid < 16) T[tid] = t;
   if (tid < 2 * kMaxCluster) (&ran[0][0])[tid] = 0;
   if (tid < 2) cta_ran[tid] = 0;
   if (tid == 0) vote = 0;
   __syncthreads();
-  if (tid < 4 && sr >= 0 && sr < rows && sc >= 0 && sc < cols)
+  if (!kGlobal && tid < 4 && sr >= 0 && sr < rows && sc >= 0 && sc < cols)
     dist[tid * np + sr * stride + sc] = 0.0f;
 
   // The levels of this warp's lines, made once.
@@ -471,7 +568,7 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
       register_levels(e_row, cols, false, lane, reg_row[0]);
       register_levels(e_row, cols, true, lane, reg_row[1]);
     } else {
-      keep_levels<JR>(enter_b, row * cols, 1, cols, lane, my_lev_row);
+      keep_levels<JR, kGlobal>(enter_b, row * cols, 1, cols, lane, my_lev_row);
     }
   }
   if (has_col) {
@@ -479,7 +576,7 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
       register_levels(e_col, rows, false, lane, reg_col[0]);
       register_levels(e_col, rows, true, lane, reg_col[1]);
     } else {
-      keep_levels<JC>(enter_b, col, cols, rows, lane, my_lev_col);
+      keep_levels<JC, kGlobal>(enter_b, col, cols, rows, lane, my_lev_col);
     }
   }
   // Every replica, flag and level ready, and every CTA of the cluster
@@ -493,7 +590,12 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
   const Publish to_rows{shared_address(dist), shared_address(&need[0][0][0]), rank, k,
                         lay.per[0], 1.0f / lay.per[0]};
   const unsigned vote_leader = mapa(shared_address(&vote), 0);
-  const unsigned lev_row = shared_address(my_lev_row), lev_col = shared_address(my_lev_col);
+  // The kept levels' addresses: shared::cta, or in device memory the offset
+  // from the stream's field (the levels follow the fields in one allocation).
+  const unsigned lev_row = kGlobal ? static_cast<unsigned>(my_lev_row - dist)
+                                   : shared_address(my_lev_row);
+  const unsigned lev_col = kGlobal ? static_cast<unsigned>(my_lev_col - dist)
+                                   : shared_address(my_lev_col);
   int pass = 0;
   int ran_rows = 0, ran_cols = 0;  // this warp's line scans
   while (pass < max_passes) {
@@ -513,12 +615,12 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
           bool moved;
           if (o == 0) {
             ++ran_rows;  // every lane counts; lane 0's count is kept
-            moved = scan_line<JR, kRegRows>(dist, T, np, dir, row * stride, 1, cols, lev_row,
-                                  reg_row[dir], to_cols, lane);
+            moved = scan<JR, kRegRows, kGlobal>(dist, T, np, dir, row * stride, 1, cols, lev_row,
+                                          reg_row[dir], to_cols, lane);
           } else {
             ++ran_cols;
-            moved = scan_line<JC, kRegCols>(dist, T, np, 2 + dir, col, stride, rows, lev_col,
-                                  reg_col[dir], to_rows, lane);
+            moved = scan<JC, kRegCols, kGlobal>(dist, T, np, 2 + dir, col, stride, rows, lev_col,
+                                          reg_col[dir], to_rows, lane);
           }
           // Only this warp writes its own flags during its orientation's half,
           // and every lane read them before the scan's shuffles.
@@ -548,13 +650,18 @@ relax_sweep_kernel(const float* __restrict__ enter, const int* __restrict__ star
   if (tid < 2) *cluster.map_shared_rank(&ran[rank][tid], 0) = cta_ran[tid];
   sync_cluster(k);
 
-  // Every replica is whole: each CTA writes its own rows.
+  // Every replica is whole (the field after the last barrier): each CTA
+  // writes its own rows.
   const int r0 = rank * lay.per[0], r1 = min(rows, r0 + lay.per[0]);
   float4* out_b = reinterpret_cast<float4*>(out + static_cast<size_t>(stream) * n * 4);
   for (int i = r0 * cols + tid; i < r1 * cols; i += nthreads) {
     const int r = i / cols;
     const int p = r * stride + (i - r * cols);
-    out_b[i] = make_float4(dist[p], dist[np + p], dist[2 * np + p], dist[3 * np + p]);
+    if constexpr (kGlobal)
+      out_b[i] = make_float4(__ldcg(dist + p), __ldcg(dist + np + p), __ldcg(dist + 2 * np + p),
+                             __ldcg(dist + 3 * np + p));
+    else
+      out_b[i] = make_float4(dist[p], dist[np + p], dist[2 * np + p], dist[3 * np + p]);
   }
   if (rank == 0 && tid == 0) {
     int rs = 0, cs = 0;
@@ -575,18 +682,20 @@ struct Args {
   float* out;
   int* passes;
   int* scans;
+  float* field;   // the global form's fields, else null
+  float* levels;  // the global form's kept levels, after the fields, else null
   int batch, rows, cols, max_passes, k, device;
   long long smem;
   cudaStream_t stream;
 };
 
-// Launches instance (JR, JC): returns 0, a cudaError_t, or -3 when no
+// Launches instance (JR, JC, kGlobal): returns 0, a cudaError_t, or -3 when no
 // cluster of k CTAs with this shared memory can be placed on the card. The
 // shared-memory limit is raised, and the placement checked, once for each
 // (card, k, threads, shared memory) an instance meets; a few are kept.
-template <int JR, int JC>
+template <int JR, int JC, bool kGlobal>
 int launch(const Args& a) {
-  const auto kernel = relax_sweep_kernel<JR, JC>;
+  const auto kernel = relax_sweep_kernel<JR, JC, kGlobal>;
   const Layout lay = layout(a.rows, a.cols, a.k);
   const int warps = lay.per[0] > lay.per[1] ? lay.per[0] : lay.per[1];
   cudaLaunchConfig_t cfg = {};
@@ -611,8 +720,8 @@ int launch(const Args& a) {
   for (int i = 0; i < kKept; ++i)
     if (checked[i] == key + 1) {
       cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a.enter, a.start, a.turn, a.out,
-                                           a.passes, a.scans, a.rows, a.cols, a.max_passes,
-                                           a.k);
+                                           a.passes, a.scans, a.field, a.levels, a.rows,
+                                           a.cols, a.max_passes, a.k);
       return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
     }
   cudaError_t err = cudaSuccess;
@@ -632,13 +741,13 @@ int launch(const Args& a) {
       break;
     }
   err = cudaLaunchKernelEx(&cfg, kernel, a.enter, a.start, a.turn, a.out, a.passes, a.scans,
-                           a.rows, a.cols, a.max_passes, a.k);
+                           a.field, a.levels, a.rows, a.cols, a.max_passes, a.k);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <int JR, int JC>
 int launch_if_taken(const Args& a) {
-  if constexpr (taken(JR, JC)) return launch<JR, JC>(a);
+  if constexpr (taken(JR, JC)) return launch<JR, JC, false>(a);
   else return -2;
 }
 
@@ -655,9 +764,14 @@ constexpr std::array<Launcher, kMaxSlots * kMaxSlots> kLaunchers =
 }  // namespace
 
 // Dynamic shared memory one CTA of a rows x cols lattice needs in a cluster
-// of k CTAs a stream, in bytes.
+// of k CTAs a stream in the shared form, in bytes.
 extern "C" long long relax_sweep_shared_bytes(int rows, int cols, int k) {
   return layout(rows, cols, k).floats * static_cast<long long>(sizeof(float));
+}
+
+// The global form's kept levels of one CTA, in device memory, in bytes.
+extern "C" long long relax_sweep_level_bytes(int rows, int cols, int k) {
+  return layout(rows, cols, k, true).floats * static_cast<long long>(sizeof(float));
 }
 
 // The longest line (cells) the kernel takes, and the most CTAs a stream.
@@ -677,16 +791,21 @@ extern "C" int relax_sweep_shared_cap(int device) {
 // enter (B, R, C) f32, start (B, 2) i32, turn (4, 4) f32 -> out (B, R, C, 4)
 // f32, passes (B,) i32 and scans (B, 2) i32 (the line scans each stream ran:
 // rows, columns), all pointers on card `device`, in clusters of k CTAs a
-// stream. Returns the cudaError_t of the launch (0 on success); -1 when a
-// line is longer than relax_sweep_max_line() or k is not one that gives
-// each warp at most one line a side (ceil(longer side / 32) <= k <= 8); -2
-// when a CTA's shared memory exceeds relax_sweep_shared_cap(device); -3 when
-// no such cluster can be placed on the card. Launches on `stream`, does not
-// synchronise. This library carries its own CUDA runtime, so the card is set
-// here when it is not the current one.
+// stream. The global form when `scratch` is not null: B * 4 * R * (C|1)
+// floats of fields, then B * k CTAs' kept levels of
+// relax_sweep_level_bytes(R, C, k) bytes each, on the card; the shared form
+// when it is null. Returns the cudaError_t of the launch (0 on success); -1
+// when a line is longer than relax_sweep_max_line(), k is not one that
+// gives each warp at most one line a side (ceil(longer side / 32) <= k <=
+// 8), or the scratch is not addressed by 32-bit offsets (2**31 floats); -2
+// when a CTA's shared memory exceeds relax_sweep_shared_cap(device); -3
+// when no such cluster can be placed on the card. Launches on `stream`,
+// does not synchronise. This library carries its own CUDA runtime, so the
+// card is set here when it is not the current one.
 extern "C" int relax_sweep_launch(const float* enter, const int* start, const float* turn,
                                   float* out, int* passes, int* scans, int batch, int rows,
-                                  int cols, int max_passes, int k, int device, void* stream) {
+                                  int cols, int max_passes, int k, float* scratch, int device,
+                                  void* stream) {
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   const int longest = rows > cols ? rows : cols;
   if (rows < 1 || cols < 1 || longest > kMaxLine || batch < 1) return -1;
@@ -695,15 +814,21 @@ extern "C" int relax_sweep_launch(const float* enter, const int* start, const fl
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long smem = relax_sweep_shared_bytes(rows, cols, k);
+  const bool global = scratch != nullptr;
+  const long long smem = global ? 0 : relax_sweep_shared_bytes(rows, cols, k);
   static int cap[64] = {};  // asked once a card
   if (cap[device] == 0 && (cap[device] = relax_sweep_shared_cap(device)) < 0) {
     cap[device] = 0;
     return static_cast<int>(cudaErrorInvalidDevice);
   }
   if (smem > cap[device]) return -2;
-  const Args a{enter, start, turn, out, passes, scans, batch, rows, cols, max_passes, k,
+  const long long fields = 4LL * batch * rows * (cols | 1);
+  const Layout lay = layout(rows, cols, k, true);
+  if (global && fields + 1LL * batch * k * (lay.lev[0] + lay.lev[1]) >= (1LL << 31)) return -1;
+  const Args a{enter, start, turn, out, passes, scans, scratch,
+               global ? scratch + fields : nullptr, batch, rows, cols, max_passes, k,
                device, smem, static_cast<cudaStream_t>(stream)};
+  if (global) return launch<kMaxSlots, kMaxSlots, true>(a);
   const int jr = ceil_div(cols, kWarp), jc = ceil_div(rows, kWarp);
   return kLaunchers[(jr - 1) * kMaxSlots + (jc - 1)](a);
 }

@@ -12,6 +12,14 @@ through ctypes (a plain C entry point; no PyTorch headers, so the build takes
 seconds). On CPU tensors the wrapper runs the kernel's plain version,
 ``planning/device_astar.py:device_astar_paths_plain``, stream by stream; on
 CUDA tensors it launches the kernel or raises — it never falls back.
+
+The kernel has two forms: the shared form, the whole search in shared
+memory, for lattices it fits (``shared_bytes``), and the global form, which
+keeps the open set's keys, the cache and the key table in shared memory and
+the per-cell fields a pop reads at five cells in per-stream scratch in
+device memory, for larger lattices (1440p's 72x128 and 4K UHD's 108x192).
+``pick_form`` chooses; ``form="global"`` forces the global form at any size,
+for the checks.
 """
 
 from __future__ import annotations
@@ -33,9 +41,16 @@ SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "astar.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+FORMS = ("shared", "global")
+SHARED_CAP = 232448    # an H100 block's opt-in shared memory (no static shared memory)
+CACHE_BYTES = 4 * 2 * CACHE_SIZE + 2 * 4096   # the cache, its penalties, the key table
+CELL_BYTES = 4 * 5 + 2 * 2 + 1   # g, mbase, pbase, pen, hval, plen, hist, flags
+
 # Kernel launches since the last reset_launches(); one per astar_paths_cuda
-# call on CUDA tensors (B streams and their K goals share a launch).
+# call on CUDA tensors (B streams and their K goals share a launch), and the
+# same by form.
 launches = 0
+launches_by_form = dict.fromkeys(FORMS, 0)
 
 _lib = None
 build_log = ""
@@ -46,6 +61,7 @@ compiled = False       # False when build() reused an earlier build's library
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_form.update(dict.fromkeys(FORMS, 0))
 
 
 def build() -> ctypes.CDLL:
@@ -59,12 +75,21 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.astar_launch.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 6
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     lib.astar_launch.restype = ctypes.c_int
-    lib.astar_shared_bytes.argtypes = [ctypes.c_int] * 2
+    lib.astar_shared_bytes.argtypes = [ctypes.c_int] * 3
     lib.astar_shared_bytes.restype = ctypes.c_longlong
+    lib.astar_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.astar_scratch_bytes.restype = ctypes.c_longlong
     lib.astar_shared_cap.argtypes = [ctypes.c_int]
     lib.astar_shared_cap.restype = ctypes.c_int
+    for rows, cols in ((32, 32), (54, 96), (72, 128), (108, 192), (256, 208)):
+        if ((lib.astar_shared_bytes(rows, cols, 0), lib.astar_shared_bytes(rows, cols, 1),
+             lib.astar_scratch_bytes(rows, cols))
+                != (shared_bytes(rows, cols, "shared"), shared_bytes(rows, cols, "global"),
+                    scratch_bytes(rows, cols))):
+            raise RuntimeError(f"{SOURCE.name} lays out its state unlike "
+                               "cuda_astar.shared_bytes and scratch_bytes")
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
@@ -74,6 +99,74 @@ def build() -> ctypes.CDLL:
 def _shared_cap(index: int) -> int:
     """Shared memory one block may have on card ``index`` (asked once)."""
     return build().astar_shared_cap(index)
+
+
+def _padded_cells(n: int) -> int:
+    """n cells rounded up to whole segments of the open set: 32 segments of
+    at least 128 cells, a power of two (``padded_cells`` in the source)."""
+    shift = 7
+    while (32 << shift) < n:
+        shift += 1
+    seg = 1 << shift
+    return -(-n // seg) * seg
+
+
+def shared_bytes(rows: int, cols: int, form: str) -> int:
+    """Dynamic shared memory of one stream of a rows x cols lattice in
+    ``form``: the open set's keys (4 B a padded cell), the cache, its
+    penalties and the key table; in the shared form also 25 B a cell of
+    g, mbase, pbase, pen, hval, plen, hist and the flags."""
+    n = rows * cols
+    bytes_ = 4 * _padded_cells(n) + CACHE_BYTES + (CELL_BYTES * n if form == "shared" else 0)
+    return -(-bytes_ // 16) * 16
+
+
+def scratch_bytes(rows: int, cols: int) -> int:
+    """The global form's scratch a stream: 25 B a cell, whole 16-byte lines."""
+    return -(-CELL_BYTES * rows * cols // 16) * 16
+
+
+def pick_form(rows: int, cols: int, form: str | None = None) -> str:
+    """The kernel's form for a rows x cols lattice: "shared" where the whole
+    search fits a block's shared memory, else "global"; ``form`` forces one.
+    Raises ValueError where the forced or chosen form's shared memory does
+    not fit: past 53,248 cells (a 256x208 lattice) for the global form."""
+    if form not in (None, *FORMS):
+        raise ValueError(f"A* kernel: form {form!r}, not one of {FORMS}")
+    chosen = form or ("shared" if shared_bytes(rows, cols, "shared") <= SHARED_CAP
+                      else "global")
+    if shared_bytes(rows, cols, chosen) > SHARED_CAP:
+        what = "the search" if chosen == "shared" else "the open set's keys and the tables"
+        raise ValueError(f"astar_paths_cuda: a {rows}x{cols} lattice needs "
+                         f"{shared_bytes(rows, cols, chosen)} bytes of shared memory for "
+                         f"{what} in the {chosen} form, a block has {SHARED_CAP}")
+    return chosen
+
+
+def _launch(form: str, ins: list[torch.Tensor], outs: list[torch.Tensor],
+            k_goals: int, max_len: int, params: list[float], store_radians: int) -> None:
+    """One launch of the kernel's ``form`` on the inputs' card; raises if the
+    launch fails. The global form's scratch comes from the caching
+    allocator."""
+    dev = ins[0].device
+    b, rows, cols = ins[0].shape
+    lib = build()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    need, cap = lib.astar_shared_bytes(rows, cols, int(form == "global")), _shared_cap(index)
+    if need > cap:
+        raise ValueError(f"astar_paths_cuda: a {rows}x{cols} lattice needs {need} bytes "
+                         f"of shared memory in the {form} form, a block of card {index} "
+                         f"has {cap}")
+    scratch = None
+    if form == "global":
+        scratch = torch.empty((b, scratch_bytes(rows, cols)), dtype=torch.uint8, device=dev)
+    err = lib.astar_launch(
+        *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs), b, rows, cols,
+        k_goals, max_len, *params, store_radians,
+        None if scratch is None else scratch.data_ptr(), index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"A* kernel ({form} form) launch failed: cudaError {err}")
 
 
 def _as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -93,7 +186,8 @@ def astar_paths_cuda(walkable: torch.Tensor, penalty: torch.Tensor,
                      angle_exponent: float = 1.5,
                      angle_denominator: float = 90.0,
                      penalty_weight: float = 0.5, angle_weight: float = 1.5,
-                     replicate_radians_cache_bug: bool = True):
+                     replicate_radians_cache_bug: bool = True,
+                     form: str | None = None):
     """walkable (B, R, C) bool, penalty (B, R, C) f32, start_rc (B, 2) int,
     goals_rc (B, K, 2) int, goals_valid (B, K) bool, cache (B, 1226) f32 ->
     (cells (B, K, L, 2) int32 -1 padded, lengths (B, K) int32, costs (B, K)
@@ -102,7 +196,8 @@ def astar_paths_cuda(walkable: torch.Tensor, penalty: torch.Tensor,
 
     Each stream searches its K goals in order with its cache carried from
     goal to goal; invalid goals are skipped (length 0, cost inf) and leave
-    the cache alone. Nothing is read back to the host."""
+    the cache alone. Nothing is read back to the host. ``form`` forces the
+    kernel's form on the card (``pick_form``)."""
     global launches
     dev = walkable.device
     if walkable.dim() != 3:
@@ -147,33 +242,19 @@ def astar_paths_cuda(walkable: torch.Tensor, penalty: torch.Tensor,
         if x.device != dev:
             raise ValueError(f"astar_paths_cuda: {name} lies on {x.device}, "
                              f"walkable on {dev}")
-    lib = build()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    need, cap = lib.astar_shared_bytes(rows, cols), _shared_cap(index)
-    if need > cap:
-        raise ValueError(f"astar_paths_cuda: a {rows}x{cols} lattice needs "
-                         f"{need} bytes of shared memory, a block has {cap}")
-    walk_c = _as(walkable, torch.uint8)
-    pen_c = _as(penalty, torch.float32)
-    start_c = _as(start_rc, torch.int32)
-    goals_c = _as(goals_rc, torch.int32)
-    valid_c = _as(goals_valid, torch.uint8)
-    cache_c = _as(cache, torch.float32)
+    chosen = pick_form(rows, cols, form)
+    ins = [_as(walkable, torch.uint8), _as(penalty, torch.float32),
+           _as(start_rc, torch.int32), _as(goals_rc, torch.int32),
+           _as(goals_valid, torch.uint8), _as(cache, torch.float32)]
     cells = torch.empty((b, k_goals, max_len, 2), dtype=torch.int32, device=dev)
     lengths = torch.empty((b, k_goals), dtype=torch.int32, device=dev)
     costs = torch.empty((b, k_goals), dtype=torch.float32, device=dev)
     cache_out = torch.empty((b, CACHE_SIZE), dtype=torch.float32, device=dev)
     stats = torch.empty((b, k_goals, 2), dtype=torch.int32, device=dev)
-    err = lib.astar_launch(
-        walk_c.data_ptr(), pen_c.data_ptr(), start_c.data_ptr(),
-        goals_c.data_ptr(), valid_c.data_ptr(), cache_c.data_ptr(),
-        cells.data_ptr(), lengths.data_ptr(), costs.data_ptr(),
-        cache_out.data_ptr(), stats.data_ptr(), b, rows, cols, k_goals,
-        max_len, float(grid_size), float(angle_grace_deg),
-        float(angle_exponent), float(angle_denominator), float(penalty_weight),
-        float(angle_weight), int(replicate_radians_cache_bug), index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"A* kernel launch failed: cudaError {err}")
+    _launch(chosen, ins, [cells, lengths, costs, cache_out, stats], k_goals, max_len,
+            [float(grid_size), float(angle_grace_deg), float(angle_exponent),
+             float(angle_denominator), float(penalty_weight), float(angle_weight)],
+            int(replicate_radians_cache_bug))
     launches += 1
+    launches_by_form[chosen] += 1
     return cells, lengths, costs, cache_out, stats

@@ -7,6 +7,12 @@ twin's Jacobi order: it walks whole lines sequentially, which reaches the
 same fixed point, bit for bit, in far fewer barrier-separated passes (see
 ``csrc/relax.cu`` for the design, the argument and what bounds it).
 
+The kernel has two forms: the shared form for lattices whose state fits a
+block's shared memory (``shared_bytes`` within ``SHARED_CAP``), and the
+global form, the same passes over the same state in per-stream scratch in
+device memory, for larger lattices (4K UHD's 108x192). ``pick_form`` chooses;
+``form="global"`` forces the global form at any size, for the checks.
+
 The kernel is compiled by ``nvcc`` from the repository's source at first use
 on a CUDA tensor, into ``.torch_ext_build/`` at the repository root, and bound
 through ctypes (a plain C entry point; no PyTorch headers, so the build takes
@@ -35,9 +41,13 @@ SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "relax.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+FORMS = ("shared", "global")
+SHARED_CAP = 232448 - 64   # an H100 block's opt-in shared memory less the kernel's static
+
 # Kernel launches since the last reset_launches(); one per relax_field_cuda
-# call on CUDA tensors (B streams share a launch).
+# call on CUDA tensors (B streams share a launch), and the same by form.
 launches = 0
+launches_by_form = dict.fromkeys(FORMS, 0)
 
 _lib = None
 build_log = ""
@@ -48,6 +58,7 @@ compiled = False       # False when build() reused an earlier build's library
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_form.update(dict.fromkeys(FORMS, 0))
 
 
 def build() -> ctypes.CDLL:
@@ -59,13 +70,17 @@ def build() -> ctypes.CDLL:
     lib_path, build_log, compiled = compile_shared(
         nvcc(), NVCC_FLAGS, SOURCE, "relax")
     lib = ctypes.CDLL(str(lib_path))
-    lib.relax_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    lib.relax_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.relax_launch.restype = ctypes.c_int
     lib.relax_shared_bytes.argtypes = [ctypes.c_int] * 2
     lib.relax_shared_bytes.restype = ctypes.c_longlong
     lib.relax_shared_cap.argtypes = [ctypes.c_int]
     lib.relax_shared_cap.restype = ctypes.c_int
+    for rows, cols in ((32, 32), (54, 96), (108, 192)):
+        if lib.relax_shared_bytes(rows, cols) != shared_bytes(rows, cols):
+            raise RuntimeError(f"{SOURCE.name} lays out its state unlike "
+                               "cuda_wavefront.shared_bytes")
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
@@ -84,8 +99,58 @@ def _as(x: torch.Tensor, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return x if x.is_contiguous() else x.contiguous()
 
 
+def shared_bytes(rows: int, cols: int) -> int:
+    """The state of one stream of a rows x cols lattice, in bytes: dist[4]
+    and the entry costs, each (R + 2) x ((C + 2) | 1) floats with the halo
+    (``relax_shared_bytes`` in the source): the shared form's dynamic shared
+    memory, and the global form's scratch a stream."""
+    return 20 * (rows + 2) * ((cols + 2) | 1)
+
+
+def pick_form(rows: int, cols: int, form: str | None = None) -> str:
+    """The kernel's form for a rows x cols lattice: "shared" where its state
+    fits a block's shared memory, else "global"; ``form`` forces one (the
+    shared form raises ValueError where it does not fit)."""
+    if form not in (None, *FORMS):
+        raise ValueError(f"relax kernel: form {form!r}, not one of {FORMS}")
+    fits = shared_bytes(rows, cols) <= SHARED_CAP
+    if form == "shared" and not fits:
+        raise ValueError(f"relax kernel: a {rows}x{cols} lattice needs "
+                         f"{shared_bytes(rows, cols)} bytes of shared memory in the "
+                         f"shared form, a block has {SHARED_CAP}")
+    return form or ("shared" if fits else "global")
+
+
+def _launch(form: str, enter: torch.Tensor, start: torch.Tensor,
+            turn: torch.Tensor, out: torch.Tensor, sweeps: torch.Tensor,
+            max_passes: int) -> None:
+    """One launch of the kernel's ``form`` on the inputs' card; raises if the
+    launch fails. The global form's scratch comes from the caching
+    allocator."""
+    dev = enter.device
+    b, rows, cols = enter.shape
+    lib = build()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    scratch = None
+    if form == "global":
+        scratch = torch.empty((b, shared_bytes(rows, cols) // 4), dtype=torch.float32,
+                              device=dev)
+    elif lib.relax_shared_bytes(rows, cols) > _shared_cap(index):
+        raise ValueError(f"relax_field_cuda: a {rows}x{cols} lattice needs "
+                         f"{lib.relax_shared_bytes(rows, cols)} bytes of shared memory, "
+                         f"a block of card {index} has {_shared_cap(index)}")
+    err = lib.relax_launch(
+        enter.data_ptr(), start.data_ptr(), turn.data_ptr(), out.data_ptr(),
+        sweeps.data_ptr(), b, rows, cols, max_passes,
+        None if scratch is None else scratch.data_ptr(), index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"relax kernel ({form} form) launch failed: cudaError {err}")
+
+
 def relax_field_cuda(enter: torch.Tensor, start: torch.Tensor,
-                     turn: torch.Tensor, max_sweeps: int | None = None
+                     turn: torch.Tensor, max_sweeps: int | None = None, *,
+                     form: str | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """enter (B, R, C) f32, start (B, 2) int, turn (4, 4) f32 ->
     (dist (B, R, C, 4) f32, sweeps (B,) int32).
@@ -95,7 +160,7 @@ def relax_field_cuda(enter: torch.Tensor, start: torch.Tensor,
     line passes each stream ran, fewer than the twin's Jacobi sweeps, and
     ``max_sweeps`` caps those passes (default R*C, which never binds; a
     cap that cuts the iteration short leaves a field that is not the
-    twin's)."""
+    twin's). ``form`` forces the kernel's form (``pick_form``)."""
     global launches
     if enter.device.type == "cpu":
         return relax_field(enter, start, turn, max_sweeps)
@@ -107,25 +172,16 @@ def relax_field_cuda(enter: torch.Tensor, start: torch.Tensor,
                          f" start {tuple(start.shape)} turn {tuple(turn.shape)}")
     b, rows, cols = enter.shape
     dev = enter.device
-    lib = build()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    need, cap = lib.relax_shared_bytes(rows, cols), _shared_cap(index)
-    if need > cap:
-        raise ValueError(f"relax_field_cuda: a {rows}x{cols} lattice needs "
-                         f"{need} bytes of shared memory, a block has {cap}")
+    chosen = pick_form(rows, cols, form)
     enter_c = _as(enter, torch.float32, dev)
     start_c = _as(start, torch.int32, dev)
     turn_c = _as(turn, torch.float32, dev)
     out = torch.empty((b, rows, cols, 4), dtype=torch.float32, device=dev)
     sweeps = torch.empty((b,), dtype=torch.int32, device=dev)
-    err = lib.relax_launch(
-        enter_c.data_ptr(), start_c.data_ptr(), turn_c.data_ptr(),
-        out.data_ptr(), sweeps.data_ptr(), b, rows, cols,
-        rows * cols if max_sweeps is None else max_sweeps, index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"relax kernel launch failed: cudaError {err}")
+    _launch(chosen, enter_c, start_c, turn_c, out, sweeps,
+            rows * cols if max_sweeps is None else max_sweeps)
     launches += 1
+    launches_by_form[chosen] += 1
     return out, sweeps
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -53,3 +54,24 @@ def compile_shared(compiler: str, flags: list[str], source: pathlib.Path,
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, log, True
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """Each kernel ``ptxas -v`` reports in ``log``: its mangled name,
+    registers a thread, stack frame, spill stores and spill loads (bytes;
+    summed over every function ptxas lists with it)."""
+    out = []
+    for block in re.split(r"ptxas info\s*: (?=Compiling entry function)", log)[1:]:
+        name, regs = _ENTRY.match(block), _REGS.search(block)
+        frames = [[int(x) for x in f] for f in _FRAME.findall(block)]
+        if name and regs:
+            out.append({"name": name.group(1), "registers": int(regs.group(1)),
+                        "stack": sum(f[0] for f in frames),
+                        "spill_stores": sum(f[1] for f in frames),
+                        "spill_loads": sum(f[2] for f in frames)})
+    return out

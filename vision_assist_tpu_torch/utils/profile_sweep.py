@@ -42,7 +42,7 @@ import tempfile
 import torch
 
 from vision_assist_tpu_torch.ops import cuda_sweep
-from vision_assist_tpu_torch.utils.build import BUILD_DIR
+from vision_assist_tpu_torch.utils.build import BUILD_DIR, compile_shared, nvcc
 
 _LINE = re.compile(r"sweep-profile stream (\d+) rank (\d+) passes (\d+) "
                    r"start (\d+) end (\d+) cycles((?: -?\d+)+)")
@@ -134,19 +134,34 @@ def _stdout_to(path: pathlib.Path):
         os.close(saved)
 
 
-def stamped_runs(inputs: dict, turn: torch.Tensor, cluster: int = 0, warp: int = 0
-                 ) -> tuple[list[str], dict]:
-    """Build the stamped copy of the kernel, stamped by ``warp``, launch it
-    once on each of ``inputs`` (name -> (enter, start)) in clusters of
-    ``cluster`` CTAs (0: the launch's choice), and return the sections'
-    names and each input's records. The kernel's library is restored
-    afterwards."""
+def stamped_source(warp: int = 0) -> tuple[pathlib.Path, list[str]]:
+    """The stamped copy of the kernel's source, stamped by ``warp``, written
+    into the build directory, and the sections' names."""
     src, names = instrumented_source(cuda_sweep.SOURCE.read_text(), warp)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"relax_sweep_profile_w{warp}.cu"
     path.write_text(src)
+    return path, names
+
+
+def prebuild(warp: int = 0) -> None:
+    """Compile the stamped copy ahead of ``stamped_runs``, which then loads
+    it from the build directory (to overlap its compilation with others)."""
+    path, _ = stamped_source(warp)
+    compile_shared(nvcc(), cuda_sweep.NVCC_FLAGS, path, "relax_sweep")
+
+
+def stamped_runs(inputs: dict, turn: torch.Tensor, cluster: int = 0, warp: int = 0
+                 ) -> tuple[list[str], dict]:
+    """Build the stamped copy of the kernel, stamped by ``warp`` (or load it
+    where ``prebuild`` made it), launch it once on each of ``inputs`` (name
+    -> (enter, start)) in clusters of ``cluster`` CTAs (0: the launch's
+    choice), and return the sections' names and each input's records. The
+    kernel's library is restored afterwards."""
+    path, names = stamped_source(warp)
     kept = ("SOURCE", "_lib", "launches", "build_log", "build_seconds", "compiled")
     saved = [getattr(cuda_sweep, name) for name in kept]
+    by_form = dict(cuda_sweep.launches_by_form)
     cuda_sweep.SOURCE, cuda_sweep._lib = path, None
     records = {}
     try:
@@ -160,6 +175,7 @@ def stamped_runs(inputs: dict, turn: torch.Tensor, cluster: int = 0, warp: int =
     finally:
         for name, value in zip(kept, saved):
             setattr(cuda_sweep, name, value)
+        cuda_sweep.launches_by_form.update(by_form)
     return names, records
 
 
