@@ -1,0 +1,95 @@
+"""The precision control of the check: the plain reference put in the
+program's place one precision step below what the configuration states,
+read by the same numbers as the program.
+
+    python benchmark/control.py --workload <cell> --seeds 11,12,13 [--device cuda]
+
+The segmenter's control is the reference chain with every convolution and
+matmul operand rounded to float8 e4m3 (the configuration states bf16), held
+against the float32 reference on the cell's frame pool. The planner's
+control is the reference planner with its penalty field and path costs
+rounded one step below the engine's precision (float32 for the host
+engine's float64, bfloat16 for the device A*'s float32), held against the
+float64 planner, each stream through its frames in order, from the float32
+reference's lattices. Prints one JSON line a seed. The benchmark's own runs
+never run it; it sets the upper readings the limits in
+``benchmark/limits/`` are chosen under.
+"""
+
+import argparse
+import json
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def to_float32(x):
+    import numpy as np
+
+    return np.asarray(x, np.float32).astype(np.float64)
+
+
+def to_bf16(x):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def control_numbers(root, cell, seed: int, device) -> dict:
+    from benchmark.harness.check import planner_numbers, reference_segmentation, segmenter_numbers
+    from benchmark.harness.frames import make_pool, stream_offsets
+    from benchmark.harness.serve import Answer
+    from benchmark.reference.plan import ReferencePlanner
+    from benchmark.reference.yolo import fake_fp8
+
+    t = cell.traffic
+    pool = make_pool(t, seed)
+    ref = reference_segmentation(root, cell.config, pool, device)
+    low = reference_segmentation(root, cell.config, pool, device, quant=fake_fp8)
+    hw, g = (t["frame_height"], t["frame_width"]), cell.config["grid_size"]
+
+    def answers(seg, round_cost=None):
+        out = []
+        for s, off in enumerate(stream_offsets(t)):
+            planner = ReferencePlanner(hw, g, t["engine"] == "exact_device", round_cost)
+            for seq in range(len(pool)):
+                i = (off + seq) % len(pool)
+                r = seg[i]
+                p = planner.frame(r.occupancy, r.n_detections, seq * t["frame_interval_ms"])
+                out.append(Answer(s, seq, i, seq * t["frame_interval_ms"], r.occupancy,
+                                  r.n_detections, r.best_conf, p.walkable, p.artificial,
+                                  p.penalty, p.peaks, p.paths, p.answer))
+        return out
+
+    numbers = segmenter_numbers(answers(low), ref, cell.config["conf_threshold"],
+                                cell.limits["conf_gap"])
+    # The host planner (engine "exact") is float64, the device A* float32.
+    lower = to_float32 if t["engine"] == "exact" else to_bf16
+    numbers.update(planner_numbers(answers(ref, round_cost=lower), hw, g, t["engine"]))
+    numbers["detected_share"] = sum(r.n_detections > 0 for r in ref) / len(ref)
+    return numbers
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="The check's precision control.")
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from benchmark.harness.cell import load_cell
+
+    cell = load_cell(ROOT, args.workload)
+    for seed in (int(s) for s in args.seeds.split(",")):
+        numbers = control_numbers(ROOT, cell, seed, torch.device(args.device))
+        print(json.dumps({"workload": cell.name, "seed": seed, "control": numbers}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

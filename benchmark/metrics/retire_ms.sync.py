@@ -1,0 +1,8 @@
+"""Median host ms of the serving loop's retire call (a frame): the wait
+for the payload, unpacking, the host half and the analyser; the one-camera cells."""
+
+from benchmark.harness.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "retire")

@@ -1,0 +1,242 @@
+"""The segmenter's reference chain, plain float32 PyTorch and numpy: camera
+frame -> I420 wire -> letterbox -> YOLO-seg -> DFL decode -> greedy NMS ->
+masks -> the winning mask sampled at every cell centre -> occupancy lattice.
+
+Frozen copies of the port's ``ops/yuv.py`` (host packer and device unpack),
+``ops/letterbox.py``, ``models/decode.py`` (the plain NMS) and
+``models/inference.py``'s chain, in float32 with TF32 off. The NMS is the
+stable sort and the greedy loop, one step a candidate.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from benchmark.reference.yolo import YoloSeg, load_flax_variables
+
+NEG = -1.0e30
+
+# OpenCV's BT.601 fixed-point constants (>> 20).
+_SHIFT = 20
+_CY = 1220542 / (1 << _SHIFT)
+_CUB = 2116026 / (1 << _SHIFT)
+_CUG = -409993 / (1 << _SHIFT)
+_CVG = -852492 / (1 << _SHIFT)
+_CVR = 1673527 / (1 << _SHIFT)
+_TO_Y = (269484, 528482, 102760)
+_TO_U = (-155188, -305135, 460324)
+_TO_V = (460324, -385875, -74448)
+
+
+def bgr_to_i420(frame: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 BGR -> cv2's (H*3/2, W) uint8 I420 plane."""
+    h, w = frame.shape[:2]
+    b, g, r = (frame[..., k].astype(np.int32) for k in range(3))
+    half = 1 << (_SHIFT - 1)
+
+    def mix(coef, rr, gg, bb, offset):
+        acc = coef[0] * rr + coef[1] * gg + coef[2] * bb
+        return np.clip((acc + (offset << _SHIFT) + half) >> _SHIFT, 0, 255)
+
+    y = mix(_TO_Y, r, g, b, 16)
+    rs, gs, bs = r[::2, ::2], g[::2, ::2], b[::2, ::2]
+    chroma = np.concatenate([mix(_TO_U, rs, gs, bs, 128).reshape(-1),
+                             mix(_TO_V, rs, gs, bs, 128).reshape(-1)])
+    return np.concatenate([y.reshape(-1), chroma]).astype(np.uint8).reshape(h * 3 // 2, w)
+
+
+def i420_to_bgr(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(S, H*3/2, W) uint8 I420 -> (S, H, W, 3) uint8 BGR."""
+    s = plane.shape[0]
+    y = plane[:, :h, :].float()
+    chroma = plane[:, h:, :].reshape(s, -1)
+    q = (h // 2) * (w // 2)
+    u = chroma[:, :q].reshape(s, h // 2, w // 2).float()
+    v = chroma[:, q:].reshape(s, h // 2, w // 2).float()
+    u = u.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    v = v.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    c = (y - 16.0) * _CY
+    d, e = u - 128.0, v - 128.0
+    bgr = torch.stack([c + _CUB * d, c + _CUG * d + _CVG * e, c + _CVR * e], dim=-1)
+    return torch.clamp(torch.round(bgr), 0.0, 255.0).to(torch.uint8)
+
+
+@dataclasses.dataclass(frozen=True)
+class Letterbox:
+    ratio: float
+    new_h: int
+    new_w: int
+    pad_top: int
+    pad_left: int
+
+    @classmethod
+    def create(cls, src_h: int, src_w: int, dst: int) -> "Letterbox":
+        r = min(dst / src_h, dst / src_w)
+        new_h, new_w = round(src_h * r), round(src_w * r)
+        dh, dw = (dst - new_h) / 2, (dst - new_w) / 2
+        return cls(r, new_h, new_w, int(round(dh - 0.1)), int(round(dw - 0.1)))
+
+    def to_dst(self, x: float, y: float) -> tuple[float, float]:
+        return ((x + 0.5) * self.ratio - 0.5 + self.pad_left,
+                (y + 0.5) * self.ratio - 0.5 + self.pad_top)
+
+
+def letterbox(img: torch.Tensor, spec: Letterbox, dst: int) -> torch.Tensor:
+    """(S, H, W, 3) uint8 BGR -> (S, 3, dst, dst) float32 RGB in [0, 1];
+    bilinear without antialiasing, grey 114 padding."""
+    x = img.float().flip(-1).permute(0, 3, 1, 2)
+    resized = F.interpolate(x, (spec.new_h, spec.new_w), mode="bilinear",
+                            align_corners=False, antialias=False)
+    out = torch.full((img.shape[0], 3, dst, dst), 114.0, device=img.device)
+    out[:, :, spec.pad_top:spec.pad_top + spec.new_h,
+        spec.pad_left:spec.pad_left + spec.new_w] = resized
+    return out / 255.0
+
+
+def decode(outs, reg_max: int):
+    """-> boxes (S, A, 4) xyxy, class logits (S, A, nc), coefficients (S, A, nm)."""
+    def flat(xs):
+        return torch.cat([x.flatten(2).transpose(1, 2) for x in xs], dim=1)
+
+    dev = outs.protos.device
+    pts, sts = [], []
+    for x, s in zip(outs.box_logits, outs.strides):
+        h, w = x.shape[2:4]
+        yv, xv = torch.meshgrid(torch.arange(h, device=dev) + 0.5,
+                                torch.arange(w, device=dev) + 0.5, indexing="ij")
+        pts.append(torch.stack([xv.reshape(-1), yv.reshape(-1)], -1) * s)
+        sts.append(torch.full((h * w, 1), float(s), device=dev))
+    anchors, strides = torch.cat(pts), torch.cat(sts)
+    logits = flat(outs.box_logits)
+    probs = torch.softmax(logits.reshape(*logits.shape[:-1], 4, reg_max), dim=-1)
+    dist = (probs * torch.arange(reg_max, device=dev, dtype=torch.float32)).sum(-1)
+    boxes = torch.cat([anchors - dist[..., :2] * strides,
+                       anchors + dist[..., 2:] * strides], dim=-1)
+    return boxes, flat(outs.cls_logits), flat(outs.coeffs)
+
+
+def _iou(a, b):
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :] - inter, min=1e-9)
+
+
+def nms(boxes, cls_logits, coeffs, conf: float, iou: float, max_cand: int, max_det: int):
+    """Greedy class-aware NMS on (S, A, .) inputs -> (boxes, scores, coeffs,
+    valid) of the first ``max_det`` kept, each (S, max_det, .), the number
+    of candidates above ``conf`` an image (at most ``max_cand``) and the
+    highest score an image, above the threshold or not."""
+    best, cls = torch.max(torch.sigmoid(cls_logits), dim=-1)
+    cand = torch.where(best > conf, best, NEG)
+    k = min(max_cand, cand.shape[-1])
+    top, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+    top, idx = top[:, :k], idx[:, :k]
+    valid = top > conf
+    cboxes = torch.take_along_dim(boxes, idx[..., None], dim=1)
+    ccls = torch.take_along_dim(cls, idx, dim=1)
+    off = cboxes + ccls.float()[..., None] * 7680.0
+    order = torch.arange(k, device=boxes.device)
+    suppress = (_iou(off, off) > iou) & (order[None, :] > order[:, None])
+    keep = valid.clone()
+    for i in range(k):
+        keep &= ~(suppress[:, i, :] & keep[:, i, None])
+    rank = torch.where(keep, order, k)
+    sel = torch.argsort(rank, dim=-1, stable=True)[:, :max_det]
+    if sel.shape[1] < max_det:
+        raise ValueError("fewer candidates than detections")
+    kept = torch.take_along_dim(rank, sel, dim=1) < k
+    ccoef = torch.take_along_dim(coeffs, idx[..., None], dim=1)
+    return (torch.take_along_dim(cboxes, sel[..., None], dim=1),
+            torch.where(kept, torch.take_along_dim(top, sel, dim=1), 0.0),
+            torch.take_along_dim(ccoef, sel[..., None], dim=1),
+            kept, valid.sum(-1), best.max(dim=-1).values)
+
+
+@dataclasses.dataclass
+class SegOut:
+    """One image's reference segmentation."""
+    occupancy: np.ndarray   # (R, C) bool
+    n_detections: int
+    best_conf: float
+    n_candidates: int       # anchors above the confidence threshold, at most K
+    top_score: float        # the highest anchor score, above the threshold or not
+
+
+class ReferenceSegmenter:
+    """The float32 chain for one model configuration; ``quant`` rounds every
+    convolution and matmul operand (the precision control)."""
+
+    def __init__(self, config: dict, variables: dict, frame_hw: tuple[int, int],
+                 device: torch.device, quant=None):
+        self.cfg = config
+        self.model = YoloSeg(config["arch"], config["num_classes"],
+                             config["reg_max"], config["num_mask_coeffs"])
+        load_flax_variables(self.model, variables)
+        self.model.eval().to(device)
+        self.model.set_quant(quant)
+        self.device = device
+        self.h, self.w = frame_hw
+        g = config["grid_size"]
+        self.rows, self.cols = self.h // g, self.w // g
+        self.spec = Letterbox.create(self.h, self.w, config["imgsz"])
+        cy, cx = np.meshgrid(np.arange(self.rows) * g + g // 2,
+                             np.arange(self.cols) * g + g // 2, indexing="ij")
+        pts = [self.spec.to_dst(float(x), float(y))
+               for x, y in zip(cx.reshape(-1), cy.reshape(-1))]
+        self.centres = torch.tensor(pts, dtype=torch.float32, device=device)
+
+    def wire(self, frames: np.ndarray) -> torch.Tensor:
+        """(S, H, W, 3) camera frames as the program receives them."""
+        if self.cfg["transfer_format"] != "i420":
+            return torch.from_numpy(frames).to(self.device)
+        planes = np.stack([bgr_to_i420(f) for f in frames])
+        return i420_to_bgr(torch.from_numpy(planes).to(self.device), self.h, self.w)
+
+    @torch.no_grad()
+    def __call__(self, frames: np.ndarray) -> list[SegOut]:
+        c = self.cfg
+        imgsz = c["imgsz"]
+        outs = self.model(letterbox(self.wire(frames), self.spec, imgsz))
+        boxes, cls_logits, coeffs = decode(outs, c["reg_max"])
+        dboxes, scores, dcoef, kept, n_cand, top = nms(
+            boxes, cls_logits, coeffs, c["conf_threshold"], c["iou_threshold"],
+            c["max_candidates"], c["max_detections"])
+        protos = outs.protos
+        hp, wp = protos.shape[-2:]
+        masks = torch.einsum("sdn,snhw->sdhw", dcoef, protos)
+        scale = torch.tensor([wp / imgsz, hp / imgsz] * 2, device=self.device)
+        b = (dboxes * scale)[..., None, None]
+        xs = torch.arange(wp, device=self.device, dtype=torch.float32)[None, :]
+        ys = torch.arange(hp, device=self.device, dtype=torch.float32)[:, None]
+        inside = ((xs >= b[:, :, 0]) & (xs < b[:, :, 2]) & (ys >= b[:, :, 1])
+                  & (ys < b[:, :, 3]))
+        masks = masks * (inside & kept[..., None, None]).float()
+        areas = torch.where(kept, (masks > 0).sum(dim=(-1, -2)), -1)
+        winner = torch.argmax(areas, dim=-1)
+        # The winning mask's logits sampled bilinearly at every cell centre
+        # (align_corners=False, the source coordinate clamped first).
+        m = masks[torch.arange(masks.shape[0]), winner]            # (S, hp, wp)
+        px = torch.clamp((self.centres[:, 0] + 0.5) * wp / imgsz - 0.5, 0, wp - 1)
+        py = torch.clamp((self.centres[:, 1] + 0.5) * hp / imgsz - 0.5, 0, hp - 1)
+        x0, y0 = torch.floor(px), torch.floor(py)
+        fx, fy = px - x0, py - y0
+        x0i, y0i = x0.long().clamp(0, wp - 1), y0.long().clamp(0, hp - 1)
+        x1i, y1i = (x0i + 1).clamp(max=wp - 1), (y0i + 1).clamp(max=hp - 1)
+        val = (m[:, y0i, x0i] * (1 - fx) * (1 - fy) + m[:, y0i, x1i] * fx * (1 - fy)
+               + m[:, y1i, x0i] * (1 - fx) * fy + m[:, y1i, x1i] * fx * fy)
+        any_det = kept.any(dim=-1)
+        occ = (val > 0) & any_det[:, None]
+        best = torch.where(any_det, scores.max(dim=-1).values, 0.0)
+        occ, n_det, best, n_cand, top = (
+            t.cpu().numpy() for t in (occ, kept.sum(-1), best, n_cand, top))
+        return [SegOut(occ[i].reshape(self.rows, self.cols), int(n_det[i]),
+                       float(best[i]), int(n_cand[i]), float(top[i]))
+                for i in range(len(frames))]
