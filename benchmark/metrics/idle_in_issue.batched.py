@@ -1,0 +1,9 @@
+"""Share of the traced window in which no device operation ran and the host
+was inside the program's ``program`` span (issuing the device program); the
+cells of many cameras."""
+
+from benchmark.harness.program_spans import read_idle_in
+
+
+def read(run):
+    return read_idle_in(run, "program")

@@ -223,8 +223,7 @@ result line:
              process on the card at small counts, counts zeroed before and
              read after: diagnose_device_p50 (K = 8 frames a CUDA graph for
              exact, the kernel wavefront and exact_device, the replayed
-             payloads bit-equal to the per-frame calls), the host breakdown
-             at depth 8 and 8 streams at depth 2, h2d, engines, fused,
+             payloads bit-equal to the per-frame calls), h2d, engines, fused,
              batch1 (with its torch.profiler trace), latency, wire (beside
              phase 16's numbers), detections, profile_pipeline and
              compare_pathfinders: each exits 0 and its headline numbers are
@@ -1443,13 +1442,6 @@ def tools_phase(record: dict, out_dir: pathlib.Path, cuda_astar,
             f"{row['replay_device_ms']['p50']:.3f} ms, CUDA events, p50 of 5), payloads "
             f"bit-equal to {row['frames']} per-frame calls; {row['h2d_syncs_per_frame']:g} "
             f"host uploads a frame hoisted; launches at capture {row['launches']}")
-    r = run_tool("diagnose_host_breakdown", ["--frames", "32", "--steps", "6"], out_dir)
-    for part, label in (("single_stream", "depth 8"), ("batched", "8 streams depth 2")):
-        row = r[part]
-        shares = ", ".join(f"{k} {v:.3f}" for k, v in row["shares"].items())
-        log(f"phase tools host_breakdown {label}: {row['wall_host_ms']:.3f} host ms a "
-            f"{'frame' if part == 'single_stream' else 'step'} ({row['frames_per_s']:.3f} "
-            f"frames/s), stage shares: {shares}")
     r = run_tool("diagnose_h2d", ["--frames", "16", "--served", "24"], out_dir)
     for name in ("bgr", "i420"):
         row = r[name]

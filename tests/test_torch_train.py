@@ -497,7 +497,7 @@ def test_no_forbidden_imports_anywhere_in_the_port():
         "golden/peaks", "golden/pipeline", "io/draw", "io/font", "io/visualiser",
         "render_demo", "dryrun", "parallel/mesh", "parallel/distributed",
         "parallel/train_step", "golden/contours", "golden/protrusions",
-        "tools/_card", "tools/diagnose_host_breakdown", "tools/diagnose_device_p50",
+        "tools/_card", "tools/diagnose_device_p50",
         "tools/diagnose_h2d", "tools/diagnose_engines", "tools/diagnose_fused",
         "tools/diagnose_batch1", "tools/diagnose_latency", "tools/diagnose_wire",
         "tools/diagnose_detections", "tools/profile_pipeline",

@@ -25,6 +25,7 @@ Engines (``cfg.pathfinder.engine``):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 
 import numpy as np
@@ -42,6 +43,7 @@ from vision_assist_tpu_torch.planning.device_astar import empty_cache
 from vision_assist_tpu_torch.semantics.analyser import InstructionEngine
 from vision_assist_tpu_torch.semantics.sections import AnalysedPath, build_path
 from vision_assist_tpu_torch.types import Coordinate, Peak
+from vision_assist_tpu_torch.utils.spans import span
 from vision_assist_tpu_torch.utils.streams import to_numpy
 
 
@@ -64,16 +66,30 @@ class FrameResult:
 @dataclasses.dataclass
 class _Handle:
     """A submitted frame, or a submitted step of S frames: the payload on
-    the host (filled asynchronously on the card) and the event that marks
-    the copy done."""
+    the host (filled asynchronously on the card), the event that marks the
+    copy done, and the step's id, which its retire spans carry."""
     host: torch.Tensor
     done: torch.cuda.Event | None
+    step: int | None = None
 
     def payload(self) -> np.ndarray:
         """Wait for the copy; the payload, (N,) or (S, N) int32."""
-        if self.done is not None:
-            self.done.synchronize()
+        with span("wait"):
+            if self.done is not None:
+                self.done.synchronize()
         return self.host.numpy()
+
+
+def _angle_cache_entries(cache: torch.Tensor) -> list[int]:
+    """Entries held in each stream's device angle cache: the non-NaN values
+    of each (1226,) row less its last column."""
+    rows = cache.reshape(-1, cache.shape[-1]).cpu().numpy()
+    return [int(np.count_nonzero(~np.isnan(row[:-1]))) for row in rows]
+
+
+def _exact_engine_entries(engine) -> int:
+    """Entries held in a host engine's angle cache (native or numpy)."""
+    return engine.cache_size if hasattr(engine, "cache_size") else len(engine._angle_cache)
 
 
 class FrameProcessor:
@@ -119,6 +135,7 @@ class FrameProcessor:
         # processor's device across frames; the host never reads it.
         self._astar_cache = (empty_cache(self.device)
                              if engine == "exact_device" else None)
+        self._steps = itertools.count()     # the id of each submit's spans
 
     # -- host half -------------------------------------------------------------------
 
@@ -273,6 +290,16 @@ class FrameProcessor:
             self._device_fn, self._unpack = make_frame_program(
                 self.cfg, self.segmenter, replay_rounding=self._replay_rounding)
 
+    def carried_state(self) -> list[tuple[int, dict]]:
+        """The state carried from frame to frame, as one stream's
+        [(angle-cache entries, instruction memory)]: the device cache's with
+        ``engine="exact_device"``, else the host engine's."""
+        if self._astar_cache is not None:
+            keys = _angle_cache_entries(self._astar_cache)[0]
+        else:
+            keys = _exact_engine_entries(self._exact)
+        return [(keys, self.analyser.previous_instructions)]
+
     def _pack_frame(self, frame_bgr) -> np.ndarray:
         """One frame as it goes up: I420 when cfg.transfer_format says so,
         packed on the host."""
@@ -290,20 +317,24 @@ class FrameProcessor:
         submit)."""
         self._ensure_program()
         cuda = self.device.type == "cuda"
-        src = torch.from_numpy(np.ascontiguousarray(frames))
-        if cuda:
-            src = src.pin_memory()
-        dev_frames = src.to(self.device, non_blocking=cuda)
-        if astar_cache is not None:
-            payload, astar_cache = self._device_fn(dev_frames, astar_cache)
-        else:
-            payload = self._device_fn(dev_frames)
-        if not cuda:
-            return _Handle(host=payload, done=None), astar_cache
-        host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
-        host.copy_(payload, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with span("upload"):
+            src = torch.from_numpy(np.ascontiguousarray(frames))
+            if cuda:
+                src = src.pin_memory()
+            dev_frames = src.to(self.device, non_blocking=cuda)
+        with span("program"):
+            if astar_cache is not None:
+                payload, astar_cache = self._device_fn(dev_frames, astar_cache)
+            else:
+                payload = self._device_fn(dev_frames)
+        with span("readback"):
+            if cuda:
+                host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+                host.copy_(payload, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host, done = payload, None
         return _Handle(host=host, done=done), astar_cache
 
     def submit_frame(self, frame_bgr: np.ndarray) -> _Handle:
@@ -313,8 +344,12 @@ class FrameProcessor:
         packed on the host), and the payload comes back once, into pinned
         host memory, asynchronously on the current stream. Pass the handle
         to retire_frame()."""
-        handle, self._astar_cache = self._run_program(
-            self._pack_frame(frame_bgr), self._astar_cache)
+        step = next(self._steps)
+        with span("submit", step):
+            with span("pack"):
+                packed = self._pack_frame(frame_bgr)
+            handle, self._astar_cache = self._run_program(packed, self._astar_cache)
+        handle.step = step
         return handle
 
     def _guidance(self, payload, exact_engine=None):
@@ -352,12 +387,18 @@ class FrameProcessor:
         without debug it is ignored."""
         if now_ms is None:
             now_ms = int(time.time() * 1000)
-        payload = self._unpack(handle.payload())
-        if self.cfg.blur.enabled and \
-                payload.blur_var < self.cfg.blur.laplacian_var_threshold:
-            return None
-        return self._with_overlay(self._result(
-            payload, self._guidance(payload), self.analyser, now_ms), frame)
+        with span("retire", handle.step):
+            buf = handle.payload()
+            with span("unpack"):
+                payload = self._unpack(buf)
+            if self.cfg.blur.enabled and \
+                    payload.blur_var < self.cfg.blur.laplacian_var_threshold:
+                return None
+            with span("guidance"):
+                guidance = self._guidance(payload)
+            with span("analyse"):
+                result = self._result(payload, guidance, self.analyser, now_ms)
+            return self._with_overlay(result, frame)
 
     def __call__(self, frame_bgr: np.ndarray,
                  now_ms: int | None = None) -> FrameResult | None:

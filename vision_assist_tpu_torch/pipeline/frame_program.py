@@ -36,6 +36,7 @@ from vision_assist_tpu_torch.ops.peaks import PeakSet
 from vision_assist_tpu_torch.ops.yuv import i420_to_bgr
 from vision_assist_tpu_torch.pipeline.planner import make_plan_step
 from vision_assist_tpu_torch.planning.wavefront import PathBatch
+from vision_assist_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -109,48 +110,54 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
         if single:
             frames = frames[None]
             astar_cache = None if astar_cache is None else astar_cache[None]
-        frames_bgr = (i420_to_bgr(frames, cfg.frame_height, cfg.frame_width)
-                      if i420 else frames)
-        seg = segmenter._frame_chain(frames_bgr)
-        pr = plan(seg.occupancy, astar_cache)
-        blur = laplacian_variance(frames_bgr)                    # (S,)
-
-        i32 = torch.int32
-        flags = (pr.walkable.to(i32) | (pr.artificial.to(i32) << 1)
-                 | (seg.occupancy.to(i32) << 2))
-        peaks = torch.stack(
-            [pr.peaks.centre_x, pr.peaks.centre_y, pr.peaks.left_x,
-             pr.peaks.right_x, pr.peaks.orientation,
-             pr.peaks.valid.to(i32)], dim=-1).to(i32)
-        n_det = seg.detections.valid.sum(dim=-1).to(i32)
-        best_conf = torch.where(seg.any_detection,
-                                seg.detections.scores.max(dim=-1).values, 0.0)
-        meta = torch.stack([_bits(blur), n_det, _bits(best_conf)], dim=-1)
-        parts = [flags.flatten(1), peaks.flatten(1), meta]
-        if include_paths:
-            parts += [
-                _bits(pr.penalty).flatten(1),
-                pr.paths.cells.to(i32).flatten(1),
-                pr.paths.lengths.to(i32),
-                _bits(pr.paths.costs),
-                pr.paths.valid.to(i32),
-            ]
-        packed = torch.cat(parts, dim=1)
-        assert packed.shape[1:] == (total,), (packed.shape, total)
-        if single:
-            packed = packed[0]
-        if not exact_device:
-            return packed
-        cache_out = pr.astar_cache
-        if cfg.blur.enabled:
-            # A blur-rejected frame must not change the cross-frame angle
-            # cache: the reference's blur gate rejects the frame BEFORE
-            # planning runs. Decided on the device, per stream, with no host
-            # read, because the cache feeds the next submit before the host
-            # sees this frame's blur metric.
-            keep = blur >= cfg.blur.laplacian_var_threshold
-            cache_out = torch.where(keep[:, None], pr.astar_cache, astar_cache)
-        return packed, (cache_out[0] if single else cache_out)
+        # Each part's span holds the host's time issuing its launches (see
+        # utils/spans.py); the card runs them later.
+        with span("program.i420"):
+            frames_bgr = (i420_to_bgr(frames, cfg.frame_height, cfg.frame_width)
+                          if i420 else frames)
+        with span("program.segment"):
+            seg = segmenter._frame_chain(frames_bgr)
+        with span("program.plan"):
+            pr = plan(seg.occupancy, astar_cache)
+        with span("program.blur"):
+            blur = laplacian_variance(frames_bgr)                # (S,)
+        with span("program.payload"):
+            i32 = torch.int32
+            flags = (pr.walkable.to(i32) | (pr.artificial.to(i32) << 1)
+                     | (seg.occupancy.to(i32) << 2))
+            peaks = torch.stack(
+                [pr.peaks.centre_x, pr.peaks.centre_y, pr.peaks.left_x,
+                 pr.peaks.right_x, pr.peaks.orientation,
+                 pr.peaks.valid.to(i32)], dim=-1).to(i32)
+            n_det = seg.detections.valid.sum(dim=-1).to(i32)
+            best_conf = torch.where(seg.any_detection,
+                                    seg.detections.scores.max(dim=-1).values, 0.0)
+            meta = torch.stack([_bits(blur), n_det, _bits(best_conf)], dim=-1)
+            parts = [flags.flatten(1), peaks.flatten(1), meta]
+            if include_paths:
+                parts += [
+                    _bits(pr.penalty).flatten(1),
+                    pr.paths.cells.to(i32).flatten(1),
+                    pr.paths.lengths.to(i32),
+                    _bits(pr.paths.costs),
+                    pr.paths.valid.to(i32),
+                ]
+            packed = torch.cat(parts, dim=1)
+            assert packed.shape[1:] == (total,), (packed.shape, total)
+            if single:
+                packed = packed[0]
+            if not exact_device:
+                return packed
+            cache_out = pr.astar_cache
+            if cfg.blur.enabled:
+                # A blur-rejected frame must not change the cross-frame angle
+                # cache: the reference's blur gate rejects the frame BEFORE
+                # planning runs. Decided on the device, per stream, with no host
+                # read, because the cache feeds the next submit before the host
+                # sees this frame's blur metric.
+                keep = blur >= cfg.blur.laplacian_var_threshold
+                cache_out = torch.where(keep[:, None], pr.astar_cache, astar_cache)
+            return packed, (cache_out[0] if single else cache_out)
 
     def unpack(buf: np.ndarray) -> FramePayload:
         buf = np.asarray(buf)

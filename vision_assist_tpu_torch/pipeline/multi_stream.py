@@ -21,6 +21,7 @@ The reference is strictly frame-at-a-time and has no counterpart.
 
 from __future__ import annotations
 
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -31,10 +32,13 @@ from vision_assist_tpu_torch.config import PipelineConfig
 from vision_assist_tpu_torch.pipeline.frame_processor import (
     FrameProcessor,
     FrameResult,
+    _angle_cache_entries,
+    _exact_engine_entries,
     _Handle,
 )
 from vision_assist_tpu_torch.planning.device_astar import empty_cache
 from vision_assist_tpu_torch.semantics.analyser import InstructionEngine
+from vision_assist_tpu_torch.utils.spans import span
 from vision_assist_tpu_torch.utils.streams import stream, to_numpy
 
 
@@ -100,6 +104,7 @@ class MultiStreamProcessor:
                                    for _ in range(self.num_streams)]
             self._pool = ThreadPoolExecutor(
                 max_workers=min(self.num_streams, 8))
+        self._steps = itertools.count()     # the id of each submit's spans
 
     def close(self) -> None:
         pool = getattr(self, "_pool", None)   # absent if the constructor raised
@@ -109,6 +114,19 @@ class MultiStreamProcessor:
 
     def __del__(self):
         self.close()
+
+    def carried_state(self) -> list[tuple[int, dict]]:
+        """The state each stream carries from step to step, one
+        (angle-cache entries, instruction memory) a stream: the device
+        caches' with ``engine="exact_device"``, the host engines' with
+        ``engine="exact"``, none with the wavefront engine."""
+        if self._caches[0] is not None:
+            keys = [n for cache in self._caches for n in _angle_cache_entries(cache)]
+        elif self._exact_engines is not None:
+            keys = [_exact_engine_entries(e) for e in self._exact_engines]
+        else:
+            keys = [0] * self.num_streams
+        return list(zip(keys, [a.previous_instructions for a in self.analysers]))
 
     def _shards(self, x: np.ndarray) -> list[np.ndarray]:
         """The streams of each shard, in order."""
@@ -159,11 +177,15 @@ class MultiStreamProcessor:
         if len(frames) != self.num_streams:
             raise ValueError(f"{len(frames)} frames for {self.num_streams} "
                              "streams")
-        packed = np.stack([self._fp._pack_frame(f) for f in frames])
-        handles = []
-        for i, (fp, part) in enumerate(zip(self._fps, self._shards(packed))):
-            handle, self._caches[i] = fp._run_program(part, self._caches[i])
-            handles.append(handle)
+        step = next(self._steps)
+        with span("submit", step):
+            with span("pack"):
+                packed = np.stack([self._fp._pack_frame(f) for f in frames])
+            handles = []
+            for i, (fp, part) in enumerate(zip(self._fps, self._shards(packed))):
+                handle, self._caches[i] = fp._run_program(part, self._caches[i])
+                handle.step = step
+                handles.append(handle)
         return handles
 
     def retire_frames(self, handle: list[_Handle],
@@ -171,12 +193,17 @@ class MultiStreamProcessor:
         """Wait for one submitted step (one packed (S, N) copy a shard) and
         run the per-stream host halves. No blur rejection on the host here,
         as in the JAX package's batched path."""
-        payloads = [self._fp._unpack(row) for h in handle for row in h.payload()]
-        now = self._now(now_ms)
-        guided = self._per_stream(
-            lambda s, engine: self._fp._guidance(payloads[s], engine))
-        return [self._fp._result(payloads[s], guided[s], self.analysers[s], now[s])
-                for s in range(self.num_streams)]
+        with span("retire", handle[0].step):
+            rows = [row for h in handle for row in h.payload()]
+            with span("unpack"):
+                payloads = [self._fp._unpack(row) for row in rows]
+            now = self._now(now_ms)
+            with span("guidance"):
+                guided = self._per_stream(
+                    lambda s, engine: self._fp._guidance(payloads[s], engine))
+            with span("analyse"):
+                return [self._fp._result(payloads[s], guided[s], self.analysers[s], now[s])
+                        for s in range(self.num_streams)]
 
     def process_frames(self, frames: np.ndarray,
                        now_ms: int | Sequence[int] = 0) -> list[FrameResult]:

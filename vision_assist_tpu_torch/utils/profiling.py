@@ -5,12 +5,14 @@ accumulate per-stage samples, drop outlier frames, and flush a
 timing_data.txt-compatible artifact (avg/last/min/max per stage, seconds).
 The text and JSON files are those of the JAX package's ``StageTimer``, which
 ``tools/plot_timing.py`` reads. ``device_trace`` captures a
-``torch.profiler`` trace (Chrome trace format) for device-side breakdowns.
+``torch.profiler`` trace (Chrome trace format) for device-side breakdowns,
+with the serving step's spans (``utils/spans.py``) over the kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import pathlib
 import time
 from collections import defaultdict
@@ -81,10 +83,17 @@ def device_trace(log_dir: str | pathlib.Path, device: str = "cuda"):
     ``log_dir/trace.json`` (Chrome trace format: open it in Perfetto or
     chrome://tracing). The host's operators are always traced; with
     ``device="cuda"`` the card's kernels and copies too, and a missing card
-    raises. Yields the profiler, whose ``key_averages()`` sums the time by
-    operator."""
+    raises. The serving step's spans recorded inside the block
+    (``utils/spans.py``) are written beside them, as complete events of
+    category ``program_span`` on the thread that ran them, with their step
+    and parent in ``args``. Yields the profiler, whose ``key_averages()``
+    sums the time by operator."""
+    import json
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from vision_assist_tpu_torch.utils import spans
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
@@ -93,6 +102,18 @@ def device_trace(log_dir: str | pathlib.Path, device: str = "cuda"):
         activities.append(ProfilerActivity.CUDA)
     out = pathlib.Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
+    t0 = time.time_ns()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(str(out / "trace.json"))
+    t1 = time.time_ns()
+    path = out / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = trace.get("baseTimeNanoseconds", 0)   # the events' "ts" count from it, in us
+    pid = os.getpid()
+    trace["traceEvents"] += [
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.thread,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"step": s.step, "parent": s.parent}}
+        for s in spans.recorded() if t0 <= s.start_ns and s.end_ns <= t1]
+    path.write_text(json.dumps(trace))
