@@ -9,11 +9,12 @@ Phases, each printed on its own line, any failure exits non-zero with no
 result line:
 
 1. build     nvcc compiles the relax kernel (csrc/relax.cu), the A* kernel
-             (csrc/astar.cu), the NMS kernel (csrc/nms.cu) and the
-             fast-sweeping kernel (csrc/relax_sweep.cu) for sm_90a and g++
+             (csrc/astar.cu), the NMS kernel (csrc/nms.cu), the
+             fast-sweeping kernel (csrc/relax_sweep.cu) and the ConvBNAct
+             epilogue (csrc/bn_act.cu) for sm_90a and g++
              compiles the host engine of engine="exact"
              (planning/native/engine.cpp) and the PNG reader's unfilter
-             (io/png_unfilter.cpp), all six at once, into .torch_ext_build/,
+             (io/png_unfilter.cpp), all seven at once, into .torch_ext_build/,
              and loads them.
 2. kernel    the relax kernel against its plain PyTorch twin, both on the
              card, on the 13 scenario lattices (one batched launch), on seeded
@@ -35,7 +36,8 @@ result line:
              relax kernel) through FrameProcessor.__call__ on 8 seeded
              synthetic frames; launch counts are zeroed just before and read
              just after, and must show the relax kernel and the NMS kernel
-             each ran once per frame.
+             each ran once per frame, and the ConvBNAct epilogue once per
+             block per frame (90 a frame: the `launches` of the bn_act line).
 4. sweep     the fast-sweeping kernel (csrc/relax_sweep.cu, the relaxation
              of the default wavefront flags) against its twin
              relax_sweep_field on the card, field and pass counts bit-equal
@@ -262,6 +264,16 @@ result line:
              streams of seeded 108x192 walkways through MultiStreamProcessor
              for exact_device and both wavefront paths: one launch of the
              global form a step, every stream equal to the CPU's.
+25. bn_act   the ConvBNAct epilogue kernel (csrc/bn_act.cu: BatchNorm by
+             the running statistics, SiLU and the cast back in one pass) at
+             the served shapes: the convolution outputs of the flagship's 90
+             blocks on the 8 frames as one batch, kept once; the kernel
+             bit-equal to its twin (ops/cuda_bn_act.py:bn_act_plain) on the
+             card at every block, 90 launches a step (`launches_phase`);
+             a step timed (queued CUDA events, and the sum of its kernels'
+             durations in a torch.profiler record) beside its bound by bytes,
+             the twin and the former cuDNN chain (float32 BatchNorm, SiLU,
+             two casts), and the largest launch alone.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -1712,6 +1724,125 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
             "frame_ops": prof["device_ops_per_frame"]}
 
 
+def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
+    """Phase 25: the ConvBNAct epilogue kernel alone at the served shapes:
+    the convolution outputs of every ConvBNAct of ``seg``'s model on the
+    frames as one batch (yolo11n-seg at imgsz 256, 8 frames: 90 blocks, the
+    letterboxed NHWC frames permuted, so channels_last), recomputed from
+    each block's input once. A step is the 90 launches; its device time
+    (queued behind a sleep) beside its bound by bytes (each element read
+    and written once in the convolution's dtype, the statistics read once),
+    the plain twin's and the former chain's (cuDNN's float32 BatchNorm,
+    SiLU and the two casts) on the same inputs; the kernel bit-equal to the
+    twin on the card at every block."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vision_assist_tpu_torch.models import yolo
+    from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_plain
+    from vision_assist_tpu_torch.utils.build import ptxas_entries
+
+    log("phase bn_act kernels (registers, stack frame B, spill stores/loads B): " + ", ".join(
+        f"{e['name']} {e['registers']} {e['stack']} {e['spill_stores']}/{e['spill_loads']}"
+        for e in ptxas_entries(cuda_bn_act.build_log)))
+    model = seg.model
+    inputs = []
+
+    def keep(m, args, _out):
+        (x,) = args
+        conv, bn = m.conv, m.bn
+        y = F.conv2d(yolo._pad_same(x, m.kernel, m.stride), conv.weight.to(m.dtype), None,
+                     conv.stride, 0, 1, conv.groups)
+        inputs.append((y, (bn.weight, bn.bias, bn.running_mean, bn.running_var), bn.eps,
+                       m.act))
+
+    hooks = [m.register_forward_hook(keep) for m in model.modules()
+             if isinstance(m, yolo.ConvBNAct)]
+    try:
+        seg(np.stack(frames))
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+
+    def kernel_step():
+        return [bn_act(y, *st, eps, act) for y, st, eps, act in inputs]
+
+    def twin_step():
+        return [bn_act_plain(y, *st, eps, act) for y, st, eps, act in inputs]
+
+    def chain_step():
+        out = []
+        for y, (w, b, mean, var), eps, act in inputs:
+            z = F.batch_norm(y.float(), mean, var, w, b, False, 0.0, eps)
+            out.append((F.silu(z) if act else z).to(y.dtype))
+        return out
+
+    cuda_bn_act.reset_launches()
+    got = kernel_step()
+    torch.cuda.synchronize()
+    launches = cuda_bn_act.launches
+    err = 0.0
+    for g, w, (y, *_rest) in zip(got, twin_step(), inputs):
+        if not torch.equal(g, w):
+            raise AssertionError(f"bn_act kernel differs from its twin at {tuple(y.shape)} "
+                                 f"{y.dtype}, strides {y.stride()}")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    if launches != len(inputs):
+        raise AssertionError(f"bn_act: {launches} launches for {len(inputs)} blocks")
+    n_bytes = sum(y.numel() * y.element_size() * 2 + 16 * y.shape[1] for y, *_ in inputs)
+    elements = sum(y.numel() for y, *_ in inputs)
+    cl = sum(y.is_contiguous(memory_format=torch.channels_last) for y, *_ in inputs)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+
+    def issue_ms(fn) -> float:
+        """Host ms to issue one warm call of ``fn``, the card's queue empty."""
+        fn()
+        torch.cuda.synchronize()
+        ms = with_seconds(fn)[1] * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    def kernels_ms(fn, reps: int = 5) -> float:
+        """Device ms a call of ``fn`` as the sum of its kernels' durations in
+        a torch.profiler record of the card: the gaps between launches left
+        out, as the benchmark's card time leaves out the card's idle time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+
+    # A step is 90 launches and the chain's 356: reps x launches stays under
+    # the card's queue of about a thousand (cuda_ms).
+    ms = cuda_ms(kernel_step, reps=4, queued=True)
+    chain_queued_ms = cuda_ms(chain_step, reps=1, queued=True)
+    steps = (("kernel", kernel_step), ("chain", chain_step), ("twin", twin_step))
+    sums = {name: kernels_ms(fn) for name, fn in steps}
+    plain_ms, chain_ms = sums["twin"], sums["chain"]
+    issue = {name: issue_ms(fn) for name, fn in steps}
+    largest, big_stats, big_eps, big_act = max(inputs, key=lambda t: t[0].numel())
+    largest_ms = cuda_ms(lambda: bn_act(largest, *big_stats, big_eps, big_act), reps=200,
+                         queued=True)
+    log(f"phase bn_act: {len(inputs)} blocks of {model.arch} on {len(frames)} frames "
+        f"({cl} channels_last, {elements} elements, {n_bytes} B a step), bit-equal to the "
+        f"twin on the card, {launches} launches a step")
+    log(f"phase bn_act step of {len(inputs)} launches, device ms: kernel {ms:.5f} queued, "
+        f"{sums['kernel']:.5f} in its kernels; bound by bytes {bound_ms:.5f}; the twin "
+        f"{plain_ms:.5f} in its kernels; the cuDNN chain {chain_queued_ms:.5f} queued, "
+        f"{chain_ms:.5f} in its kernels; host ms to issue a warm step: kernel "
+        f"{issue['kernel']:.3f}, chain {issue['chain']:.3f}, twin {issue['twin']:.3f}")
+    log(f"phase bn_act largest launch {tuple(largest.shape)}: {largest_ms * 1e3:.3f} us queued, "
+        f"bound {largest.numel() * largest.element_size() * 2 / HBM_BYTES_PER_S * 1e6:.3f} us")
+    return {"ms": ms, "kernels_ms": sums["kernel"], "plain_ms": plain_ms,
+            "library_ms": chain_ms, "library_queued_ms": chain_queued_ms, "bound_ms": bound_ms,
+            "launches": launches, "err": err, "issue_ms": issue, "largest_ms": largest_ms}
+
+
 def sweep_bounds(enter, scans, cluster: int) -> dict:
     """The least time the card could take for this fast-sweeping relaxation:
     bytes (each input read once, each output written once) over the memory
@@ -2473,7 +2604,8 @@ def main() -> int:
             from vision_assist_tpu_torch.planning import device_astar, native
         if not (args.relax_only or args.astar_only):
             from vision_assist_tpu_torch.io import png
-            from vision_assist_tpu_torch.ops import cuda_nms, cuda_sweep
+            from vision_assist_tpu_torch.models.yolo import ConvBNAct
+            from vision_assist_tpu_torch.ops import cuda_bn_act, cuda_nms, cuda_sweep
             from vision_assist_tpu_torch.pipeline.multi_stream import (
                 MultiStreamProcessor,
             )
@@ -2524,13 +2656,13 @@ def main() -> int:
     # stamped copy of the sweep kernel too, where that phase runs.
     from vision_assist_tpu_torch.utils import profile_sweep
 
-    with concurrent.futures.ThreadPoolExecutor(7) as pool:
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
         builds = [pool.submit(cuda_wavefront.build)]
         if not args.relax_only:
             builds += [pool.submit(cuda_astar.build), pool.submit(native.available)]
         if not (args.relax_only or args.astar_only):
             builds += [pool.submit(with_seconds, png.build), pool.submit(cuda_nms.build),
-                       pool.submit(cuda_sweep.build)]
+                       pool.submit(cuda_sweep.build), pool.submit(cuda_bn_act.build)]
         if not (args.relax_only or args.astar_only or args.nms_only or args.large_only) \
                 and hasattr(profile_sweep, "prebuild"):
             builds.append(pool.submit(with_seconds, profile_sweep.prebuild))
@@ -2539,7 +2671,8 @@ def main() -> int:
         return "compiled" if getattr(mod, "compiled", True) else "cached, loaded"
 
     for mod in ([cuda_wavefront] if args.relax_only else [cuda_wavefront, cuda_astar]
-                if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms, cuda_sweep]):
+                if args.astar_only else [cuda_wavefront, cuda_astar, cuda_nms, cuda_sweep,
+                                            cuda_bn_act]):
         ptxas = [ln.strip() for ln in mod.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
         if hasattr(mod, "FORMS") and not hasattr(mod, "instances"):   # relax, A*: a form each
@@ -2576,9 +2709,9 @@ def main() -> int:
             f"{native.build_seconds:.3f} s")
     if not (args.relax_only or args.astar_only):
         log(f"phase build {png.SOURCE.name}: built or loaded in {built[3][1]:.3f} s")
-    if len(built) == 7:
+    if len(built) == 8:
         log(f"phase build the stamped copy of {cuda_sweep.SOURCE.name} (phase sweep's "
-            f"cycles, utils/profile_sweep.py): built beside the others in {built[6][1]:.3f} s")
+            f"cycles, utils/profile_sweep.py): built beside the others in {built[7][1]:.3f} s")
 
     if args.large_only:
         turn = _scaled_turn(20, PathFinderConfig().wavefront_turn_weight, 30.0, 1.5,
@@ -2849,6 +2982,7 @@ def main() -> int:
 
     cuda_wavefront.reset_launches()
     cuda_nms.reset_launches()
+    cuda_bn_act.reset_launches()
     results, lat = [], []
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -2856,11 +2990,16 @@ def main() -> int:
         lat.append((time.perf_counter() - t0) * 1e3)
         results.append(res)
     launches, nms_launches = cuda_wavefront.launches, cuda_nms.launches
+    bn_act_launches = cuda_bn_act.launches
+    bn_act_blocks = sum(isinstance(m, ConvBNAct) for m in seg.model.modules())
     if launches < 1:
         raise AssertionError("the main path never launched the relax kernel")
     if nms_launches != N_FRAMES:
         raise AssertionError(f"the main path launched the NMS kernel {nms_launches} "
                              f"times in {N_FRAMES} frames")
+    if bn_act_launches != bn_act_blocks * N_FRAMES:
+        raise AssertionError(f"the main path launched the bn_act kernel {bn_act_launches} "
+                             f"times in {N_FRAMES} frames of {bn_act_blocks} ConvBNAct blocks")
     for i, res in enumerate(results):
         if res is None or res.final_answer not in ANSWERS:
             raise AssertionError(f"frame {i}: bad result {res!r}")
@@ -2874,7 +3013,8 @@ def main() -> int:
         raise AssertionError("the model found nothing in any frame")
     log(f"phase frames: ok, {rec['arch']}@{rec['imgsz']} {rec['asset']}, "
         f"{N_FRAMES} frames, {n_det} with detections, relax launches {launches}, "
-        f"NMS launches {nms_launches}, median latency {statistics.median(lat):.3f} ms")
+        f"NMS launches {nms_launches}, bn_act launches {bn_act_launches}, "
+        f"median latency {statistics.median(lat):.3f} ms")
 
     def replay_card_vs_cpu(pathfinder):
         rcfg = replay_config().replace(pathfinder=pathfinder)
@@ -3410,6 +3550,10 @@ def main() -> int:
     t9 = time.perf_counter()
     log(f"phase nms took {t9 - t8:.1f} s")
 
+    # -- 25. bn_act ----------------------------------------------------------------
+    bn_run = bn_act_phase(torch, dev, frames, seg, cuda_bn_act)
+    log(f"phase bn_act took {time.perf_counter() - t9:.1f} s")
+
     # -- 24. large -----------------------------------------------------------------
     large_run = large_phase(torch, dev, turn, cuda_wavefront, cuda_sweep, cuda_astar)
     large = large_run["readings"]
@@ -3487,6 +3631,25 @@ def main() -> int:
         "decode_nms_ms_served": nms_run["served_call"],
         "eval_step_ms": nms_run["share"][0],
         "device_ops_a_frame": nms_run["frame_ops"],
+    }, {
+        # Replaces XLA's fusion of nn.BatchNorm, nn.silu and astype in the
+        # JAX ConvBNAct, not a Pallas kernel; times are a step of the
+        # flagship's 90 blocks on 8 frames, the library call the cuDNN chain.
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "vision_assist_tpu_torch/csrc/bn_act.cu",
+        "replaces": "vision_assist_tpu/models/yolo.py:69",
+        "launches": bn_act_launches,
+        "launches_phase": bn_run["launches"],
+        "max_abs_err": bn_run["err"],
+        "ms": bn_run["ms"],
+        "plain_ms": bn_run["plain_ms"],
+        "bound_ms": bn_run["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": bn_run["library_ms"],
+        "ms_in_kernels": bn_run["kernels_ms"],
+        "library_queued_ms": bn_run["library_queued_ms"],
+        "ms_largest_launch": bn_run["largest_ms"],
     }, {
         # Replaces the compiled JAX loop relax_sweep (lax.while_loop over
         # passes of associative scans), not a Pallas kernel.

@@ -2,7 +2,8 @@
 JAX package's export test (imgsz 160, a 320x320 frame), on the CPU:
 
 * the program saved by ``torch.export.save`` and read back by
-  ``torch.export.load`` gives outputs bit-equal to the eager port chain;
+  ``torch.export.load`` gives outputs bit-equal to the eager port chain, and
+  calls the ConvBNAct epilogue operator ``vision_assist_tpu_torch::bn_act``;
 * the eager chain equals JAX's ``Segmenter._frame_chain`` on the same
   weights (the flagship, float32) and frame: detections valid in the same
   slots, boxes and scores within atol 1e-3 + rtol 1e-3 (the model tests'
@@ -95,6 +96,15 @@ def test_exported_program_bit_equal_to_the_eager_chain(chain, cli_export, export
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+def test_exported_program_holds_the_epilogue_operator(exported):
+    """Each ConvBNAct of the segmenter ends in the operator
+    ``vision_assist_tpu_torch::bn_act`` in the saved program: 90 calls for
+    the flagship yolo11n-seg, no BatchNorm left."""
+    calls = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    assert calls.count("vision_assist_tpu_torch.bn_act.default") == 90
+    assert not any("batch_norm" in c for c in calls)
 
 
 def test_eager_chain_matches_jax(chain):

@@ -14,8 +14,11 @@ computes, returning ``(occupancy, boxes, scores, valid)``; it is saved with
 
 The program is traced for the device it is exported on. Load it with
 ``torch.export.load(path).module()`` and call it on a (H, W, 3) uint8 frame
-on that device. A program exported on the card calls the NMS kernel through
-the operator ``vision_assist_tpu_torch::nms_detections``: import
+on that device. Each convolution's BatchNorm and SiLU is a call of the
+operator ``vision_assist_tpu_torch::bn_act`` (the epilogue kernel on the card,
+its plain twin on the CPU), and a program exported on the card calls the NMS
+kernel through ``vision_assist_tpu_torch::nms_detections``: import
+``vision_assist_tpu_torch.ops.cuda_bn_act`` and
 ``vision_assist_tpu_torch.ops.cuda_nms`` before loading it.
 """
 

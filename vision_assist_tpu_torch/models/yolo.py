@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act
+
 
 @dataclasses.dataclass(frozen=True)
 class YoloScale:
@@ -102,7 +104,10 @@ def _flax_batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d,
 
 class ConvBNAct(nn.Module):
     """Conv (no bias, compute dtype) + BatchNorm (float32) + optional SiLU.
-    The weight is cast to the compute dtype where it is stored in another."""
+    The weight is cast to the compute dtype where it is stored in another.
+    In eval mode BatchNorm, SiLU and the cast back are one call of the
+    operator ``bn_act`` (``ops/cuda_bn_act.py``): one kernel launch on the
+    card, its plain twin on the CPU."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
                  groups: int = 1, act: bool = True,
@@ -117,12 +122,14 @@ class ConvBNAct(nn.Module):
         self.global_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.conv
+        conv, bn = self.conv, self.bn
         y = F.conv2d(_pad_same(x, self.kernel, self.stride),
                      conv.weight.to(self.dtype), None, conv.stride, 0, 1,
-                     conv.groups).float()
-        y = (_flax_batch_norm_train(y, self.bn, self.global_sum) if self.training
-             else self.bn(y))
+                     conv.groups)
+        if not self.training:
+            return bn_act(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                          bn.eps, self.act)
+        y = _flax_batch_norm_train(y.float(), bn, self.global_sum)
         return (F.silu(y) if self.act else y).to(self.dtype)
 
 

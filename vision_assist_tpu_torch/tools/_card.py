@@ -70,16 +70,27 @@ def cuda_ms(fn: Callable[[], object], reps: int, warmup: int = 3,
             queued: bool = False) -> float:
     """Milliseconds per call of ``fn`` between two CUDA events. ``queued``
     takes the host out of the way: the calls are issued while the card spins
-    in a sleep kernel (~30 ms), so they run back to back however long the
-    host takes over each. That holds for a kernel; a whole frame issues
-    ~2100 launches, longer than the sleep, so ``queued`` times a kernel,
-    not a frame."""
-    for _ in range(warmup):
-        fn()
+    in a sleep kernel, so they run back to back however long the host takes
+    over each. The sleep lasts twice the host's time to issue the ``reps``
+    calls, timed on the last warm-up call (the first may compile), and at
+    least ~30 ms, at most ~2 s. The card's queue holds about a thousand
+    launches, past which the host waits on the card, so ``reps`` times the
+    launches of a call stays under that: ``queued`` times a kernel or a few
+    hundred launches, not a frame (~2100)."""
+    issue_s = 0.0
+    for i in range(warmup):
+        if i == warmup - 1 and warmup > 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            issue_s = time.perf_counter() - t
+        else:
+            fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(60_000_000)
+        cycles = int(2 * reps * issue_s * 2e9)        # ~2e9 cycles a second
+        torch.cuda._sleep(min(max(cycles, 60_000_000), 4_000_000_000))
     t0.record()
     for _ in range(reps):
         fn()
