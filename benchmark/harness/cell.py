@@ -10,6 +10,8 @@
   ``harness.serve.Loop``;
 * ``benchmark/limits/<cell>.json``: the limits of the numbers ``correct``
   compares, set from readings of the program and of the control;
+* ``benchmark/reference/<reference>.py``: the configuration's plain
+  reference model, named by its ``"reference"`` key (``yolo`` without one);
 * ``benchmark/metrics/<metric>.py``: one reader a metric, ``read(run)``,
   which returns its value, or None where the run has nothing to read.
 
@@ -23,6 +25,7 @@ import dataclasses
 import importlib.util
 import json
 import pathlib
+import sys
 
 
 @dataclasses.dataclass
@@ -64,12 +67,25 @@ def load_cell(root: pathlib.Path, name: str) -> Cell:
 
 
 def load_module(root: pathlib.Path, kind: str, name: str):
-    """The module ``benchmark/<kind>/<name>.py``."""
+    """The module ``benchmark/<kind>/<name>.py``, registered under a name of
+    its own (dataclasses look their module up by name); run once a process,
+    later calls for the same file get the same module."""
     path = root / "benchmark" / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"_{kind}_{name.replace('.', '_')}", path)
+    loaded = sys.modules.get(spec.name)
+    if loaded is not None and loaded.__file__ == spec.origin:
+        return loaded
     module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
     spec.loader.exec_module(module)
     return module
+
+
+def reference_module(root: pathlib.Path, config: dict):
+    """The plain reference of a configuration: the module
+    ``benchmark/reference/<config["reference"]>.py``, ``yolo`` where the
+    configuration names none."""
+    return load_module(root, "reference", config.get("reference", "yolo"))
 
 
 def metric_reader(root: pathlib.Path, name: str):

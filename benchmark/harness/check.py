@@ -20,8 +20,25 @@ input is the program's lattice and detection count: where that lattice
 equals the reference's own, the frame is checked from the frame to the
 answer; where it differs, ``occ_share`` judges the difference.
 
+A configuration with seeded weights (``harness/weights.py``) has no
+trained detector: its scores crowd the threshold, and a bf16 model and a
+float32 one part on which anchors pass it. So its model is judged before
+the threshold, by ``head_gap``, and what follows the model on the timed
+path (decode, the NMS, masks, the lattice) from the program's own head
+outputs: after the window the served module runs once on each step's
+frames (``serve.served_outputs``), the reference's chain after the model
+(``reference.segment.ReferenceChain``) takes its outputs, and each
+answered frame's detections, best confidence and lattice are held against
+that of its step and stream, by the three numbers a trained configuration
+uses. The planner numbers hold as for a trained one.
+
 The numbers, each with its limit from ``benchmark/limits/<cell>.json``:
 
+* ``head_gap`` (seeded weights only): for each of the four head outputs
+  (box logits, class logits, mask coefficients, prototypes) and each pool
+  frame, the largest |program - reference| over the reference's RMS there;
+  the largest of these. The program's side is the served module run after
+  the window on the steps' frames (``serve.served_outputs``);
 * ``conf_gap``: the largest |best confidence - the reference's| (0 where
   a side has no detection);
 * ``occ_share``: lattice cells whose occupancy differs, over all compared
@@ -43,35 +60,79 @@ The numbers, each with its limit from ``benchmark/limits/<cell>.json``:
 
 from __future__ import annotations
 
+import dataclasses
+import types
+
 import numpy as np
 import torch
 
-NUMBERS = ("conf_gap", "occ_share", "ndet_gap", "plan_frames",
-           "answer_frames", "field_gap", "cost_gap", "state_gap", "missing")
+from benchmark.harness.weights import seeded
+from benchmark.reference.segment import HEADS, ExactFloat32, ReferenceChain
+
+NUMBERS = ("conf_gap", "occ_share", "ndet_gap", "plan_frames", "answer_frames",
+           "field_gap", "cost_gap", "state_gap", "missing")
+SEEDED_NUMBERS = ("head_gap",) + NUMBERS
 
 
-def reference_segmentation(root, config: dict, pool: np.ndarray, device, quant=None,
-                           block: int = 8):
-    """The reference chain's SegOut for every frame of the pool."""
-    from benchmark.reference.msgpack import load_variables
+def numbers_of(config: dict) -> tuple:
+    """The numbers that judge a configuration's cells."""
+    return SEEDED_NUMBERS if seeded(config) else NUMBERS
+
+
+def reference_segmentation(root, config: dict, variables: dict, pool: np.ndarray, device,
+                           quant=None, rounding=None, block: int = 8, heads: bool = False):
+    """The reference chain's SegOut for every frame of the pool, by the
+    configuration's reference module with the weights ``variables``; with
+    ``heads``, each with its flat head outputs."""
+    from benchmark.harness.cell import reference_module
     from benchmark.reference.segment import ReferenceSegmenter
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    ref = ReferenceSegmenter(config, load_variables(root / config["weights"]),
-                             pool.shape[1:3], device, quant=quant)
     out = []
-    for i in range(0, len(pool), block):
-        out += ref(pool[i:i + block])
-    del ref
+    with ExactFloat32():
+        ref = ReferenceSegmenter(config, reference_module(root, config), variables,
+                                 pool.shape[1:3], device, quant=quant, rounding=rounding)
+        for i in range(0, len(pool), block):
+            out += ref(pool[i:i + block], heads=heads)
     return out
 
 
-def segmenter_numbers(answers, seg, conf_threshold: float, conf_limit: float) -> dict:
+def served_segmentation(config: dict, frame_hw, served, device) -> tuple[dict, dict]:
+    """The reference's chain after the model on the program's own head
+    outputs ``served`` ((step, the step's pool indices, the served module's
+    outputs), ``serve.served_outputs``): ({(step, stream): SegOut}, {pool
+    index: the program's flat head outputs there, from the first step that
+    serves it})."""
+    chain = ReferenceChain(config, frame_hw, device)
+    segs, heads = {}, {}
+    for step, indices, outs in served:      # the program's pass, outside the block
+        outs = types.SimpleNamespace(
+            strides=outs.strides, protos=outs.protos.float(),
+            **{h: [x.float() for x in getattr(outs, h)] for h in HEADS[:3]})
+        with ExactFloat32():
+            ref = chain.segment(outs, heads=True)
+        for stream, (i, seg) in enumerate(zip(indices, ref, strict=True)):
+            heads.setdefault(i, seg.heads)
+            segs[step, stream] = dataclasses.replace(seg, heads=None)
+    return segs, heads
+
+
+def head_gap(program: list, reference: list) -> float:
+    """The largest |program - reference| over the reference's RMS, over
+    each frame's four flat head outputs."""
+    gap = 0.0
+    for mine, theirs in zip(program, reference, strict=True):
+        for p, r in zip(mine, theirs, strict=True):
+            rms = float(torch.sqrt(torch.mean(r.double() ** 2)))
+            gap = max(gap, float(torch.max(torch.abs(p.double() - r.double()))) / rms)
+    return gap
+
+
+def segmenter_numbers(answers, refs, conf_threshold: float, conf_limit: float) -> dict:
+    """Each answer held against its reference SegOut, ``refs`` in the
+    answers' order."""
     conf = 0.0
     ndet = differ = occupied = 0
-    for a in answers:
-        r = seg[a.pool_index]
+    for a, r in zip(answers, refs, strict=True):
         if (a.n_detections > 0) != (r.n_detections > 0) \
                 and abs(r.top_score - conf_threshold) <= conf_limit:
             continue
@@ -124,16 +185,27 @@ def planner_numbers(answers, frame_hw, grid_size: int, engine: str,
             "cost_gap": cost, "state_gap": worst_state}
 
 
-def check(root, cell, pool, answers, attempted: int, device, state):
+def check(root, cell, pool, variables, answers, attempted: int, device, state, served=None):
     """(correct, {number: (value, limit)}, the reference's SegOut for each pool
-    frame) over every answered frame."""
-    seg = reference_segmentation(root, cell.config, pool, device)
-    numbers = segmenter_numbers(answers, seg, cell.config["conf_threshold"],
-                                cell.limits["conf_gap"])
+    frame) over every answered frame, the reference holding the weights the
+    program was served (``variables``); ``served``, the reference's chain on
+    the served module's outputs (``served_segmentation``), judges a seeded
+    configuration's segmenter."""
+    is_seeded = seeded(cell.config)
+    seg = reference_segmentation(root, cell.config, variables, pool, device, heads=is_seeded)
+    if is_seeded:
+        by_step, heads = served
+        numbers = {"head_gap": head_gap([heads[i] for i in range(len(pool))],
+                                        [s.heads for s in seg])}
+        refs = [by_step[a.seq % len(pool), a.stream] for a in answers]
+    else:
+        numbers, refs = {}, [seg[a.pool_index] for a in answers]
+    numbers.update(segmenter_numbers(answers, refs, cell.config["conf_threshold"],
+                                     cell.limits["conf_gap"]))
     numbers.update(planner_numbers(
         answers, (cell.traffic["frame_height"], cell.traffic["frame_width"]),
         cell.config["grid_size"], cell.traffic["engine"], state))
     numbers["missing"] = attempted - len(answers)
-    checks = {k: (numbers[k], cell.limits.get(k, 0)) for k in NUMBERS}
+    checks = {k: (numbers[k], cell.limits.get(k, 0)) for k in numbers_of(cell.config)}
     correct = bool(answers) and all(v <= lim for v, lim in checks.values())
     return correct, checks, seg

@@ -28,9 +28,10 @@ import sys
 import time
 
 from benchmark.harness import check as check_mod
-from benchmark.harness.cell import Cell, load_cell, metric_reader
+from benchmark.harness.cell import Cell, load_cell, metric_reader, reference_module
 from benchmark.harness.frames import make_pool
-from benchmark.harness.serve import make_loop
+from benchmark.harness.serve import make_loop, served_outputs
+from benchmark.harness.weights import flax_tree, seeded
 
 TRACE_SECONDS = 6.0        # the traced window: long enough for ~100 frames
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vision_assist_tpu")
@@ -112,7 +113,11 @@ def run_cell(root: pathlib.Path, name: str, seed: int, seconds: float, trace: bo
     stages.append(("cuda", time.perf_counter()))
     pool = make_pool(cell.traffic, seed)
     stages.append(("frames", time.perf_counter()))
-    loop = make_loop(root, cell.config, cell.traffic, pool, device)
+    variables = flax_tree(root, cell.config, device)
+    if cuda:    # a seeded draw's calibration pass is the harness's, not the program's
+        torch.cuda.reset_peak_memory_stats()
+    stages.append(("weights", time.perf_counter()))
+    loop = make_loop(root, cell.config, cell.traffic, pool, variables, device)
     stages.append(("build", time.perf_counter()))
     for _ in range(cell.traffic["warmup"]):
         loop.run(0.0)
@@ -142,6 +147,9 @@ def run_cell(root: pathlib.Path, name: str, seed: int, seconds: float, trace: bo
         run.trace_launches = [traced[i:i + per] for i in range(0, len(traced), per)]
     memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
     attempted, answers, state = loop.attempted, loop.answers, loop.state()
+    served = (check_mod.served_segmentation(
+        cell.config, pool.shape[1:3], served_outputs(loop), device)
+        if seeded(cell.config) else None)
     loop.close()
     del loop
     gc.collect()
@@ -154,14 +162,12 @@ def run_cell(root: pathlib.Path, name: str, seed: int, seconds: float, trace: bo
 
     if trace:
         from benchmark.harness.peaks import model_flops
-        from benchmark.reference.yolo import YoloSeg
 
-        c = cell.config
         run.flops_per_frame = model_flops(
-            YoloSeg(c["arch"], c["num_classes"], c["reg_max"], c["num_mask_coeffs"]),
-            c["imgsz"])
-    correct, checks, run.seg = check_mod.check(root, cell, pool, answers, attempted,
-                                               device, state)
+            reference_module(root, cell.config).build_model(cell.config),
+            cell.config["imgsz"])
+    correct, checks, run.seg = check_mod.check(root, cell, pool, variables, answers,
+                                               attempted, device, state, served)
 
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):

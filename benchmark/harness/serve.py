@@ -59,10 +59,10 @@ def memory_form(previous: dict) -> dict:
     return {int(ts): [form(i) for i in ins] for ts, ins in previous.items()}
 
 
-def build_segmenter(root, config: dict, traffic: dict, device):
-    """The port's segmenter with the configuration's trained weights."""
+def build_segmenter(config: dict, traffic: dict, variables: dict, device):
+    """The port's segmenter with the configuration's weights, the Flax tree
+    ``variables`` (``harness.weights.flax_tree``)."""
     from vision_assist_tpu_torch.config import ModelConfig
-    from vision_assist_tpu_torch.models.checkpoint import load_variables
     from vision_assist_tpu_torch.models.inference import Segmenter
 
     mcfg = ModelConfig(
@@ -70,9 +70,34 @@ def build_segmenter(root, config: dict, traffic: dict, device):
         conf_threshold=config["conf_threshold"], iou_threshold=config["iou_threshold"],
         max_detections=config["max_detections"], reg_max=config["reg_max"],
         num_mask_coeffs=config["num_mask_coeffs"], dtype=config["dtype"])
-    return Segmenter(mcfg, variables=load_variables(root / config["weights"]),
+    return Segmenter(mcfg, variables=variables,
                      example_hw=(traffic["frame_height"], traffic["frame_width"]),
                      grid_size=config["grid_size"], device=device)
+
+
+def served_outputs(loop):
+    """The served module's head outputs for each step the loop serves: for
+    each of ``loop.step_batches()``, (step, its pool indices, the outputs),
+    the step's frames taken through the timed path's own steps to the
+    model's input (the host I420 packer, the device unpack, the letterbox),
+    a whole step in one batch, as the window served it. A generator: each
+    batch's outputs are made as they are asked for."""
+    import torch
+    from vision_assist_tpu_torch.ops.letterbox import letterbox
+    from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host, i420_to_bgr
+
+    segmenter, h, w = loop.segmenter, loop.traffic["frame_height"], loop.traffic["frame_width"]
+    for step, indices in enumerate(loop.step_batches()):
+        frames = loop.pool[indices]
+        with torch.no_grad():
+            if loop.config["transfer_format"] == "i420":
+                planes = np.stack([bgr_to_i420_host(f) for f in frames])
+                bgr = i420_to_bgr(torch.from_numpy(planes).to(segmenter.device), h, w)
+            else:
+                bgr = torch.from_numpy(frames).to(segmenter.device)
+            img = letterbox(bgr, dst=loop.config["imgsz"])
+            outs = segmenter.model(img.permute(0, 3, 1, 2))
+        yield step, indices, outs
 
 
 def pipeline_config(config: dict, traffic: dict):
@@ -90,16 +115,18 @@ class Loop:
     until the window has lasted ``seconds`` and returns its length;
     ``frame_ms``, ``frames_done`` and ``spans`` are the host times and the
     count of the frames (steps) of the last call. A subclass gives
-    ``build`` (the port's processor), ``serve`` and ``carried``."""
+    ``build`` (the port's processor) and ``serve``."""
 
-    def __init__(self, root, config: dict, traffic: dict, pool: np.ndarray, device):
+    def __init__(self, config: dict, traffic: dict, pool: np.ndarray, variables: dict,
+                 device):
+        self.config = config
         self.traffic = traffic
         self.pool = pool
         self.interval = traffic["frame_interval_ms"]
         self.offsets = stream_offsets(traffic)
         self.answers: list[Answer] = []
         self.attempted = 0
-        self.segmenter = build_segmenter(root, config, traffic, device)
+        self.segmenter = build_segmenter(config, traffic, variables, device)
         self.processor = self.build(pipeline_config(config, traffic), device)
         self.seq = 0            # the next frame (step) of every stream
 
@@ -109,13 +136,14 @@ class Loop:
     def serve(self, seconds: float) -> float:
         raise NotImplementedError
 
-    def carried(self) -> list[tuple[int, dict]]:
-        """(A* angle cache entries, instruction memory) of each stream, read
-        from the attributes of the port's processor that hold them."""
-        raise NotImplementedError
-
     def pool_index(self, stream: int, seq: int) -> int:
         return (self.offsets[stream] + seq) % len(self.pool)
+
+    def step_batches(self) -> list[list[int]]:
+        """The pool indices of each step's frames, one list a step, for the
+        first ``len(pool)`` steps: step ``k + len(pool)`` serves step k's."""
+        streams = self.traffic["streams"]
+        return [[self.pool_index(s, k) for s in range(streams)] for k in range(len(self.pool))]
 
     def run(self, seconds: float) -> float:
         """Serve for ``seconds``; returns the window's length in seconds."""
@@ -134,19 +162,18 @@ class Loop:
 
     def state(self) -> list[dict]:
         """Each stream's carried state after the last frame, in the form the
-        check compares: through the processor's ``carried_state()`` where the
-        port has one (a list of (cache entries, instruction memory) a
-        stream), else through ``carried``."""
-        p = self.processor
-        carried = p.carried_state() if hasattr(p, "carried_state") else self.carried()
+        check compares, read through the processor's ``carried_state()`` (a
+        list of (cache entries, instruction memory) a stream)."""
         return [{"cache_keys": int(keys), "memory": memory_form(memory)}
-                for keys, memory in carried]
+                for keys, memory in self.processor.carried_state()]
 
     def close(self) -> None:
         pass
 
 
-def make_loop(root, config: dict, traffic: dict, pool: np.ndarray, device) -> Loop:
-    """The loop of ``benchmark/loops/<traffic["serving"]>.py``, built for the cell."""
+def make_loop(root, config: dict, traffic: dict, pool: np.ndarray, variables: dict,
+              device) -> Loop:
+    """The loop of ``benchmark/loops/<traffic["serving"]>.py``, built for the
+    cell with the weights ``variables``."""
     module = load_module(root, "loops", traffic["serving"])
-    return module.Loop(root, config, traffic, pool, device)
+    return module.Loop(config, traffic, pool, variables, device)

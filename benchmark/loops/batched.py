@@ -74,6 +74,10 @@ class Loop(_Loop):
                 self.keep(result, s, step)
 
     def carried(self):
+        """(A* angle cache entries, instruction memory) of each stream, read
+        from the private attributes of the port's processor that hold them:
+        the reading its ``carried_state()`` is held against in the port's
+        tests. The harness reads ``carried_state()``."""
         msp = self.processor
         if msp._caches[0] is not None:
             device = msp._caches[0].cpu().numpy()

@@ -40,6 +40,10 @@ class Loop(_Loop):
                 return t2 - t_begin
 
     def carried(self):
+        """(A* angle cache entries, instruction memory) of each stream, read
+        from the private attributes of the port's processor that hold them:
+        the reading its ``carried_state()`` is held against in the port's
+        tests. The harness reads ``carried_state()``."""
         fp = self.processor
         if fp._astar_cache is not None:
             import numpy as np

@@ -5,7 +5,9 @@ masks -> the winning mask sampled at every cell centre -> occupancy lattice.
 Frozen copies of the port's ``ops/yuv.py`` (host packer and device unpack),
 ``ops/letterbox.py``, ``models/decode.py`` (the plain NMS) and
 ``models/inference.py``'s chain, in float32 with TF32 off. The NMS is the
-stable sort and the greedy loop, one step a candidate.
+stable sort and the greedy loop, one step a candidate. ``ReferenceChain``
+is the chain after the model, which also takes the program's own head
+outputs.
 """
 
 from __future__ import annotations
@@ -15,8 +17,6 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from benchmark.reference.yolo import YoloSeg, load_flax_variables
 
 NEG = -1.0e30
 
@@ -160,6 +160,19 @@ def nms(boxes, cls_logits, coeffs, conf: float, iou: float, max_cand: int, max_d
             kept, valid.sum(-1), best.max(dim=-1).values)
 
 
+HEADS = ("box_logits", "cls_logits", "coeffs", "protos")
+
+
+def flat_heads(outs) -> list[torch.Tensor]:
+    """The four head outputs of a batch, each (B, N) float32 on the host: the
+    levels of the box logits, class logits and mask coefficients laid end
+    to end, and the prototypes."""
+    def flat(x):
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        return torch.cat([t.float().flatten(1) for t in xs], dim=1).cpu()
+    return [flat(getattr(outs, h)) for h in HEADS]
+
+
 @dataclasses.dataclass
 class SegOut:
     """One image's reference segmentation."""
@@ -168,21 +181,31 @@ class SegOut:
     best_conf: float
     n_candidates: int       # anchors above the confidence threshold, at most K
     top_score: float        # the highest anchor score, above the threshold or not
+    heads: list | None = None   # its four flat head outputs, where asked for
 
 
-class ReferenceSegmenter:
-    """The float32 chain for one model configuration; ``quant`` rounds every
-    convolution and matmul operand (the precision control)."""
+class ExactFloat32:
+    """A block with TF32 off for every convolution and matmul, as the
+    reference computes; the flags as they were after it."""
 
-    def __init__(self, config: dict, variables: dict, frame_hw: tuple[int, int],
-                 device: torch.device, quant=None):
+    def __enter__(self):
+        self.flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.flags
+
+
+class ReferenceChain:
+    """The chain after the model for one configuration and frame size:
+    decode, NMS, masks, the lattice. ``rounding``, where given, rounds each
+    stage's float32 results (the post stages' precision control)."""
+
+    def __init__(self, config: dict, frame_hw: tuple[int, int], device: torch.device,
+                 rounding=None):
         self.cfg = config
-        self.model = YoloSeg(config["arch"], config["num_classes"],
-                             config["reg_max"], config["num_mask_coeffs"])
-        load_flax_variables(self.model, variables)
-        self.model.eval().to(device)
-        self.model.set_quant(quant)
         self.device = device
+        self.round = rounding or (lambda x: x)
         self.h, self.w = frame_hw
         g = config["grid_size"]
         self.rows, self.cols = self.h // g, self.w // g
@@ -193,25 +216,21 @@ class ReferenceSegmenter:
                for x, y in zip(cx.reshape(-1), cy.reshape(-1))]
         self.centres = torch.tensor(pts, dtype=torch.float32, device=device)
 
-    def wire(self, frames: np.ndarray) -> torch.Tensor:
-        """(S, H, W, 3) camera frames as the program receives them."""
-        if self.cfg["transfer_format"] != "i420":
-            return torch.from_numpy(frames).to(self.device)
-        planes = np.stack([bgr_to_i420(f) for f in frames])
-        return i420_to_bgr(torch.from_numpy(planes).to(self.device), self.h, self.w)
-
     @torch.no_grad()
-    def __call__(self, frames: np.ndarray) -> list[SegOut]:
-        c = self.cfg
+    def segment(self, outs, heads: bool = False) -> list[SegOut]:
+        """Each image's segmentation from a batch's head outputs ``outs``
+        (float32, with the fields of ``Outputs``); with ``heads``, its flat
+        head outputs too."""
+        c, r = self.cfg, self.round
         imgsz = c["imgsz"]
-        outs = self.model(letterbox(self.wire(frames), self.spec, imgsz))
-        boxes, cls_logits, coeffs = decode(outs, c["reg_max"])
+        flat = flat_heads(outs) if heads else None
+        boxes, cls_logits, coeffs = (r(x) for x in decode(outs, c["reg_max"]))
         dboxes, scores, dcoef, kept, n_cand, top = nms(
             boxes, cls_logits, coeffs, c["conf_threshold"], c["iou_threshold"],
             c["max_candidates"], c["max_detections"])
-        protos = outs.protos
+        protos = r(outs.protos)
         hp, wp = protos.shape[-2:]
-        masks = torch.einsum("sdn,snhw->sdhw", dcoef, protos)
+        masks = r(torch.einsum("sdn,snhw->sdhw", dcoef, protos))
         scale = torch.tensor([wp / imgsz, hp / imgsz] * 2, device=self.device)
         b = (dboxes * scale)[..., None, None]
         xs = torch.arange(wp, device=self.device, dtype=torch.float32)[None, :]
@@ -230,13 +249,43 @@ class ReferenceSegmenter:
         fx, fy = px - x0, py - y0
         x0i, y0i = x0.long().clamp(0, wp - 1), y0.long().clamp(0, hp - 1)
         x1i, y1i = (x0i + 1).clamp(max=wp - 1), (y0i + 1).clamp(max=hp - 1)
-        val = (m[:, y0i, x0i] * (1 - fx) * (1 - fy) + m[:, y0i, x1i] * fx * (1 - fy)
-               + m[:, y1i, x0i] * (1 - fx) * fy + m[:, y1i, x1i] * fx * fy)
+        val = r(m[:, y0i, x0i] * (1 - fx) * (1 - fy) + m[:, y0i, x1i] * fx * (1 - fy)
+                + m[:, y1i, x0i] * (1 - fx) * fy + m[:, y1i, x1i] * fx * fy)
         any_det = kept.any(dim=-1)
         occ = (val > 0) & any_det[:, None]
         best = torch.where(any_det, scores.max(dim=-1).values, 0.0)
         occ, n_det, best, n_cand, top = (
             t.cpu().numpy() for t in (occ, kept.sum(-1), best, n_cand, top))
         return [SegOut(occ[i].reshape(self.rows, self.cols), int(n_det[i]),
-                       float(best[i]), int(n_cand[i]), float(top[i]))
-                for i in range(len(frames))]
+                       float(best[i]), int(n_cand[i]), float(top[i]),
+                       None if flat is None else [h[i] for h in flat])
+                for i in range(len(occ))]
+
+
+class ReferenceSegmenter(ReferenceChain):
+    """The float32 chain for one model configuration from the camera frame,
+    whose model comes from the reference module ``arch`` (``build_model``,
+    ``load_flax_variables``, ``set_quant``); ``quant`` rounds every
+    convolution and matmul operand (the model's precision control)."""
+
+    def __init__(self, config: dict, arch, variables: dict, frame_hw: tuple[int, int],
+                 device: torch.device, quant=None, rounding=None):
+        super().__init__(config, frame_hw, device, rounding)
+        self.model = arch.build_model(config)
+        arch.load_flax_variables(self.model, variables)
+        self.model.eval().to(device)
+        arch.set_quant(self.model, quant)
+
+    def wire(self, frames: np.ndarray) -> torch.Tensor:
+        """(S, H, W, 3) camera frames as the program receives them."""
+        if self.cfg["transfer_format"] != "i420":
+            return torch.from_numpy(frames).to(self.device)
+        planes = np.stack([bgr_to_i420(f) for f in frames])
+        return i420_to_bgr(torch.from_numpy(planes).to(self.device), self.h, self.w)
+
+    @torch.no_grad()
+    def __call__(self, frames: np.ndarray, heads: bool = False) -> list[SegOut]:
+        """Each frame's segmentation; with ``heads``, its flat head outputs too."""
+        imgsz = self.cfg["imgsz"]
+        return self.segment(self.model(letterbox(self.wire(frames), self.spec, imgsz)),
+                            heads)

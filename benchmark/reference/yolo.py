@@ -1,5 +1,13 @@
 """Plain float32 YOLOv8n-seg / YOLO11n-seg forward, the benchmark's own.
 
+A configuration names its reference module by its key ``"reference"``
+(this one, ``yolo``, where it names none). The harness calls four functions
+of the module: ``build_model(config)``, the float32 model, whose forward
+returns ``Outputs``; ``flax_leaves(model)``, its Flax leaves in creation
+order; ``load_flax_variables(model, variables)``; ``set_quant(model,
+quant)``. A new architecture brings a module of its own with the same four,
+and may import blocks from this one.
+
 A frozen copy of the serving forward of the port's ``models/yolo.py``: the
 same blocks, channel and depth scaling and Flax weight layout, but every
 convolution, BatchNorm and matmul in float32 (the caller turns TF32 off), no
@@ -10,7 +18,7 @@ stride-2 convolutions (the odd pixel on the bottom/right), BatchNorm eps
 
 ``quant``: an optional function applied to every convolution's and matmul's
 inputs and weights. ``None`` is the reference; the precision control passes
-a rounding to a lower precision (``fake_fp8``).
+a rounding to a lower precision (``benchmark/control.py``'s ``fake_fp8``).
 """
 
 from __future__ import annotations
@@ -32,13 +40,6 @@ class YoloScale:
 
 SCALES = {"n": YoloScale(depth=1 / 3, width=1 / 4, max_channels=1024)}
 SCALES_11 = {"n": YoloScale(depth=1 / 2, width=1 / 4, max_channels=1024)}
-
-
-def fake_fp8(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to float8 e4m3 with one scale a tensor (its largest magnitude
-    mapped to 448, the format's largest finite value), back in float32."""
-    scale = x.detach().abs().amax().clamp(min=1e-12) / 448.0
-    return (x / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
 def _q(quant, x):
@@ -320,11 +321,6 @@ class YoloSeg(nn.Module):
         self.proto = Proto(ch(256), ch(256), num_masks)
         self._p3_at, self._p4_at = 4, 6
 
-    def set_quant(self, quant) -> None:
-        for m in self.modules():
-            if hasattr(m, "quant"):
-                m.quant = quant
-
     def forward(self, images: torch.Tensor) -> Outputs:
         x = images
         for i, layer in enumerate(self.backbone):
@@ -350,6 +346,20 @@ class YoloSeg(nn.Module):
                     y = layer(y)
                 out.append(y)
         return Outputs(branches[0], branches[1], branches[2], self.proto(n3))
+
+
+def build_model(config: dict) -> YoloSeg:
+    """The float32 model of a configuration."""
+    return YoloSeg(config["arch"], config["num_classes"], config["reg_max"],
+                   config["num_mask_coeffs"])
+
+
+def set_quant(model: nn.Module, quant) -> None:
+    """Apply ``quant`` to every convolution's and matmul's operands (None:
+    the reference itself)."""
+    for m in model.modules():
+        if hasattr(m, "quant"):
+            m.quant = quant
 
 
 # --- Flax weight layout -------------------------------------------------------
@@ -384,14 +394,42 @@ def _flax_children(module: nn.Module):
     return out
 
 
-def load_flax_variables(model: YoloSeg, variables: dict) -> None:
+def flax_leaves(model: nn.Module) -> list[tuple[str, tuple[str, ...], str]]:
+    """(``state_dict`` key, Flax path, layout) of every tensor that has a Flax
+    leaf, in the Flax module's creation order. Layout "conv": a kernel HWIO
+    in Flax, OIHW here; "conv_transpose": (kh, kw, in, out) in Flax, (in,
+    out, kh, kw) with both spatial axes flipped here; "same": one array."""
+    names = {id(m): n for n, m in model.named_modules()}
+    out = []
+
+    def walk(module, path):
+        for fname, child in _flax_children(module):
+            p, s = ("params",) + path + (fname,), ("batch_stats",) + path + (fname,)
+            name = names[id(child)]
+            if isinstance(child, (nn.Conv2d, nn.ConvTranspose2d)):
+                layout = "conv" if isinstance(child, nn.Conv2d) else "conv_transpose"
+                out.append((f"{name}.weight", p + ("kernel",), layout))
+                if child.bias is not None:
+                    out.append((f"{name}.bias", p + ("bias",), "same"))
+            elif isinstance(child, nn.BatchNorm2d):
+                out.extend([(f"{name}.weight", p + ("scale",), "same"),
+                            (f"{name}.bias", p + ("bias",), "same"),
+                            (f"{name}.running_mean", s + ("mean",), "same"),
+                            (f"{name}.running_var", s + ("var",), "same")])
+            else:
+                walk(child, path + (fname,))
+
+    walk(model, ())
+    return out
+
+
+def load_flax_variables(model: nn.Module, variables: dict) -> None:
     """Fill ``model`` from a Flax ``{"params", "batch_stats"}`` tree of numpy
     arrays: kernels HWIO -> OIHW, transposed kernels (kh, kw, in, out) ->
     (in, out, kh, kw) with both spatial axes flipped. Raises on a missing,
     surplus or misshapen leaf."""
     used = set()
     state = {}
-    names = {id(m): n for n, m in model.named_modules()}
 
     def take(path):
         node = variables
@@ -402,27 +440,13 @@ def load_flax_variables(model: YoloSeg, variables: dict) -> None:
         used.add(path)
         return np.asarray(node, np.float32)
 
-    def walk(module, path):
-        for fname, child in _flax_children(module):
-            p, s = ("params",) + path + (fname,), ("batch_stats",) + path + (fname,)
-            name = names[id(child)]
-            if isinstance(child, nn.Conv2d):
-                state[f"{name}.weight"] = take(p + ("kernel",)).transpose(3, 2, 0, 1)
-                if child.bias is not None:
-                    state[f"{name}.bias"] = take(p + ("bias",))
-            elif isinstance(child, nn.ConvTranspose2d):
-                w = take(p + ("kernel",)).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-                state[f"{name}.weight"] = w
-                state[f"{name}.bias"] = take(p + ("bias",))
-            elif isinstance(child, nn.BatchNorm2d):
-                state[f"{name}.weight"] = take(p + ("scale",))
-                state[f"{name}.bias"] = take(p + ("bias",))
-                state[f"{name}.running_mean"] = take(s + ("mean",))
-                state[f"{name}.running_var"] = take(s + ("var",))
-            else:
-                walk(child, path + (fname,))
-
-    walk(model, ())
+    for key, path, layout in flax_leaves(model):
+        value = take(path)
+        if layout == "conv":
+            value = value.transpose(3, 2, 0, 1)
+        elif layout == "conv_transpose":
+            value = value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        state[key] = value
 
     def leaves(tree, path=()):
         if isinstance(tree, dict):

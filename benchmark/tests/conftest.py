@@ -10,15 +10,16 @@ if str(ROOT) not in sys.path:
 
 
 def make_root(tmp_path, cells=(), traffic=None, limits=None):
-    """A checkout of the benchmark in ``tmp_path``: BENCHMARK.json and the
-    benchmark's data files copied, the weights linked, plus ``cells``
+    """A checkout of the benchmark in ``tmp_path``: BENCHMARK.json, the
+    benchmark's data files and reference modules copied, the weights linked,
+    plus ``cells``
     (manifest entries) with their ``traffic`` and ``limits`` files."""
     import json
     import shutil
 
     root = tmp_path / "checkout"
     (root / "benchmark").mkdir(parents=True)
-    for sub in ("configs", "traffic", "limits", "metrics", "loops"):
+    for sub in ("configs", "traffic", "limits", "metrics", "loops", "reference"):
         shutil.copytree(ROOT / "benchmark" / sub, root / "benchmark" / sub)
     (root / "assets").symlink_to(ROOT / "assets")
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())

@@ -46,12 +46,6 @@ class Loop(_Loop):
             self.keep(result, 0, seq)
             if t1 - t_begin >= seconds:
                 return t1 - t_begin
-
-    def carried(self):
-        fp = self.processor
-        e = fp._exact
-        keys = e.cache_size if hasattr(e, "cache_size") else len(e._angle_cache)
-        return [(keys, fp.analyser.previous_instructions)]
 '''
 
 
@@ -98,3 +92,15 @@ def test_new_files_are_found_without_an_edit(tmp_path, monkeypatch):
     assert line["metrics"]["frames_answered.sync"]["value"] >= 1
     after = _digests(root)
     assert {k: v for k, v in after.items() if k in before} == before
+
+
+def test_a_module_is_run_once_a_process(tmp_path):
+    """Each later lookup of one file gets the module its first run made (one
+    reference model class a run); another checkout's file is its own."""
+    from benchmark.harness.cell import reference_module
+
+    first, second = make_root(tmp_path / "a"), make_root(tmp_path / "b")
+    module = reference_module(first, {})
+    assert reference_module(first, {"reference": "yolo"}) is module
+    assert reference_module(second, {}) is not module
+    assert reference_module(second, {}).YoloSeg is not module.YoloSeg

@@ -1,7 +1,12 @@
 """The FLOP count behind the mfu metrics, against a hand count."""
 
+import json
+
+import pytest
+from conftest import ROOT
 from torch import nn
 
+from benchmark.harness.cell import reference_module
 from benchmark.harness.peaks import anchors_at, astar_bound_s, model_flops, nms_counts
 from benchmark.reference.yolo import YoloSeg
 
@@ -27,6 +32,18 @@ def test_the_reference_models_sit_near_their_published_counts():
     assert 0.8 * 10.4e9 < y11 < 1.05 * 10.4e9
     assert 0.8 * 12.6e9 < v8 < 1.05 * 12.6e9
     assert model_flops(YoloSeg("yolo11n-seg"), 256) < y11 * (256 / 640) ** 2 * 1.05
+
+
+@pytest.mark.parametrize("name, flops", [("yolo11n-seg-256", 1_532_493_824),
+                                         ("yolov8n-seg-640", 11_340_441_600)])
+def test_the_flops_through_the_reference_lookup_are_unchanged(name, flops):
+    # The counts the configurations read before a configuration named its
+    # reference module: the reference built by arch name.
+    c = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
+    built = reference_module(ROOT, c).build_model(c)
+    assert model_flops(built, c["imgsz"]) == flops
+    by_name = YoloSeg(c["arch"], c["num_classes"], c["reg_max"], c["num_mask_coeffs"])
+    assert model_flops(by_name, c["imgsz"]) == flops
 
 
 def test_kernel_counts():

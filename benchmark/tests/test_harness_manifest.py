@@ -101,8 +101,18 @@ def test_config_files(config):
     assert config["file"].startswith("benchmark/configs/")
     data = json.loads((ROOT / config["file"]).read_text())
     assert data["name"] == config["name"]
-    assert (ROOT / data["weights"]).exists()
-    assert config["reduced"] == []
+    weights = data["weights"]
+    if isinstance(weights, dict):
+        assert set(weights) == {"seed"} and isinstance(weights["seed"], int), weights
+    else:
+        assert (ROOT / weights).is_file(), weights
+    if "reference" in data:
+        assert (ROOT / "benchmark" / "reference" / f"{data['reference']}.py").is_file()
+    reduced = config["reduced"]
+    assert isinstance(reduced, list) and len(reduced) <= 16
+    assert all(isinstance(k, str) and 1 <= len(k) <= 200 for k in reduced), reduced
+    if reduced:
+        assert "published" in data and "deployment" in data, config["name"]
     assert sum(w["config"] == config["name"] for w in MANIFEST["workloads"]) >= 1
 
 

@@ -12,6 +12,7 @@ from conftest import ROOT
 
 from benchmark.harness.check import reference_segmentation
 from benchmark.harness.frames import walkway_pool
+from benchmark.harness.weights import flax_tree
 
 CONFIGS = ["yolo11n-seg-256", "yolov8n-seg-640"]
 
@@ -26,7 +27,8 @@ def test_reference_segmenter_equals_the_port_in_float32(name):
     cfg = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
     frames = walkway_pool(2, 1280, 720, seed=10)
     t0 = time.perf_counter()
-    ref = reference_segmentation(ROOT, cfg, frames, torch.device("cpu"))
+    ref = reference_segmentation(ROOT, cfg, flax_tree(ROOT, cfg, "cpu"), frames,
+                                 torch.device("cpu"))
     ref_s = (time.perf_counter() - t0) / len(frames)
     seg = Segmenter(ModelConfig(arch=cfg["arch"], imgsz=cfg["imgsz"], dtype="float32"),
                     variables=load_variables(ROOT / cfg["weights"]), example_hw=(1280, 720),
