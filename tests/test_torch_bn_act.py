@@ -257,7 +257,8 @@ def _served_blocks(model, images):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,imgsz,batch", [("yolo11n-seg", 256, 8), ("yolov8n-seg", 640, 1)])
+@pytest.mark.parametrize("arch,imgsz,batch", [("yolo11n-seg", 256, 8), ("yolov8n-seg", 640, 1),
+                                              ("yolo12x-seg", 640, 8)])
 def test_kernel_equals_its_twin_at_every_served_shape(cuda, arch, imgsz, batch):
     """Every ConvBNAct output shape of ``arch`` at ``imgsz`` and ``batch``
     (the served NHWC frame permuted, so channels_last), in both layouts, bf16

@@ -241,3 +241,26 @@ def test_carried_state_reads_what_the_loops_read(segmenter, frames, engine, path
             assert keys > 0 and len(memory) == 3
     finally:
         _close(proc)
+
+
+@pytest.mark.parametrize("arch,blocks", [("yolo12n-seg", 8), ("yolo12x-seg", 16)])
+def test_area_attention_spans_one_a_block_a_step(frames, arch, blocks):
+    """YOLO12-seg served in steps of 2 streams at imgsz 64: under the profiler
+    each step records one ``program.segment.aattn`` span an area-attention
+    block (8 at n, 16 at x), inside ``program.segment`` and carrying the
+    step's id; without a profiler, none."""
+    seg = Segmenter(config.ModelConfig(arch=arch, imgsz=64, dtype="float32"),
+                    example_hw=(H, W), device="cpu")
+    proc = MultiStreamProcessor(_cfg("exact_device", STREAMS), segmenter=seg, device="cpu")
+    try:
+        spans.clear()
+        _step(proc, frames, 0)
+        assert spans.recorded() == []
+        with profile(activities=[ProfilerActivity.CPU]):
+            _step(proc, frames, 1)
+            _step(proc, frames, 2)
+        got = [s for s in spans.recorded() if s.name == "program.segment.aattn"]
+    finally:
+        _close(proc)
+    assert sorted(s.step for s in got) == [1] * blocks + [2] * blocks
+    assert {s.parent for s in got} == {"program.segment"}

@@ -187,8 +187,9 @@ class AnalyserConfig:
 class ModelConfig:
     """Segmentation model. Reference: main.py:43 (YOLO(...)), model/train.py:12-13."""
 
-    arch: Literal["yolov8n-seg", "yolo11n-seg",
-                  "yolo11n-seg-legacy"] = "yolov8n-seg"
+    arch: Literal["yolov8n-seg", "yolo11n-seg", "yolo11n-seg-legacy",
+                  "yolo12n-seg", "yolo12s-seg", "yolo12m-seg", "yolo12l-seg",
+                  "yolo12x-seg"] = "yolov8n-seg"
     num_classes: int = 1                      # model/data.yaml:6
     imgsz: int = 640
     conf_threshold: float = 0.5               # FrameProcessor.py:322

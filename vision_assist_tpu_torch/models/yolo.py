@@ -1,4 +1,4 @@
-"""PyTorch YOLO-seg model family (YOLOv8n-seg / YOLO11n-seg), NCHW.
+"""PyTorch YOLO-seg model family (YOLOv8-seg, YOLO11-seg, YOLO12-seg), NCHW.
 
 Counterpart of ``vision_assist_tpu/models/yolo.py``: the same blocks, the
 same channel and depth scaling, and the same arithmetic (bf16 convolutions
@@ -6,6 +6,16 @@ with float32 BatchNorm, eps 1e-3; float32 head convolutions). Every module
 registers its children in the order the Flax module creates them in
 ``__call__``, so :func:`convert_flax_variables` can walk the tree and name
 each leaf the way Flax does (``ConvBNAct_3``, ``C3k2_5``, ...).
+
+One departure from the JAX package, to match Ultralytics' ``parse_model``:
+every C3k2 takes ``c3k=True`` at scales m, l and x (the JAX package keeps it
+False in backbone blocks 2 and 4 and the neck's first three blocks, so its
+yolo11m-seg is not the published model; n and s are unchanged). One family
+the JAX package does not have: YOLO12-seg (``yolo12{n,s,m,l,x}-seg``,
+arXiv:2502.12524, ``ultralytics/cfg/models/12/yolo12-seg.yaml``), area
+attention (:class:`AAttn`) in :class:`ABlock` units of :class:`A2C2f`, and
+the YOLO11 head. Its Flax names follow the same rule; the A2C2f's residual
+scale is the leaf ``A2C2f_k/gamma``.
 
 Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution where
 ``nn.Conv2d(padding=1)`` would pad (1, 1); :func:`_pad_same` pads explicitly.
@@ -28,8 +38,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act
+from vision_assist_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +61,17 @@ SCALES_11 = {
     "s": YoloScale(depth=1 / 2, width=1 / 2, max_channels=1024),
     "m": YoloScale(depth=1 / 2, width=1.0, max_channels=512),
 }
+SCALES_12 = {
+    "n": YoloScale(depth=0.50, width=0.25, max_channels=1024),
+    "s": YoloScale(depth=0.50, width=0.50, max_channels=1024),
+    "m": YoloScale(depth=0.50, width=1.00, max_channels=512),
+    "l": YoloScale(depth=1.00, width=1.00, max_channels=512),
+    "x": YoloScale(depth=1.00, width=1.50, max_channels=512),
+}
+# Scales whose every C3k2 takes c3k=True (Ultralytics' parse_model), and
+# whose A2C2f takes a residual scale and an MLP ratio of 1.2 (2.0 elsewhere).
+C3K_SCALES = "mlx"
+RESIDUAL_SCALES = "lx"
 
 
 # Flax's BatchNorm keeps 0.97 of the running statistics a step.
@@ -290,6 +313,105 @@ class C2PSA(nn.Module):
         return self.cv2(torch.cat([a, b], dim=1))
 
 
+def _sdpa_backend(q: torch.Tensor):
+    """The attention kernel, pinned so that the card runs the same one on
+    every call: FlashAttention for bf16 and fp16 on the card (no score tensor
+    in device memory; float32 softmax inside, P rounded to the input dtype
+    before P.V), the memory-efficient kernel for float32 there, and the math
+    path on the CPU."""
+    if q.device.type != "cuda":
+        return SDPBackend.MATH
+    if q.dtype in (torch.bfloat16, torch.float16):
+        return SDPBackend.FLASH_ATTENTION
+    return SDPBackend.EFFICIENT_ATTENTION
+
+
+class AAttn(nn.Module):
+    """YOLO12 area attention: heads of ``dim // num_heads`` channels over the
+    tokens of the grid in row-major order, cut into ``area`` consecutive runs
+    (row strips where the rows divide evenly) that attend within
+    themselves; ``area`` 1 is full attention. qkv channels split per head as
+    [q | k | v], each ``head_dim`` wide. Then ``proj(out + pe(v))``, pe a 7x7
+    depthwise convolution. One fused attention call a forward: the areas
+    fold into the batch and q, k, v are views of the qkv output."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.area, self.nh = area, num_heads
+        self.head_dim = dim // num_heads
+        self.qkv = ConvBNAct(dim, 3 * dim, 1, act=False, dtype=dtype)
+        self.proj = ConvBNAct(dim, dim, 1, act=False, dtype=dtype)
+        self.pe = ConvBNAct(dim, dim, 7, groups=dim, act=False, dtype=dtype)
+
+    def forward(self, x):
+        with spans.span("program.segment.aattn"):
+            b, c, h, w = x.shape
+            n, nh, hd = h * w, self.nh, self.head_dim
+            tokens = self.qkv(x).flatten(2).transpose(1, 2)          # (B, N, 3C)
+            qkv = tokens.reshape(b * self.area, n // self.area, nh, 3, hd)
+            q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+            with sdpa_kernel(_sdpa_backend(q)):
+                out = F.scaled_dot_product_attention(q, k, v)       # (B', nh, T, hd)
+
+            def grid(t):       # (B', nh, T, hd) -> (B, C, H, W)
+                return t.transpose(1, 2).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+            return self.proj(grid(out) + self.pe(grid(v)))
+
+
+class ABlock(nn.Module):
+    """Area attention, then a 1x1 MLP (SiLU inside, none at its output),
+    each with a residual."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2,
+                 area: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, num_heads, area, dtype=dtype)
+        self.mlp = nn.Sequential(ConvBNAct(dim, hidden, 1, dtype=dtype),
+                                 ConvBNAct(hidden, dim, 1, act=False, dtype=dtype))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """YOLO12's R-ELAN block: ``y = [cv1(x)]``, each of n units applied to
+    the last entry (two ABlocks with ``a2``, else a C3k of 2 bottlenecks),
+    ``cv2(cat(y))``; with ``residual`` (an ``a2`` block at scales l and x)
+    the output is ``x + gamma * cv2(...)``, ``gamma`` a learned scale a
+    channel."""
+
+    def __init__(self, c_in: int, features: int, n: int = 1, a2: bool = True,
+                 area: int = 1, residual: bool = False, mlp_ratio: float = 2.0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = features // 2
+        if hidden % 32:
+            raise ValueError(f"A2C2f: {hidden} hidden channels; ABlock takes "
+                             "a multiple of 32")
+        self.cv1 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(hidden, hidden // 32, mlp_ratio, area, dtype=dtype)
+                            for _ in range(2))) if a2
+            else C3(hidden, hidden, 2, True, kernels=(3, 3), dtype=dtype)
+            for _ in range(n))
+        self.cv2 = ConvBNAct((1 + n) * hidden, features, 1, dtype=dtype)
+        self.gamma = (nn.Parameter(torch.full((features,), 0.01, dtype=dtype))
+                      if a2 and residual else None)
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.cv2(torch.cat(ys, dim=1))
+        if self.gamma is None:
+            return y
+        return x + self.gamma.to(y.dtype).view(1, -1, 1, 1) * y
+
+
 class Proto(nn.Module):
     """Mask prototype head (from P3): conv, 2x transposed conv, conv, 1x1."""
 
@@ -321,7 +443,7 @@ class YoloSegOutputs:
 
 
 class YoloSeg(nn.Module):
-    """YOLOv8/11 segmentation model; images (B, 3, H, W) float in [0, 1].
+    """YOLOv8/11/12 segmentation model; images (B, 3, H, W) float in [0, 1].
 
     ``dtype`` is the compute dtype of the convolutions; ``param_dtype`` (the
     compute dtype when None) the dtype their weights are stored in. The head's
@@ -334,9 +456,10 @@ class YoloSeg(nn.Module):
         super().__init__()
         self.arch, self.reg_max, self.dtype = arch, reg_max, dtype
         self.param_dtype = dtype if param_dtype is None else param_dtype
-        is_v11, legacy = self.is_v11, self.is_v11_legacy
+        is_v11, is_v12, legacy = self.is_v11, self.is_v12, self.is_v11_legacy
         letter = arch.replace("-legacy", "").replace("-seg", "")[-1]
-        s = (SCALES_11 if is_v11 else SCALES)[letter]
+        s = (SCALES_11 if is_v11 else SCALES_12 if is_v12 else SCALES)[letter]
+        c3k = letter in C3K_SCALES
         dt = dtype
 
         def ch(c: int) -> int:
@@ -349,10 +472,10 @@ class YoloSeg(nn.Module):
             self.backbone = nn.ModuleList([
                 ConvBNAct(3, ch(64), 3, 2, dtype=dt),
                 ConvBNAct(ch(64), ch(128), 3, 2, dtype=dt),
-                C3k2(ch(128), ch(256), depth(2), c3k=False, shortcut=True,
+                C3k2(ch(128), ch(256), depth(2), c3k=c3k, shortcut=True,
                      expansion=0.25, dtype=dt),
                 ConvBNAct(ch(256), ch(256), 3, 2, dtype=dt),
-                C3k2(ch(256), ch(512), depth(2), c3k=False, shortcut=True,
+                C3k2(ch(256), ch(512), depth(2), c3k=c3k, shortcut=True,
                      expansion=0.25, dtype=dt),                        # P3
                 ConvBNAct(ch(512), ch(512), 3, 2, dtype=dt),
                 C3k2(ch(512), ch(512), depth(2), c3k=True, shortcut=True,
@@ -365,11 +488,37 @@ class YoloSeg(nn.Module):
             ])
             c_p3, c_p4 = ch(512), ch(512)
             if legacy:
-                def block(ci, c, n, sc, c3k=False):
+                def block(ci, c, n, sc, last=False):
                     return C3k2(ci, c, depth(n), c3k=False, shortcut=sc, dtype=dt)
             else:
-                def block(ci, c, n, sc, c3k=False):
-                    return C3k2(ci, c, depth(n), c3k=c3k, shortcut=True, dtype=dt)
+                def block(ci, c, n, sc, last=False):
+                    return C3k2(ci, c, depth(n), c3k=c3k or last, shortcut=True,
+                                dtype=dt)
+            neck_n = 2
+        elif is_v12:
+            residual = letter in RESIDUAL_SCALES
+            mlp_ratio = 1.2 if residual else 2.0
+            self.backbone = nn.ModuleList([
+                ConvBNAct(3, ch(64), 3, 2, dtype=dt),
+                ConvBNAct(ch(64), ch(128), 3, 2, groups=2, dtype=dt),
+                C3k2(ch(128), ch(256), depth(2), c3k=c3k, shortcut=True,
+                     expansion=0.25, dtype=dt),
+                ConvBNAct(ch(256), ch(256), 3, 2, groups=4, dtype=dt),
+                C3k2(ch(256), ch(512), depth(2), c3k=c3k, shortcut=True,
+                     expansion=0.25, dtype=dt),                        # P3
+                ConvBNAct(ch(512), ch(512), 3, 2, dtype=dt),
+                A2C2f(ch(512), ch(512), depth(4), True, 4, residual, mlp_ratio,
+                      dtype=dt),                                       # P4
+                ConvBNAct(ch(512), ch(1024), 3, 2, dtype=dt),
+                A2C2f(ch(1024), ch(1024), depth(4), True, 1, residual, mlp_ratio,
+                      dtype=dt),
+            ])
+            c_p3, c_p4 = ch(512), ch(512)
+
+            def block(ci, c, n, sc, last=False):
+                if last:
+                    return C3k2(ci, c, depth(n), c3k=True, shortcut=True, dtype=dt)
+                return A2C2f(ci, c, depth(n), a2=False, dtype=dt)
             neck_n = 2
         else:
             self.backbone = nn.ModuleList([
@@ -386,7 +535,7 @@ class YoloSeg(nn.Module):
             ])
             c_p3, c_p4 = ch(256), ch(512)
 
-            def block(ci, c, n, sc, c3k=False):
+            def block(ci, c, n, sc, last=False):
                 return C2f(ci, c, depth(n), shortcut=sc, dtype=dt)
             neck_n = 3
         c_p5 = ch(1024)
@@ -398,7 +547,7 @@ class YoloSeg(nn.Module):
         self.d1 = ConvBNAct(ch(256), ch(256), 3, 2, dtype=dt)
         self.n4 = block(ch(256) + ch(512), ch(512), neck_n, False)
         self.d2 = ConvBNAct(ch(512), ch(512), 3, 2, dtype=dt)
-        self.n5 = block(ch(512) + c_p5, ch(1024), neck_n, False, c3k=True)
+        self.n5 = block(ch(512) + c_p5, ch(1024), neck_n, False, last=True)
 
         feats = [ch(256), ch(512), ch(1024)]
         c_box = max(16, feats[0] // 4, reg_max * 4)
@@ -409,7 +558,7 @@ class YoloSeg(nn.Module):
             box = [ConvBNAct(f, c_box, 3, dtype=dt),
                    ConvBNAct(c_box, c_box, 3, dtype=dt),
                    nn.Conv2d(c_box, 4 * reg_max, 1)]
-            if is_v11:
+            if is_v11 or is_v12:
                 cls = [ConvBNAct(f, f, 3, groups=f, dtype=dt),
                        ConvBNAct(f, c_cls, 1, dtype=dt),
                        ConvBNAct(c_cls, c_cls, 3, groups=c_cls, dtype=dt),
@@ -430,10 +579,16 @@ class YoloSeg(nn.Module):
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
                         and m.weight.dtype == dtype:
                     m.to(self.param_dtype)
+                elif isinstance(m, A2C2f) and m.gamma is not None:
+                    m.gamma.data = m.gamma.data.to(self.param_dtype)
 
     @property
     def is_v11(self) -> bool:
         return "11" in self.arch
+
+    @property
+    def is_v12(self) -> bool:
+        return "12" in self.arch
 
     @property
     def is_v11_legacy(self) -> bool:
@@ -503,7 +658,9 @@ def flax_leaves(model: YoloSeg) -> list[tuple[str, tuple[str, ...], str]]:
     leaf, in the Flax module's creation order. Layout "conv" is a kernel stored
     HWIO in Flax and OIHW here (depthwise (3,3,1,C) <-> (C,1,3,3));
     "conv_transpose" a kernel (kh,kw,in,out) in Flax and (in,out,kh,kw) with
-    both spatial axes flipped here; "same" the same array on both sides."""
+    both spatial axes flipped here; "same" the same array on both sides. A
+    parameter a block holds itself (A2C2f's ``gamma``) is a "same" leaf of
+    the block's own name, after its children's."""
     names = {id(m): n for n, m in model.named_modules()}
     out = []
 
@@ -523,6 +680,8 @@ def flax_leaves(model: YoloSeg) -> list[tuple[str, tuple[str, ...], str]]:
                             (f"{name}.running_var", s + ("var",), "same")])
             else:
                 walk(child, path + (fname,))
+                for pname, _ in child.named_parameters(recurse=False):
+                    out.append((f"{name}.{pname}", p + (pname,), "same"))
 
     walk(model, ())
     return out

@@ -10,6 +10,8 @@ program they issue) opens a span at each layer boundary:
       program     every launch of the device program issued
         program.i420, program.segment, program.plan, program.blur,
         program.payload
+          program.segment.aattn   one a YOLO12 area-attention block, inside
+                                  program.segment (16 a step at scale x)
       readback    the payload's copy to pinned memory issued, its event
     retire      the step's host half after the card, with the same id
       wait        the host waiting for the payload's event
