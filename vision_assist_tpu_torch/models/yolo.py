@@ -17,8 +17,14 @@ attention (:class:`AAttn`) in :class:`ABlock` units of :class:`A2C2f`, and
 the YOLO11 head. Its Flax names follow the same rule; the A2C2f's residual
 scale is the leaf ``A2C2f_k/gamma``.
 
-Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution where
-``nn.Conv2d(padding=1)`` would pad (1, 1); :func:`_pad_same` pads explicitly.
+Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution at an
+even size, where ``nn.Conv2d(padding=1)`` would pad (1, 1). ``ConvBNAct`` works
+out the SAME pads from its input's shape (:func:`_same_pads`): where they are
+symmetric on both axes (every stride-1 convolution, and stride 2 on an odd
+size) the convolution takes them as its own ``padding`` and no padded copy is
+made; only the asymmetric ones (the 7 stride-2 convolutions a forward of the
+served models), and every pad in train mode, are still made explicitly,
+counted in ``pad_copies``.
 Flax's ``ConvTranspose`` does not flip its kernel, PyTorch's does: the bridge
 flips the spatial taps.
 
@@ -82,16 +88,33 @@ def _round_ch(c: float) -> int:
     return max(int(round(c)), 1)
 
 
-def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """XLA/TF "SAME" padding: the odd pixel goes to the bottom/right."""
-    if k == 1 and s == 1:
-        return x
+# Explicit pads ConvBNAct made since the last reset_pad_copies(): in eval mode
+# one per convolution whose SAME pads are asymmetric, which its own padding
+# cannot take; in train mode one per padded convolution. Each is a fill and a
+# copy on the card.
+pad_copies = 0
+
+
+def reset_pad_copies() -> None:
+    global pad_copies
+    pad_copies = 0
+
+
+def _same_pads(x: torch.Tensor, k: int, s: int) -> list[int]:
+    """XLA/TF "SAME" pads of ``x`` in ``F.pad``'s order (W before, W after,
+    H before, H after): the odd pixel goes to the bottom/right."""
     pads = []
-    for n in (x.shape[-1], x.shape[-2]):          # F.pad order: W then H
+    for n in (x.shape[-1], x.shape[-2]):
         out = -(-n // s)
         total = max((out - 1) * s + k - n, 0)
         pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+    return pads
+
+
+def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """XLA/TF "SAME" padding: the odd pixel goes to the bottom/right."""
+    pads = _same_pads(x, k, s)
+    return F.pad(x, pads) if any(pads) else x
 
 
 def _flax_batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d,
@@ -145,10 +168,21 @@ class ConvBNAct(nn.Module):
         self.global_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        global pad_copies
         conv, bn = self.conv, self.bn
-        y = F.conv2d(_pad_same(x, self.kernel, self.stride),
-                     conv.weight.to(self.dtype), None, conv.stride, 0, 1,
-                     conv.groups)
+        pads = _same_pads(x, self.kernel, self.stride)
+        w0, w1, h0, h1 = pads
+        # Train mode keeps the explicit pad: where the convolution pads itself,
+        # oneDNN's float32 backward sums the input's gradient in another order.
+        if not self.training and w0 == w1 and h0 == h1:
+            padding = (h0, w0)
+        else:
+            padding = 0
+            if any(pads):
+                x = F.pad(x, pads)
+                pad_copies += 1
+        y = F.conv2d(x, conv.weight.to(self.dtype), None, conv.stride, padding,
+                     1, conv.groups)
         if not self.training:
             return bn_act(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
                           bn.eps, self.act)
