@@ -58,15 +58,11 @@ result line:
              and 54x96, and a max_iters cap raising; the 8 frames through a
              FrameProcessor with the default flags (counts zeroed before and
              read after: one sweep launch a frame, no relax launch), answers
-             and path cells equal to the relax-kernel path's; __call__ p50
-             and quartiles over the bench's 30 frames with the sweep kernel
-             beside the relax-kernel path, the two interleaved frame by frame
-             (the first alternating), and the kernel and the twin timed on each
-             frame's own lattice; 3 steps of 8 streams through
-             MultiStreamProcessor (one sweep launch a step); 8 frames of the
-             program captured in one CUDA graph (8 launches captured, the
-             replay equal to per-frame calls); the 13 scenarios with those
-             flags, card against CPU.
+             and path cells equal to the relax-kernel path's; the kernel
+             against its twin on each frame's own lattice (B=1) of the six
+             demo PNGs and the 8 frames, both timed; 3 steps of 8 streams
+             through MultiStreamProcessor (one sweep launch a step); the 13
+             scenarios with those flags, card against CPU.
 5. check     the kernel path on the card against itself on the CPU: replay
              of the 13 scenarios (answers and paths equal) and two frames
              with the model in float32 (TF32 off).
@@ -174,10 +170,8 @@ result line:
              on 3 walkways of 1080x1920 with --engine exact_device (one A*
              launch a frame on its 54x96 lattice), its answers equal to
              --engine exact's on the same frames.
-16. bench    the port's bench (vision_assist_tpu_torch/bench.py) at its
-             defaults: its JSON line (p50/p90/p99, depth-8 and 8-stream
-             frames/s, detections, the card's name and power limit), no
-             planning kernel launched (the default engine plans on the host).
+16.          (retired: the port's whole-frame bench; the benchmark,
+             benchmark/run.py, measures the served program)
 17. export   `export_model` at the flagship on a 640x640 frame: torch.export
              of the segmenter chain saved as inference.pt2 with
              variables.msgpack, loaded back, its outputs bit-equal to the
@@ -221,15 +215,7 @@ result line:
              tests/fixtures/torch_protrusions.json, rasterised at 1280x720:
              every answer equal, coordinate for coordinate, to the JAX
              detector's in that file; host ms a lattice; no kernel launched.
-22. tools    the measurement tools (vision_assist_tpu_torch/tools/) in
-             process on the card at small counts, counts zeroed before and
-             read after: diagnose_device_p50 (K = 8 frames a CUDA graph for
-             exact, the kernel wavefront and exact_device, the replayed
-             payloads bit-equal to the per-frame calls), h2d, engines, fused,
-             batch1 (with its torch.profiler trace), latency, wire (beside
-             phase 16's numbers), detections, profile_pipeline and
-             compare_pathfinders: each exits 0 and its headline numbers are
-             printed. ``--tools-out DIR`` keeps each tool's JSON object there.
+22.          (retired: the whole-frame measurement tools)
 23. nms      the NMS kernel (csrc/nms.cu: selection, the greedy keep mask
              and the gather in one launch, a cluster of 8 CTAs an image)
              against its plain twin (models/decode.py:nms_from_scores) on the
@@ -241,8 +227,7 @@ result line:
              256 candidates, and 1024 x 16; A = 8400, K = 1024 x 16); each
              timed (queued CUDA events) beside its bound and the twin; the
              whole decode.nms call on the evaluation batch and on one served
-             frame, and its share of the eval step; profile_frame's device
-             operations a frame.
+             frame, and its share of the eval step.
 24. large    the global forms of the relax, sweep and A* kernels (their
              per-cell state in device memory, for lattices past one CTA's
              shared memory) against their plain twins on the card, bit-equal
@@ -1420,115 +1405,6 @@ def protrusions_phase(cuda_astar, cuda_wavefront) -> None:
         f"{statistics.median(times):.3f}, max {max(times):.3f}")
 
 
-def run_tool(name: str, argv: list[str], out_dir: pathlib.Path) -> dict:
-    """A tool's main(argv) in process on the card; its JSON object."""
-    module = importlib.import_module(f"vision_assist_tpu_torch.tools.{name}")
-    out = out_dir / f"{name}.json"
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = module.main(argv + ["--out", str(out)])
-    if rc != 0:
-        raise AssertionError(f"tool {name} exited {rc}")
-    result = json.loads(out.read_text())
-    if result.get("nvidia_smi") is None or result.get("device_clock") != "cuda events":
-        raise AssertionError(f"tool {name}: not stamped with the card: {result}")
-    log(f"phase tools {name}: exit 0 in {time.perf_counter() - t0:.1f} s")
-    return result
-
-
-def tools_phase(record: dict, out_dir: pathlib.Path, cuda_astar,
-                cuda_wavefront) -> dict:
-    """Phase 22: the measurement tools on the card at small counts. Returns
-    the (relax, A*) launches the phase made: the device-only tool's captures
-    and reference calls, the other tools' runs of those engines."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cuda_wavefront.reset_launches()
-    cuda_astar.reset_launches()
-    r = run_tool("diagnose_device_p50", ["--frames", "8", "--trials", "5"], out_dir)
-    for engine, row in r["engines"].items():
-        if not row["payloads_equal_per_frame_calls"]:
-            raise AssertionError(f"device_p50 {engine}: replayed payloads differ")
-        log(f"phase tools device_p50 {engine}: {row['frame_device_ms']['p50']:.4f} ms a "
-            f"frame on the device (a CUDA graph of {row['frames']} frames replayed, "
-            f"{row['replay_device_ms']['p50']:.3f} ms, CUDA events, p50 of 5), payloads "
-            f"bit-equal to {row['frames']} per-frame calls; {row['h2d_syncs_per_frame']:g} "
-            f"host uploads a frame hoisted; launches at capture {row['launches']}")
-    r = run_tool("diagnose_h2d", ["--frames", "16", "--served", "24"], out_dir)
-    for name in ("bgr", "i420"):
-        row = r[name]
-        log(f"phase tools h2d {name} ({r['bytes_' + name]} B): pinned "
-            f"{row['pinned']['copy_device_ms']:.4f} device ms ({row['pinned']['gb_per_s']:.2f} "
-            f"GB/s), issue {row['pinned']['issue_host_ms_per_frame']:.4f} / done "
-            f"{row['pinned']['done_host_ms_per_frame']:.4f} host ms; pageable "
-            f"{row['pageable']['copy_device_ms']:.4f} device ms ({row['pageable']['gb_per_s']:.2f} "
-            f"GB/s), issue {row['pageable']['issue_host_ms_per_frame']:.4f} / done "
-            f"{row['pageable']['done_host_ms_per_frame']:.4f}; 1/2/4 streams "
-            + " / ".join(f"{v:.4f}" for v in row["streams_host_ms_per_frame"].values())
-            + " host ms a frame")
-    log(f"phase tools h2d served at depth {r['served_depth']}: fed numpy "
-        f"{r['served_numpy_host_ms_per_frame']:.3f} host ms a frame, from a queue 1/2/4 "
-        "ahead " + " / ".join(f"{v:.3f}" for v in r["served_prefetch_host_ms_per_frame"].values()))
-    r = run_tool("diagnose_engines", ["--sync", "8", "--pipe", "16", "--steps", "4"], out_dir)
-    for engine, row in r["engines"].items():
-        log(f"phase tools engines {engine}: sync p50 {row['sync_host_ms']['p50']:.3f} p90 "
-            f"{row['sync_host_ms']['p90']:.3f} host ms, depth 4 "
-            f"{row['depth4_host_ms_per_frame']:.3f}, 8 streams "
-            f"{row['streams8_host_ms_per_frame']:.3f} host ms a frame")
-    r = run_tool("diagnose_fused", ["--reps", "8"], out_dir)
-    log(f"phase tools fused: program {r['program_device_ms']:.3f} device ms (CUDA events, "
-        f"host ahead), sync {r['program_sync_host_ms']:.3f}, depth {r['depth']} "
-        f"{r['program_pipelined_host_ms']:.3f}, fed numpy "
-        f"{r['program_numpy_pipelined_host_ms']:.3f} host ms a call; upload "
-        f"{r['h2d_copy_device_ms']:.4f} device ms; payload back {r['d2h_payload_host_ms']:.4f} "
-        f"host ms; S=4 {r['streams4_sync_host_ms_per_frame']:.3f} / "
-        f"{r['streams4_pipelined_host_ms_per_frame']:.3f}, S=8 "
-        f"{r['streams8_sync_host_ms_per_frame']:.3f} / "
-        f"{r['streams8_pipelined_host_ms_per_frame']:.3f} host ms a frame (sync / pipelined)")
-    r = run_tool("diagnose_batch1", ["--reps", "5", "--trace-dir",
-                                     str(out_dir / "batch1_trace")], out_dir)
-    log("phase tools batch1 device ms at S=1 / S=2: " + ", ".join(
-        f"{st} {r[st + '_s1']['device_ms']:.3f} / {r[st + '_s2']['device_ms']:.3f}"
-        for st in ("seg", "blur", "plan", "program"))
-        + f"; sync host ms program {r['program_s1']['sync_host_ms']:.3f} / "
-        f"{r['program_s2']['sync_host_ms']:.3f}; trace of one call: "
-        f"{r['trace']['device_operations']} device operations, "
-        f"{r['trace']['device_busy_ms']:.3f} ms busy")
-    if r["trace"]["device_operations"] == 0:
-        raise AssertionError("batch1: the torch.profiler trace holds no device operation")
-    r = run_tool("diagnose_latency", ["--reps", "8"], out_dir)
-    log(f"phase tools latency: trivial launch+sync {r['trivial']['sync_host_ms']:.4f} host ms "
-        f"({r['trivial']['device_ms']:.4f} device ms); 1280x720 upload "
-        f"{r['h2d_1280x720']['blocking_host_ms']:.4f} host / "
-        f"{r['h2d_1280x720']['copy_device_ms']:.4f} device ms; segmenter 1280x720 sync "
-        f"{r['segmenter_1280x720']['sync_host_ms']:.3f} depth {r['depth']} "
-        f"{r['segmenter_1280x720']['pipelined_host_ms']:.3f} device "
-        f"{r['segmenter_1280x720']['device_ms']:.3f}; plan exact "
-        f"{r['plan_exact']['sync_host_ms']:.3f} / {r['plan_exact']['device_ms']:.3f}, "
-        f"kernel wavefront {r['plan_wavefront_kernel']['sync_host_ms']:.3f} / "
-        f"{r['plan_wavefront_kernel']['device_ms']:.3f} (sync host / device ms); payload "
-        f"back {r['d2h_payload']['host_ms']:.4f} host ms")
-    r = run_tool("diagnose_wire", ["--trials", "12", "--bench-fps", str(record["value"]),
-                                   "--bench-batched-fps",
-                                   str(record["batched_fps_8streams"])], out_dir)
-    log(f"phase tools wire: {r['batch_bytes']} B a batch of 8 I420 frames, fresh upload "
-        f"{r['upload_host_ms_per_batch']:.4f} host ms ({r['upload_gb_per_s']} GB/s); the "
-        f"ceiling it sets {r['ceiling_fps_i420']} frames/s as I420, "
-        f"{r['ceiling_fps_bgr']} as BGR; the bench's {r['bench_fps_single']:.3f} (depth 8) "
-        f"and {r['bench_fps_batched']:.3f} (8 streams) frames/s")
-    r = run_tool("diagnose_detections", ["--frames", "30"], out_dir)
-    log(f"phase tools detections: bf16 on the card {r['served_bf16']['frames_with_detections']}, "
-        f"float32 on the CPU {r['cpu_float32']['frames_with_detections']} frames with a "
-        f"detection; frames differing {r['frames_differing']}")
-    r = run_tool("profile_pipeline", ["--frames", "10", "--with-model"], out_dir)
-    log("phase tools profile_pipeline (host ms avg): " + ", ".join(
-        f"{k} {v['avg']:.3f}" for k, v in r["stages_host_ms"].items()))
-    r = run_tool("compare_pathfinders", ["--out-dir", str(out_dir / "pathfinder_ab")], out_dir)
-    log(f"phase tools compare_pathfinders: {r['scenarios']} scenarios, paths equal to "
-        f"the exact engine's: {r['equal_to_exact']}")
-    return cuda_wavefront.launches, cuda_astar.launches
-
-
 def nms_bounds(args, dets) -> dict:
     """The least time the card could take for this NMS: bytes over the
     memory rate against the float operations over the float32 rate. Bytes:
@@ -1590,16 +1466,6 @@ def seeded_nms_inputs(torch, s: int, a: int, valid: int | None, conf: float, see
                 dev, torch.bfloat16))
 
 
-def profiled_frame(profile_frame) -> dict:
-    """profile_frame's JSON object for 8 frames, its printout kept."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = profile_frame.main(["--frames", "8", "--top", "3"])
-    if rc != 0:
-        raise AssertionError(f"profile_frame exited {rc}")
-    return json.loads(buf.getvalue())
-
-
 def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
     """Phase 23: the NMS kernel against its plain twin on the card, five
     outputs bit-equal, on the inputs the served path gives it (one frame, and
@@ -1608,8 +1474,7 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
     inputs (A = K = 256 x 8 and 1024 x 16; A = 8400, K = 1024 x 16); its
     device time (launches queued behind a sleep) beside its bound and the
     twin's; the whole decode.nms call on the evaluation batch and on one
-    served frame, the eval step and the NMS share of it; profile_frame's
-    device operations a frame."""
+    served frame, the eval step and the NMS share of it."""
     import numpy as np
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1710,18 +1575,7 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
     served_queued_ms = cuda_ms(lambda: decode.nms(*served, **served_kw), reps=50, queued=True)
     log(f"phase nms served frame: decode.nms {served_ms:.5f} ms a back-to-back call, "
         f"{served_queued_ms:.5f} ms on the device (CUDA events)")
-
-    from vision_assist_tpu_torch.utils import profile_frame
-
-    prof = profiled_frame(profile_frame)
-    log(f"phase nms profile_frame with the kernel: "
-        f"{prof['device_ops_per_frame']:.1f} device operations a frame, "
-        f"{prof['device_busy_ms_per_frame']:.3f} device ms busy of "
-        f"{prof['wall_ms_per_frame']:.3f} ms a frame (idle "
-        f"{prof['device_idle_share']:.3f}), top "
-        f"{[t['name'][:40] for t in prof['top_device_ms_per_frame']]}")
-    return {"timed": timed, "err": err, "share": (step_ms, nms_ms), "served_call": served_ms,
-            "frame_ops": prof["device_ops_per_frame"]}
+    return {"timed": timed, "err": err, "share": (step_ms, nms_ms), "served_call": served_ms}
 
 
 def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
@@ -1946,20 +1800,19 @@ def sweep_inputs(torch, dev, scfg=None, seg=None, frames=None, scen_inputs=None)
 
 
 def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
-                cuda_sweep, cuda_wavefront, fp_kernel) -> dict:
+                cuda_sweep, cuda_wavefront) -> dict:
     """Phase sweep: the fast-sweeping kernel against its twin, bit for bit
     (field and passes), timed; relax on CUDA tensors through the relax
     kernel; the default wavefront flags through FrameProcessor and
-    MultiStreamProcessor with their launches counted; a CUDA graph of frames
-    with the kernel in it. Returns the readings of the kernels line."""
+    MultiStreamProcessor with their launches counted. Returns the readings
+    of the kernels line."""
     import numpy as np
 
     from vision_assist_tpu_torch.config import PathFinderConfig
-    from vision_assist_tpu_torch.ops.yuv import bgr_to_i420_host
+    from vision_assist_tpu_torch.io.png import read_png
     from vision_assist_tpu_torch.pipeline.frame_processor import FrameProcessor
     from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
     from vision_assist_tpu_torch.planning import wavefront
-    from vision_assist_tpu_torch.tools.diagnose_device_p50 import HoistUploads, _chain
 
     sweep_pf = PathFinderConfig(engine="wavefront")
     if sweep_pf.use_pallas_relax or not sweep_pf.use_sweep_relax:
@@ -2096,26 +1949,14 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
         f"answers and path cells equal to the relax-kernel path's, sweep launches "
         f"{launches} (one a frame), relax launches 0")
 
-    # __call__ over the bench's frames: the default flags with the kernel beside
-    # the relax-kernel path, interleaved frame by frame, the one called first
-    # alternating; and the twin timed on each frame's own lattice.
-    bench = card_tools().bench_frames(30)
-    procs = {"default flags (sweep kernel)": fp_sweep, "relax kernel": fp_kernel}
-    for proc in procs.values():
-        proc(bench[0], now_ms=0)
-    call_ms = {label: [] for label in procs}
-    for i, frame in enumerate(bench):
-        for label in (list(procs) if i % 2 == 0 else list(procs)[::-1]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            procs[label](frame, now_ms=5000 + i * 33)
-            call_ms[label].append((time.perf_counter() - t0) * 1e3)
-    medians = {label: statistics.median(ms) for label, ms in call_ms.items()}
-    quartiles = {label: statistics.quantiles(ms, n=4) for label, ms in call_ms.items()}
-    bench_in = plan_inputs(torch, dev, scfg, [seg(f).occupancy for f in bench])
+    # The kernel against its twin on each frame's own lattice, one stream a
+    # launch: the six demo PNGs and the 8 frames; both timed.
+    each = [read_png(p) for p in sorted((REPO / "assets" / "demo").glob("*.png"))]
+    each += list(frames)
+    each_in = plan_inputs(torch, dev, scfg, [seg(f).occupancy for f in each])
     kernel_ms, twin_ms = [], []
-    for i in range(len(bench)):
-        one = (bench_in[0][i:i + 1], bench_in[1][i:i + 1])
+    for i in range(len(each)):
+        one = (each_in[0][i:i + 1], each_in[1][i:i + 1])
         got = cuda_sweep.relax_sweep_field_cuda(*one, turn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2123,20 +1964,14 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
         torch.cuda.synchronize()
         twin_ms.append((time.perf_counter() - t0) * 1e3)
         if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-            raise AssertionError(f"sweep kernel differs from its twin on bench frame {i}")
+            raise AssertionError(f"sweep kernel differs from its twin on frame {i}")
         kernel_ms.append(cuda_ms(lambda one=one: cuda_sweep.relax_sweep_field_cuda(
             *one, turn), reps=20, queued=True))
-    q_sweep, q_kernel = quartiles["default flags (sweep kernel)"], quartiles["relax kernel"]
-    log(f"phase sweep __call__ p50 over the bench's {len(bench)} frames, the two "
-        f"processors interleaved frame by frame (first one alternating): default "
-        f"wavefront flags with the sweep kernel "
-        f"{medians['default flags (sweep kernel)']:.3f} ms (quartiles {q_sweep[0]:.3f}-"
-        f"{q_sweep[2]:.3f}), relax-kernel path {medians['relax kernel']:.3f} ms "
-        f"(quartiles {q_kernel[0]:.3f}-{q_kernel[2]:.3f}); the relaxation of each "
-        f"frame's lattice, "
-        f"median: sweep kernel {statistics.median(kernel_ms):.5f} ms on the device, the "
-        f"twin called directly {statistics.median(twin_ms):.3f} ms (bit-equal on all "
-        f"{len(bench)})")
+    log(f"phase sweep kernel each frame: the relaxation of each frame's lattice "
+        f"(B=1) bit-equal to the twin on all {len(each)} ({len(each) - len(frames)} demo "
+        f"PNGs, {len(frames)} walkways); median: sweep kernel "
+        f"{statistics.median(kernel_ms):.5f} ms on the device, the twin called directly "
+        f"{statistics.median(twin_ms):.3f} ms")
 
     # -- a step of 8 streams: one sweep launch ----------------------------------------
     n_streams, n_steps = 8, 3
@@ -2166,40 +2001,8 @@ def sweep_phase(torch, dev, cfg, seg, frames, results, scen_inputs, turn,
     log(f"phase sweep batch: {n_steps} steps of {n_streams} streams, sweep launches "
         f"{batch_launches} (one a step), paths equal to the single-stream planner's")
 
-    # -- a CUDA graph of frames: the kernel captured, no host sync --------------------
-    fp_sweep._ensure_program()
-    device_fn = fp_sweep._device_fn
-    planes = torch.from_numpy(np.stack([bgr_to_i420_host(f) for f in frames])).to(dev)
-    ref = torch.stack([device_fn(planes[i]) for i in range(len(frames))])
-    hoist = HoistUploads()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side), hoist:
-        _chain(device_fn, planes, None)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    torch.cuda.synchronize()
-    hoist.recording = False
-    cuda_sweep.reset_launches()
-    graph = torch.cuda.CUDAGraph()
-    with hoist, torch.cuda.graph(graph):
-        out, _ = _chain(device_fn, planes, None)
-    captured = cuda_sweep.launches
-    graph.replay()
-    torch.cuda.synchronize()
-    if captured != len(frames) or not torch.equal(out, ref):
-        raise AssertionError(f"sweep graph: {captured} sweep launches captured for "
-                             f"{len(frames)} frames, payloads equal {torch.equal(out, ref)}")
-    graph_ms = card_tools().device_ms(lambda: graph.replay(), 5, dev, warmup=1)
-    del graph
-    log(f"phase sweep graph: {len(frames)} frames of the default-flags program captured "
-        f"in one CUDA graph (no host sync inside), {captured} sweep launches captured, "
-        f"replayed payloads bit-equal to per-frame calls; {graph_ms / len(frames):.4f} "
-        "device ms a frame")
     return {"timed": timed, "err": err, "launches": launches,
-            "launches_batch": batch_launches, "launches_graph": captured,
-            "sweep_lat": sweep_lat, "medians": medians, "quartiles": quartiles,
-            "bench_kernel_ms": statistics.median(kernel_ms),
-            "bench_twin_ms": statistics.median(twin_ms)}
+            "launches_batch": batch_launches, "sweep_lat": sweep_lat}
 
 
 def walkway_lattice(rows: int, cols: int, seed: int):
@@ -2565,8 +2368,6 @@ def main() -> int:
                     help="stop after phase sweep (the fast-sweeping kernel, phase 4)")
     ap.add_argument("--large-only", action="store_true",
                     help="build the kernels and run phase large (24) alone")
-    ap.add_argument("--tools-out", type=pathlib.Path, default=None,
-                    help="keep each tool's JSON object of phase 22 in this directory")
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
@@ -3030,7 +2831,7 @@ def main() -> int:
 
     # -- 4. the default wavefront flags: the fast-sweeping kernel ------------------------
     sweep_run = sweep_phase(torch, dev, cfg, seg, frames, results, cases[0][1:], turn,
-                            cuda_sweep, cuda_wavefront, fp)
+                            cuda_sweep, cuda_wavefront)
     sweep_lat = sweep_run["sweep_lat"]
     replay_card_vs_cpu(PathFinderConfig(engine="wavefront"))
     log(f"phase sweep: ok, default wavefront flags, {N_FRAMES} frames with answers "
@@ -3491,36 +3292,17 @@ def main() -> int:
     if cuda_wavefront.launches or cuda_astar.launches:
         raise AssertionError("the train and eval phases launched a planning kernel")
 
-    # -- 15. cli, 16. bench, 17. export, 18. goldens -----------------------------------
-    from vision_assist_tpu_torch import bench
-
+    # -- 15. cli, 17. export, 18. goldens ----------------------------------------------
     t0 = time.perf_counter()
     cli_launches = cli_phase(torch, dev, scen, seg, demo, cuda_astar, cuda_wavefront)
     t1 = time.perf_counter()
-    cuda_wavefront.reset_launches()
-    cuda_astar.reset_launches()
-    record, _ = bench.run_bench()                # prints the bench's JSON line
-    if cuda_wavefront.launches or cuda_astar.launches:
-        raise AssertionError("the bench's default engine (exact) launched a "
-                             "planning kernel")
-    n_det = int(record["frames_with_detections"].split("/")[0])
-    if n_det == 0 or not all(np.isfinite(record[k]) and record[k] > 0 for k in (
-            "value", "p50_ms", "p90_ms", "p99_ms", "batched_fps_8streams")):
-        raise AssertionError(f"bench: bad record {record}")
-    t2 = time.perf_counter()
-    log(f"phase bench: ok, the line above; p50 {record['p50_ms']:.3f} ms, p90 "
-        f"{record['p90_ms']:.3f}, p99 {record['p99_ms']:.3f}, depth-8 "
-        f"{record['value']:.3f} frames/s, 8 streams {record['batched_fps_8streams']:.3f} "
-        f"frames/s, detections in {record['frames_with_detections']} frames, "
-        f"{t2 - t1:.1f} s; {record['device']}, {record['power_limit_w']} W")
     export_phase(torch, dev, seg, frames[0])
-    t3 = time.perf_counter()
+    t2 = time.perf_counter()
     goldens_phase()
-    t4 = time.perf_counter()
+    t3 = time.perf_counter()
     goldens12_phase(torch, dev)
-    log(f"phase cli took {t1 - t0:.1f} s, bench {t2 - t1:.1f} s, export "
-        f"{t3 - t2:.1f} s, goldens {t4 - t3:.1f} s, goldens12 "
-        f"{time.perf_counter() - t4:.1f} s")
+    log(f"phase cli took {t1 - t0:.1f} s, export {t2 - t1:.1f} s, goldens "
+        f"{t3 - t2:.1f} s, goldens12 {time.perf_counter() - t3:.1f} s")
     t4 = time.perf_counter()
 
     # -- 19. visualiser, 20. parallel ---------------------------------------------------
@@ -3530,18 +3312,10 @@ def main() -> int:
     t6 = time.perf_counter()
     log(f"phase visualiser took {t5 - t4:.1f} s, parallel {t6 - t5:.1f} s")
 
-    # -- 21. protrusions, 22. tools -------------------------------------------------
+    # -- 21. protrusions -----------------------------------------------------------
     protrusions_phase(cuda_astar, cuda_wavefront)
-    t7 = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        tools_dir = args.tools_out or pathlib.Path(
-            stack.enter_context(tempfile.TemporaryDirectory()))
-        tool_launches = tools_phase(record, tools_dir, cuda_astar, cuda_wavefront)
-    if not all(tool_launches):
-        raise AssertionError(f"phase tools launched no relax or no A* kernel: "
-                             f"{tool_launches}")
     t8 = time.perf_counter()
-    log(f"phase protrusions took {t7 - t6:.1f} s, tools {t8 - t7:.1f} s")
+    log(f"phase protrusions took {t8 - t6:.1f} s")
 
     # -- 23. nms -------------------------------------------------------------------
     nms_run = nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms)
@@ -3578,7 +3352,6 @@ def main() -> int:
         "library_ms": None,
         "launches_visualiser": vis_launches["wavefront_kernel"][0],
         "launches_parallel": par_launches["wavefront_kernel", "mesh"][0],
-        "launches_tools": tool_launches[0],
         "ms_54x96": relax_big["ms"],
         "plain_ms_54x96": relax_big["plain_ms"],
         "bound_ms_54x96": relax_big["bound_ms"],
@@ -3595,7 +3368,6 @@ def main() -> int:
         "launches_cli": cli_launches,
         "launches_visualiser": vis_launches["exact_device"][1],
         "launches_parallel": par_launches["exact_device", "mesh"][1],
-        "launches_tools": tool_launches[1],
         "max_abs_err": astar_err,
         "ms": astar_main["ms"],
         "plain_ms": astar_plain_ms,
@@ -3630,7 +3402,6 @@ def main() -> int:
         "decode_nms_ms_eval": nms_run["share"][1],
         "decode_nms_ms_served": nms_run["served_call"],
         "eval_step_ms": nms_run["share"][0],
-        "device_ops_a_frame": nms_run["frame_ops"],
     }, {
         # Replaces XLA's fusion of nn.BatchNorm, nn.silu and astype in the
         # JAX ConvBNAct, not a Pallas kernel; times are a step of the
@@ -3659,7 +3430,6 @@ def main() -> int:
         "replaces": "vision_assist_tpu/planning/wavefront.py:181",
         "launches": sweep_run["launches"],
         "launches_batch": sweep_run["launches_batch"],
-        "launches_graph": sweep_run["launches_graph"],
         "max_abs_err": sweep_run["err"],
         "ms": sweep_main["ms"],
         "plain_ms": sweep_main["plain_ms"],
@@ -3672,11 +3442,6 @@ def main() -> int:
         "bound_by_54x96": sweep_big["bound_by"],
         "cluster": sweep_main["cluster"],
         "cluster_54x96": sweep_big["cluster"],
-        "call_p50_ms_default_flags": sweep_run["medians"]["default flags (sweep kernel)"],
-        "call_p50_ms_relax_kernel": sweep_run["medians"]["relax kernel"],
-        "call_quartiles_ms_default_flags": sweep_run["quartiles"][
-            "default flags (sweep kernel)"],
-        "call_quartiles_ms_relax_kernel": sweep_run["quartiles"]["relax kernel"],
     }, *({
         # The global form of each lattice kernel, for lattices past one CTA's
         # shared memory: its launches are phase large's 2160x3840 frames

@@ -340,13 +340,3 @@ def test_entry_points_default_to_the_card(clips, argv, monkeypatch):
     argv = [str(clips["walkways"][1]) if a == "SOURCE" else a for a in argv]
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(argv)
-
-
-def test_bench_defaults_to_the_card(monkeypatch):
-    from vision_assist_tpu_torch import bench
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        bench.run_bench()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        bench.main([])

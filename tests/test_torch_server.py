@@ -9,17 +9,18 @@ synchronous loop's, in order.
 
 Against the JAX package: its ``StreamingServer`` over its ``FrameProcessor``
 (the same weights in float32) serves the same frames at depth 3, for
-``exact_device`` and for the kernel wavefront: the served sequence (answers,
-which carry the instruction memory's view of the order, peaks and path
-cells) is equal frame by frame, path costs agree within rtol 1e-5, and for
-``exact_device`` the angle cache left on the device after the last frame has
-the same NaN pattern and values within rtol 1e-5.
+``exact``, the kernel wavefront and ``exact_device``, each with the frames
+sent as BGR and as I420: the served sequence (answers, which carry the
+instruction memory's view of the order, peaks and path cells) is equal frame
+by frame, path costs agree within rtol 1e-5, and for ``exact_device`` the
+angle cache left on the device after the last frame has the same NaN pattern
+and values within rtol 1e-5.
 
 ``BatchedStreamingServer`` over ``MultiStreamProcessor`` (2 streams a step):
 depth 1, 2 and 4 equal to the synchronous ``process_frames`` loop, step by
 step and stream by stream; and against the JAX ``BatchedStreamingServer``
-over the JAX ``MultiStreamProcessor`` at depth 2 with the same tolerances,
-the per-stream caches included.
+over the JAX ``MultiStreamProcessor`` at depth 2, for the same three engines
+and two wires, with the same tolerances, the per-stream caches included.
 """
 
 from __future__ import annotations
@@ -61,10 +62,13 @@ torch.set_num_threads(2)
 H = W = 640
 N_FRAMES = 9
 ANSWERS = ("move_left", "move_right", "continue_forward")
-ENGINES = {
+PATHFINDERS = {
+    "exact": config.PathFinderConfig(engine="exact"),
     "wavefront": config.PathFinderConfig(engine="wavefront", use_pallas_relax=True),
     "exact_device": config.PathFinderConfig(engine="exact_device"),
 }
+ENGINES = ("wavefront", "exact_device")     # the engines that plan on the device
+TRANSFER_FORMATS = ("bgr", "i420")
 
 
 def _guidance(results):
@@ -87,7 +91,7 @@ def frames():
 def _processor(segmenter, engine, transfer_format="bgr"):
     cfg = config.PipelineConfig(frame_height=H, frame_width=W,
                                 transfer_format=transfer_format,
-                                pathfinder=ENGINES[engine])
+                                pathfinder=PATHFINDERS[engine])
     return FrameProcessor(cfg, segmenter=segmenter, device="cpu")
 
 
@@ -125,16 +129,21 @@ def jax_segmenter():
                         example_hw=(H, W))
 
 
-@pytest.mark.parametrize("engine", list(ENGINES))
-def test_served_sequence_matches_jax_server(segmenter, jax_segmenter, frames, engine):
-    pf = ENGINES[engine]
-    jcfg = jconfig.PipelineConfig(
-        frame_height=H, frame_width=W,
-        pathfinder=jconfig.PathFinderConfig(
-            engine=pf.engine, use_pallas_relax=pf.use_pallas_relax))
+def _jax_pathfinder(engine):
+    pf = PATHFINDERS[engine]
+    return jconfig.PathFinderConfig(engine=pf.engine, use_pallas_relax=pf.use_pallas_relax)
+
+
+@pytest.mark.parametrize("transfer_format", TRANSFER_FORMATS)
+@pytest.mark.parametrize("engine", list(PATHFINDERS))
+def test_served_sequence_matches_jax_server(segmenter, jax_segmenter, frames, engine,
+                                            transfer_format):
+    jcfg = jconfig.PipelineConfig(frame_height=H, frame_width=W,
+                                  transfer_format=transfer_format,
+                                  pathfinder=_jax_pathfinder(engine))
     jsrv = JaxStreamingServer(JaxFrameProcessor(jcfg, segmenter=jax_segmenter),
                               depth=3)
-    tsrv = StreamingServer(_processor(segmenter, engine), depth=3)
+    tsrv = StreamingServer(_processor(segmenter, engine, transfer_format), depth=3)
     jres = list(jsrv.serve(frames, now_ms_start=0, frame_interval_ms=33))
     tres = list(tsrv.serve(frames, now_ms_start=0, frame_interval_ms=33))
     assert len(tres) == len(jres) == N_FRAMES
@@ -173,7 +182,7 @@ def test_i420_transfer(segmenter, frames):
 
 def test_blur_gated_frames_are_dropped(segmenter, frames):
     cfg = config.PipelineConfig(
-        frame_height=H, frame_width=W, pathfinder=ENGINES["exact_device"],
+        frame_height=H, frame_width=W, pathfinder=PATHFINDERS["exact_device"],
         blur=config.BlurConfig(enabled=True, laplacian_var_threshold=1e9))
     srv = StreamingServer(FrameProcessor(cfg, segmenter=segmenter, device="cpu"),
                           depth=2)
@@ -194,7 +203,7 @@ def test_keep_frames_overlays_equal_the_sync_loop(segmenter, frames):
     keep_frames it is drawn on black."""
     def proc():
         cfg = config.PipelineConfig(frame_height=H, frame_width=W,
-                                    pathfinder=ENGINES["exact_device"])
+                                    pathfinder=PATHFINDERS["exact_device"])
         return FrameProcessor(cfg, segmenter=segmenter, debug=True, device="cpu")
 
     sync = proc()
@@ -219,7 +228,7 @@ N_STEPS = 4
 
 def _multi(segmenter, engine, **kw):
     cfg = config.PipelineConfig(frame_height=H, frame_width=W, num_streams=N_STREAMS,
-                                pathfinder=ENGINES[engine], **kw)
+                                pathfinder=PATHFINDERS[engine], **kw)
     return MultiStreamProcessor(cfg, segmenter=segmenter, device="cpu")
 
 
@@ -279,14 +288,17 @@ def test_batched_depth_validation(depth):
         BatchedStreamingServer(msp, depth=depth)
 
 
-def test_batched_served_sequence_matches_jax_server(segmenter, jax_segmenter, steps):
-    pf = ENGINES["exact_device"]
+@pytest.mark.parametrize("transfer_format", TRANSFER_FORMATS)
+@pytest.mark.parametrize("engine", list(PATHFINDERS))
+def test_batched_served_sequence_matches_jax_server(segmenter, jax_segmenter, steps,
+                                                    engine, transfer_format):
     jcfg = jconfig.PipelineConfig(
         frame_height=H, frame_width=W, num_streams=N_STREAMS,
-        pathfinder=jconfig.PathFinderConfig(engine=pf.engine))
+        transfer_format=transfer_format, pathfinder=_jax_pathfinder(engine))
     jsrv = JaxBatchedStreamingServer(
         JaxMultiStreamProcessor(jcfg, segmenter=jax_segmenter), depth=2)
-    tsrv = BatchedStreamingServer(_multi(segmenter, "exact_device"), depth=2)
+    tsrv = BatchedStreamingServer(
+        _multi(segmenter, engine, transfer_format=transfer_format), depth=2)
     jres = _serve_batched(jsrv, steps)
     tres = _serve_batched(tsrv, steps)
     assert len(tres) == len(jres) == N_STEPS
@@ -301,10 +313,11 @@ def test_batched_served_sequence_matches_jax_server(segmenter, jax_segmenter, st
                 [(p.centre.x, p.centre.y, p.orientation) for p in jr.peaks], (i, s)
             np.testing.assert_allclose([p.total_cost for p in tr.paths],
                                        [p.total_cost for p in jr.paths], rtol=1e-5)
-    tcache = torch.cat(tsrv.msp._caches).numpy()
-    jcache = np.asarray(jsrv.msp._stream_caches)
-    assert tcache.shape == jcache.shape == (N_STREAMS, 1226)
-    assert np.isfinite(tcache).any(axis=1).all()
-    np.testing.assert_array_equal(np.isnan(tcache), np.isnan(jcache))
-    np.testing.assert_allclose(tcache, jcache, rtol=1e-5)
+    if engine == "exact_device":
+        tcache = torch.cat(tsrv.msp._caches).numpy()
+        jcache = np.asarray(jsrv.msp._stream_caches)
+        assert tcache.shape == jcache.shape == (N_STREAMS, 1226)
+        assert np.isfinite(tcache).any(axis=1).all()
+        np.testing.assert_array_equal(np.isnan(tcache), np.isnan(jcache))
+        np.testing.assert_allclose(tcache, jcache, rtol=1e-5)
     jsrv.msp.close()

@@ -488,20 +488,16 @@ def test_no_forbidden_imports_anywhere_in_the_port():
     files = sorted((REPO / "vision_assist_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 50
     names = {f.relative_to(REPO).as_posix() for f in files}
-    # The command line, bench, export, goldens, the overlay, the parallel
-    # layer, the extended protrusion detector, the measurement tools and
-    # their modules are scanned.
+    # The command line, export, goldens, the overlay, the parallel layer,
+    # the extended protrusion detector, the tools and their modules are
+    # scanned.
     assert {f"vision_assist_tpu_torch/{m}.py" for m in (
-        "main", "bench", "export_model", "generate_goldens", "io/scenarios",
+        "main", "export_model", "generate_goldens", "io/scenarios",
         "io/mock_camera", "io/speech", "io/tts", "utils/profiling",
         "golden/peaks", "golden/pipeline", "io/draw", "io/font", "io/visualiser",
         "render_demo", "dryrun", "parallel/mesh", "parallel/distributed",
         "parallel/train_step", "golden/contours", "golden/protrusions",
-        "tools/_card", "tools/diagnose_device_p50",
-        "tools/diagnose_h2d", "tools/diagnose_engines", "tools/diagnose_fused",
-        "tools/diagnose_batch1", "tools/diagnose_latency", "tools/diagnose_wire",
-        "tools/diagnose_detections", "tools/profile_pipeline",
-        "tools/compare_pathfinders")} <= names
+        "tools/_card", "tools/compare_pathfinders")} <= names
     for f in files:
         found = FORBIDDEN.findall(f.read_text())
         assert not found, f"{f.relative_to(REPO)} imports {found}"
