@@ -254,11 +254,19 @@ result line:
              the served shapes: the convolution outputs of the flagship's 90
              blocks on the 8 frames as one batch, kept once; the kernel
              bit-equal to its twin (ops/cuda_bn_act.py:bn_act_plain) on the
-             card at every block, 90 launches a step (`launches_phase`);
-             a step timed (queued CUDA events, and the sum of its kernels'
+             card at every block, 90 launches a step (`launches_phase`),
+             and as the served forward stores it (21 into a view, through
+             bn_act_into) bit-equal to the twin too; a step timed (queued CUDA events, and the sum of its kernels'
              durations in a torch.profiler record) beside its bound by bytes,
              the twin and the former cuDNN chain (float32 BatchNorm, SiLU,
-             two casts), and the largest launch alone.
+             two casts), and the largest launch alone. Then the view
+             store (bn_act_into) on YOLO12x-seg's step at imgsz 640, 8
+             frames (seeded weights): every block's convolution output,
+             stored as the served forward stores it (into its slice of a
+             concatenation buffer, and a contiguous copy where a convolution
+             reads it too), bit-equal to the twin, and each into a tensor
+             of its own, both steps and the view-storing launches alone
+             timed.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -1588,11 +1596,11 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
     and written once in the convolution's dtype, the statistics read once),
     the plain twin's and the former chain's (cuDNN's float32 BatchNorm,
     SiLU and the two casts) on the same inputs; the kernel bit-equal to the
-    twin on the card at every block."""
+    twin on the card at every block, stored into a tensor of its own and as
+    the forward stores it (:func:`check_served_stores`)."""
     import numpy as np
     import torch.nn.functional as F
 
-    from vision_assist_tpu_torch.models import yolo
     from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_plain
     from vision_assist_tpu_torch.utils.build import ptxas_entries
 
@@ -1600,34 +1608,18 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
         f"{e['name']} {e['registers']} {e['stack']} {e['spill_stores']}/{e['spill_loads']}"
         for e in ptxas_entries(cuda_bn_act.build_log)))
     model = seg.model
-    inputs = []
-
-    def keep(m, args, _out):
-        (x,) = args
-        conv, bn = m.conv, m.bn
-        y = F.conv2d(yolo._pad_same(x, m.kernel, m.stride), conv.weight.to(m.dtype), None,
-                     conv.stride, 0, 1, conv.groups)
-        inputs.append((y, (bn.weight, bn.bias, bn.running_mean, bn.running_var), bn.eps,
-                       m.act))
-
-    hooks = [m.register_forward_hook(keep) for m in model.modules()
-             if isinstance(m, yolo.ConvBNAct)]
-    try:
-        seg(np.stack(frames))
-    finally:
-        for h in hooks:
-            h.remove()
-    torch.cuda.synchronize()
+    inputs = epilogue_inputs(torch, model, lambda: seg(np.stack(frames)))
+    served_views = check_served_stores(torch, cuda_bn_act, inputs)
 
     def kernel_step():
-        return [bn_act(y, *st, eps, act) for y, st, eps, act in inputs]
+        return [bn_act(y, *st) for y, st, _, _ in inputs]
 
     def twin_step():
-        return [bn_act_plain(y, *st, eps, act) for y, st, eps, act in inputs]
+        return [bn_act_plain(y, *st) for y, st, _, _ in inputs]
 
     def chain_step():
         out = []
-        for y, (w, b, mean, var), eps, act in inputs:
+        for y, (w, b, mean, var, eps, act), _, _ in inputs:
             z = F.batch_norm(y.float(), mean, var, w, b, False, 0.0, eps)
             out.append((F.silu(z) if act else z).to(y.dtype))
         return out
@@ -1679,12 +1671,12 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
     sums = {name: kernels_ms(fn) for name, fn in steps}
     plain_ms, chain_ms = sums["twin"], sums["chain"]
     issue = {name: issue_ms(fn) for name, fn in steps}
-    largest, big_stats, big_eps, big_act = max(inputs, key=lambda t: t[0].numel())
-    largest_ms = cuda_ms(lambda: bn_act(largest, *big_stats, big_eps, big_act), reps=200,
-                         queued=True)
+    largest, big_stats, _, _ = max(inputs, key=lambda t: t[0].numel())
+    largest_ms = cuda_ms(lambda: bn_act(largest, *big_stats), reps=200, queued=True)
     log(f"phase bn_act: {len(inputs)} blocks of {model.arch} on {len(frames)} frames "
         f"({cl} channels_last, {elements} elements, {n_bytes} B a step), bit-equal to the "
-        f"twin on the card, {launches} launches a step")
+        f"twin on the card, {launches} launches a step; stored as served ({served_views} "
+        "into a view), bit-equal to the twin too")
     log(f"phase bn_act step of {len(inputs)} launches, device ms: kernel {ms:.5f} queued, "
         f"{sums['kernel']:.5f} in its kernels; bound by bytes {bound_ms:.5f}; the twin "
         f"{plain_ms:.5f} in its kernels; the cuDNN chain {chain_queued_ms:.5f} queued, "
@@ -1692,9 +1684,114 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
         f"{issue['kernel']:.3f}, chain {issue['chain']:.3f}, twin {issue['twin']:.3f}")
     log(f"phase bn_act largest launch {tuple(largest.shape)}: {largest_ms * 1e3:.3f} us queued, "
         f"bound {largest.numel() * largest.element_size() * 2 / HBM_BYTES_PER_S * 1e6:.3f} us")
-    return {"ms": ms, "kernels_ms": sums["kernel"], "plain_ms": plain_ms,
+    views = bn_act_views(torch, dev, cuda_bn_act, kernels_ms)
+    return {"served_views": served_views, "views": views, "ms": ms, "kernels_ms": sums["kernel"], "plain_ms": plain_ms,
             "library_ms": chain_ms, "library_queued_ms": chain_queued_ms, "bound_ms": bound_ms,
             "launches": launches, "err": err, "issue_ms": issue, "largest_ms": largest_ms}
+
+
+def epilogue_inputs(torch, model, run) -> list:
+    """Every ConvBNAct of ``model`` in one eval forward, ``run()``: its
+    convolution output recomputed from its input, its statistics (weight,
+    bias, mean, var, eps, act), and where the forward stored its result
+    (``out``, ``also``; None where it made a tensor of its own)."""
+    import torch.nn.functional as F
+
+    from vision_assist_tpu_torch.models import yolo
+
+    inputs = []
+
+    def keep(m, args, kwargs, _out):
+        (x,) = args
+        conv, bn = m.conv, m.bn
+        y = F.conv2d(yolo._pad_same(x, m.kernel, m.stride), conv.weight.to(m.dtype), None,
+                     conv.stride, 0, 1, conv.groups)
+        stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, m.act)
+        inputs.append((y, stats, kwargs.get("out"), kwargs.get("also")))
+
+    hooks = [m.register_forward_hook(keep, with_kwargs=True) for m in model.modules()
+             if isinstance(m, yolo.ConvBNAct)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return inputs
+
+
+def check_served_stores(torch, cuda_bn_act, inputs) -> int:
+    """Each of ``inputs``' epilogues stored as the forward stores it
+    (``bn_act_into`` into its view and ``also`` where it has a view, else
+    ``bn_act``), bit-equal to the plain twin ``bn_act_plain`` on the card in
+    the view and in ``also``, one launch each; returns the view stores."""
+    from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into, bn_act_plain
+
+    cuda_bn_act.reset_launches()
+    for y, st, out, also in inputs:
+        want = bn_act_plain(y, *st)
+        got = bn_act(y, *st) if out is None else bn_act_into(y, *st, out, also)
+        if not torch.equal(got, want) or (
+                also is not None and not torch.equal(also, want[:, want.shape[1] - also.shape[1]:])):
+            raise AssertionError(f"bn_act{'' if out is None else '_into'} differs from its "
+                                 f"twin at {tuple(y.shape)}, out strides "
+                                 f"{None if out is None else out.stride()}, also "
+                                 f"{None if also is None else tuple(also.shape)}")
+    torch.cuda.synchronize()
+    views = sum(out is not None for _, _, out, _ in inputs)
+    if (cuda_bn_act.launches, cuda_bn_act.view_stores) != (len(inputs), views):
+        raise AssertionError(f"bn_act: {cuda_bn_act.launches} launches, "
+                             f"{cuda_bn_act.view_stores} view stores for {len(inputs)} "
+                             f"blocks, {views} views")
+    return views
+
+
+def bn_act_views(torch, dev, cuda_bn_act, kernels_ms) -> dict:
+    """Phase 25's view stores: YOLO12x-seg (seeded weights) at imgsz 640 on 8
+    channels_last frames, every ConvBNAct's convolution output and where the
+    served forward stores it (``out``, ``also``), kept once; stored as
+    served, bit-equal to the twin (:func:`check_served_stores`). Each stored
+    as served and into a tensor of its own (``bn_act``): both steps, and the
+    view-storing launches alone each way, timed as the sum of their kernels'
+    durations."""
+    from vision_assist_tpu_torch.models import yolo
+    from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into
+
+    torch.manual_seed(20)
+    model = yolo.YoloSeg("yolo12x-seg").eval().to(dev)
+    images = torch.rand(N_FRAMES, 640, 640, 3, device=dev).permute(0, 3, 1, 2)
+
+    def run():
+        with torch.no_grad():
+            model(images)
+
+    inputs = epilogue_inputs(torch, model, run)
+    check_served_stores(torch, cuda_bn_act, inputs)
+    viewed = [t for t in inputs if t[2] is not None]
+
+    def served_step(which):
+        return [bn_act_into(y, *st, out, also) if out is not None else bn_act(y, *st)
+                for y, st, out, also in which]
+
+    def plain_step(which):
+        return [bn_act(y, *st) for y, st, _, _ in which]
+
+    n_bytes = sum(y.numel() * y.element_size() * 2 for y, *_ in inputs)
+    also_bytes = sum(also.numel() * also.element_size() for *_, also in viewed
+                     if also is not None)
+    ms = {"served": kernels_ms(lambda: served_step(inputs)),
+          "plain": kernels_ms(lambda: plain_step(inputs)),
+          "views_served": kernels_ms(lambda: served_step(viewed)),
+          "views_plain": kernels_ms(lambda: plain_step(viewed))}
+    log(f"phase bn_act views: {len(inputs)} blocks of yolo12x-seg at 640 on {N_FRAMES} "
+        f"frames, {len(viewed)} store into a view ({sum(a is not None for *_, a in viewed)} "
+        f"with also, {also_bytes} B more), bit-equal to the twin; {n_bytes} B a step read "
+        f"and written, bound {n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
+    log(f"phase bn_act views, device ms in the kernels: the step as served {ms['served']:.5f}, "
+        f"each into its own tensor {ms['plain']:.5f}; the {len(viewed)} view stores "
+        f"{ms['views_served']:.5f}, the same into their own tensors {ms['views_plain']:.5f}")
+    return {"blocks": len(inputs), "views": len(viewed), "bytes": n_bytes,
+            "also_bytes": also_bytes, **{f"{k}_ms": v for k, v in ms.items()}}
 
 
 def sweep_bounds(enter, scans, cluster: int) -> dict:

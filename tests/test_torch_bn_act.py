@@ -25,6 +25,7 @@ This file imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 
 import pytest
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 
 from vision_assist_tpu_torch.models import yolo
 from vision_assist_tpu_torch.ops import cuda_bn_act
-from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_plain
+from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into, bn_act_plain
 
 torch.set_num_threads(2)
 
@@ -162,6 +163,89 @@ def test_wrapper_raises_on_what_it_cannot_take():
         bn_act(x[0], *stats, EPS, True)
 
 
+def _wide(shape, at: int, width: int, dtype=torch.float32, device="cpu"):
+    """A channel slice [at, at + C) of a channels_last buffer of ``width``
+    channels, filled with NaN, and the buffer."""
+    n, c, h, w = shape
+    buf = torch.full((n, width, h, w), float("nan"), dtype=dtype, device=device).contiguous(
+        memory_format=torch.channels_last)
+    return buf[:, at:at + c], buf
+
+
+INTO_C, INTO_WIDTH = 32, 56
+INTO_CASES = [(at, also_from) for at in (0, 8, INTO_WIDTH - INTO_C)
+              for also_from in (None, 0, 8, INTO_C - 8)]
+
+
+def _check_into_case(at, also_from, dtype, device, act=True, seed=0):
+    """bn_act_into ``x`` (8 frames, 32 channels at 5x7) into a slice at ``at``
+    of a 56-channel buffer, and its channels from ``also_from`` into a
+    tensor of their own: both bit-equal to the plain twin, the buffer's
+    other channels untouched."""
+    shape = (8, INTO_C, 5, 7)
+    x = _activations(shape, seed, True, dtype, device)
+    stats = _stats(INTO_C, seed, device)
+    out, buf = _wide(shape, at, INTO_WIDTH, dtype, device)
+    also = None
+    if also_from is not None:
+        also = torch.empty((8, INTO_C - also_from, 5, 7), dtype=dtype, device=device,
+                           memory_format=torch.channels_last)
+    cuda_bn_act.reset_launches()
+    assert bn_act_into(x, *stats, EPS, act, out, also) is out
+    want = bn_act_plain(x, *stats, EPS, act)
+    assert cuda_bn_act.view_stores == 1
+    assert torch.equal(out, want)
+    if also is not None:
+        assert torch.equal(also, want[:, also_from:])
+    rest = torch.cat([buf[:, :at], buf[:, at + INTO_C:]], dim=1)
+    assert bool(rest.isnan().all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("at,also_from", INTO_CASES)
+def test_into_a_slice_equals_bn_act_on_the_cpu(at, also_from, dtype):
+    for act in (True, False):
+        _check_into_case(at, also_from, dtype, "cpu", act)
+    assert cuda_bn_act.launches == 0
+
+
+def test_into_raises_on_a_view_that_does_not_fit():
+    """A slice off the 16-byte pack, a wrong shape or dtype, an ``out`` or
+    ``also`` that is not channels_last, an input that is not: the same
+    checks on every device."""
+    shape = (2, 16, 4, 6)
+    x = _activations(shape, 0, True, torch.bfloat16)
+    stats = _stats(16, 0)
+    ok, _ = _wide(shape, 8, 32, torch.bfloat16)
+    bn_act_into(x, *stats, EPS, True, ok)
+    for at, match in ((4, "off the 16-byte pack"), (1, "off the 16-byte pack")):
+        out, _ = _wide(shape, at, 32, torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            bn_act_into(x, *stats, EPS, True, out)
+    with pytest.raises(ValueError, match="off the 16-byte pack"):        # pixel stride 20
+        bn_act_into(x, *stats, EPS, True, _wide(shape, 0, 20, torch.bfloat16)[0])
+    with pytest.raises(ValueError, match="out"):
+        bn_act_into(x, *stats, EPS, True, _wide((2, 8, 4, 6), 0, 32, torch.bfloat16)[0])
+    with pytest.raises(ValueError, match="out"):
+        bn_act_into(x, *stats, EPS, True, _wide(shape, 0, 32, torch.float32)[0])
+    nchw = torch.empty(2, 32, 4, 6, dtype=torch.bfloat16)[:, 8:24]
+    with pytest.raises(ValueError, match="not a channels_last view"):
+        bn_act_into(x, *stats, EPS, True, nchw)
+    with pytest.raises(ValueError, match="x must be channels_last"):
+        bn_act_into(x.contiguous(), *stats, EPS, True, ok)
+    with pytest.raises(ValueError, match="not a whole number"):
+        x12 = _activations((2, 12, 4, 6), 0, True, torch.bfloat16)
+        bn_act_into(x12, *_stats(12, 0), EPS, True, _wide((2, 12, 4, 6), 0, 16,
+                                                           torch.bfloat16)[0])
+    for also in (torch.empty(2, 4, 4, 6, dtype=torch.bfloat16,
+                             memory_format=torch.channels_last),       # from channel 12
+                 torch.empty(2, 8, 4, 6, dtype=torch.bfloat16),         # NCHW
+                 torch.empty(2, 24, 4, 6, dtype=torch.bfloat16,
+                             memory_format=torch.channels_last)):      # wider than x
+        with pytest.raises(ValueError, match="also"):
+            bn_act_into(x, *stats, EPS, True, ok, also)
+
+
 def _fake_cuda(*tensors):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -198,16 +282,33 @@ def test_wrapper_raises_on_a_cuda_tensor_the_kernel_cannot_take():
     assert cuda_bn_act.launches == 0
 
 
+def _cudnn_memory_format(x, weight, backend):
+    """cuDNN's choice of a convolution's output layout: channels_last where
+    the input or the weight is. A build without CUDA has no cuDNN backend to
+    select, and its fake convolutions on CUDA tensors answer contiguous NCHW
+    whatever the input, which the card never does."""
+    cl = torch.channels_last
+    return cl if x.is_contiguous(memory_format=cl) or weight.is_contiguous(memory_format=cl) \
+        else torch.contiguous_format
+
+
 def _card_graph(arch: str, imgsz: int, batch: int, train: bool):
     """The operators of one forward of ``arch`` on fake CUDA tensors: the
-    served NHWC frame permuted, as Segmenter._frame_chain hands it."""
+    served NHWC frame permuted, as Segmenter._frame_chain hands it, each
+    convolution's output in eval mode laid out as cuDNN lays it out."""
+    from unittest import mock
+
     from torch.fx.experimental.proxy_tensor import make_fx
 
     model = yolo.YoloSeg(arch).train(train)
     named = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     mode, fake = _fake_cuda(*named.values())
     state = dict(zip(named, fake))
-    with mode:
+    # In train mode the layout decides nothing, and the fake batch norm's
+    # decomposition cannot run channels_last on CUDA tensors without CUDA.
+    layout = (contextlib.nullcontext() if train else mock.patch.object(
+        torch._C, "_conv_determine_backend_memory_format", _cudnn_memory_format))
+    with mode, layout:
         x = torch.empty(batch, imgsz, imgsz, 3, device="cuda").permute(0, 3, 1, 2)
         with torch.set_grad_enabled(train):
             graph = make_fx(lambda im: torch.func.functional_call(model, state, (im,)).protos,
@@ -220,10 +321,15 @@ def _card_graph(arch: str, imgsz: int, batch: int, train: bool):
 @pytest.mark.parametrize("arch", ["yolo11n-seg", "yolov8n-seg"])
 def test_the_served_card_path_ends_each_convolution_in_one_operator(arch):
     """In eval mode every ConvBNAct (90 in yolo11n-seg) is a convolution and
-    one call of the operator: no BatchNorm, SiLU or float32 cast left."""
+    one call of the operator, ``bn_act`` or, where it stores into a
+    concatenation's slice, ``bn_act_into``: no BatchNorm, SiLU or float32
+    cast left, and one concatenation (SPPF's)."""
     calls, blocks = _card_graph(arch, 64, 2, train=False)
     assert blocks == {"yolo11n-seg": 90, "yolov8n-seg": 66}[arch]
-    assert calls["vision_assist_tpu_torch.bn_act.default"] == blocks
+    into = calls["vision_assist_tpu_torch.bn_act_into.default"]
+    assert calls["vision_assist_tpu_torch.bn_act.default"] + into == blocks
+    assert into == {"yolo11n-seg": 21, "yolov8n-seg": 18}[arch]
+    assert calls["aten.cat.default"] == 1
     assert not any("batch_norm" in c or "silu" in c or "sigmoid" in c for c in calls), calls
 
 
@@ -342,6 +448,25 @@ def test_scalar_forms_equal_the_twin(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("at,also_from", INTO_CASES)
+def test_into_a_slice_equals_the_twin_on_the_card(cuda, at, also_from, dtype):
+    """The CPU cases on the card: one launch, bit for bit the twin's
+    result in the slice and in ``also``, the rest of the buffer untouched;
+    and an address off the pack raises before any launch."""
+    for act in (True, False):
+        _check_into_case(at, also_from, dtype, cuda, act)
+        torch.cuda.synchronize()
+        assert cuda_bn_act.launches == 1
+    x = _activations((2, 16, 4, 6), 0, True, dtype, cuda)
+    out, _ = _wide((2, 16, 4, 6), 1, 32, dtype, cuda)
+    cuda_bn_act.reset_launches()
+    with pytest.raises(ValueError, match="off the 16-byte pack"):
+        bn_act_into(x, *_stats(16, 0, cuda), EPS, True, out)
+    assert cuda_bn_act.launches == cuda_bn_act.view_stores == 0
+
+
+@pytest.mark.cuda
 def test_launches_count_the_blocks_of_an_eval_forward_and_none_in_train(cuda):
     model = yolo.YoloSeg("yolo11n-seg", param_dtype=torch.float32).to(cuda)
     blocks = sum(isinstance(m, yolo.ConvBNAct) for m in model.modules())
@@ -351,6 +476,7 @@ def test_launches_count_the_blocks_of_an_eval_forward_and_none_in_train(cuda):
         model.eval()(images)
     torch.cuda.synchronize()
     assert cuda_bn_act.launches == blocks == 90
+    assert cuda_bn_act.view_stores == 21
     cuda_bn_act.reset_launches()
     model.train()(images)
     torch.cuda.synchronize()
@@ -382,8 +508,12 @@ def test_served_forward_within_one_bf16_step_of_the_cudnn_chain(cuda, monkeypatc
         nonlocal compared, differ, total
         (x,) = inputs
         conv, bn = m.conv, m.bn
-        y = F.conv2d(yolo._pad_same(x, m.kernel, m.stride), conv.weight.to(m.dtype), None,
-                     conv.stride, 0, 1, conv.groups)
+        # The convolution as the forward calls it: the pad its own where it
+        # takes it (a padded copy would give cuDNN another call to choose for).
+        w0, _, h0, _ = pads = yolo._same_pads(x, m.kernel, m.stride)
+        copied = m.pads_with_a_copy(x)
+        y = F.conv2d(F.pad(x, pads) if copied else x, conv.weight.to(m.dtype), None,
+                     conv.stride, 0 if copied else (h0, w0), 1, conv.groups)
         stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
         assert torch.equal(out, bn_act(y, *stats, bn.eps, m.act))      # deterministic
         want = _chain(y, *stats, m.act).float()

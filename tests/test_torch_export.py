@@ -3,7 +3,8 @@ JAX package's export test (imgsz 160, a 320x320 frame), on the CPU:
 
 * the program saved by ``torch.export.save`` and read back by
   ``torch.export.load`` gives outputs bit-equal to the eager port chain, and
-  calls the ConvBNAct epilogue operator ``vision_assist_tpu_torch::bn_act``;
+  calls the ConvBNAct epilogue operators ``vision_assist_tpu_torch::bn_act``
+  and ``bn_act_into``;
 * the eager chain equals JAX's ``Segmenter._frame_chain`` on the same
   weights (the flagship, float32) and frame: detections valid in the same
   slots, boxes and scores within atol 1e-3 + rtol 1e-3 (the model tests'
@@ -100,10 +101,15 @@ def test_exported_program_bit_equal_to_the_eager_chain(chain, cli_export, export
 
 def test_exported_program_holds_the_epilogue_operator(exported):
     """Each ConvBNAct of the segmenter ends in the operator
-    ``vision_assist_tpu_torch::bn_act`` in the saved program: 90 calls for
-    the flagship yolo11n-seg, no BatchNorm left."""
-    calls = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
-    assert calls.count("vision_assist_tpu_torch.bn_act.default") == 90
+    ``vision_assist_tpu_torch::bn_act``, or ``bn_act_into`` where it stores
+    into a concatenation's slice, in the saved program (the chain's no-grad
+    region is a submodule of it): 90 calls for the flagship yolo11n-seg, 21
+    of them into a slice, no BatchNorm left."""
+    calls = [str(n.target) for gm in exported.modules() if isinstance(gm, torch.fx.GraphModule)
+             for n in gm.graph.nodes if n.op == "call_function"]
+    into = calls.count("vision_assist_tpu_torch.bn_act_into.default")
+    assert calls.count("vision_assist_tpu_torch.bn_act.default") + into == 90
+    assert into == 21
     assert not any("batch_norm" in c for c in calls)
 
 

@@ -373,8 +373,11 @@ def test_msgpack_written_by_the_port_is_read_by_jax(jax_runs, tmp_path):
 
 # -- the model: train mode and param_dtype -------------------------------------------------
 
-def _old_convbnact_forward(self, x):
-    """ConvBNAct.forward before param_dtype existed."""
+def _old_convbnact_forward(self, x, out=None, also=None):
+    """ConvBNAct.forward before param_dtype existed, in the signature of
+    today's (``out`` and ``also`` store into a concatenation's slice, which
+    a forward on NCHW activations never asks for)."""
+    assert out is None and also is None
     y = self.conv(ty._pad_same(x, self.kernel, self.stride))
     y = self.bn(y.float())
     return (torch.nn.functional.silu(y) if self.act else y).to(self.dtype)

@@ -40,6 +40,14 @@
 //   grid-stride loop steps by a multiple of C / 8 packs, so each thread's
 //   channels are fixed for the whole launch and their mul, mean and bias stay
 //   in registers. Other channel counts take the same loop a scalar a step.
+// - Stored where its readers read it (bn_act_into_launch): in eval mode the
+//   segmenter's blocks hand the epilogue a channel slice of the channels_last
+//   buffer their next convolution reads as a concatenation, so no block
+//   concatenates. The store address is the pixel times the buffer's channel
+//   count plus the thread's channels; where a convolution reads the result as
+//   well, the same packs go, from the same registers, to a contiguous tensor
+//   too (all channels, or those from a given one on). Same packs, same table,
+//   one launch a call; only the addresses change.
 // - Contiguous NCHW: a grid-stride loop over packs of 16 B inside one plane
 //   (H * W a multiple of the pack) or scalars, the channel (i / HW) % C read
 //   from the table.
@@ -103,15 +111,20 @@ __device__ __forceinline__ void make_table(float* table, const float* __restrict
 }
 
 // Channels innermost: `packs` packs of W elements, `groups` = C / W of them a
-// row. Thread g owns channels (g % groups) * W .. + W and every pack
-// g + k * stride, stride a multiple of groups. Its first pack is loaded
-// before the table is made, so the two latencies overlap.
+// pixel. Thread g owns channels (g % groups) * W .. + W and every pack
+// g + k * stride, stride a multiple of groups, so its pixel advances by
+// stride / groups a step. Its first pack is loaded before the table is made,
+// so the two latencies overlap. The result of pixel p goes to
+// y + p * y_pixel (y_pixel = C for a tensor of its own, the wider buffer's
+// channel count for a channel slice of it); where `also` is given, channels
+// [also_from, C) go there too, at also + p * (C - also_from), from the same
+// registers.
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads)
     bn_act_nhwc(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ weight,
                 const float* __restrict__ bias, const float* __restrict__ mean,
                 const float* __restrict__ var, float eps, long long packs, int groups,
-                int act) {
+                int act, long long y_pixel, T* __restrict__ also, int also_from) {
   extern __shared__ float table[];
   const int channels = groups * W;
   const long long threads = static_cast<long long>(gridDim.x) * kThreads;
@@ -119,12 +132,18 @@ __global__ void __launch_bounds__(kThreads)
   const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const bool active = first < stride && first < packs;
   const auto* in = reinterpret_cast<const Pack<T, W>*>(x);
-  auto* out = reinterpret_cast<Pack<T, W>*>(y);
   Pack<T, W> p;
   if (active) p = in[first];
   make_table(table, weight, bias, mean, var, eps, channels);
   if (!active) return;
   const int c0 = static_cast<int>(first % groups) * W;
+  const long long pixel = first / groups, pixel_step = stride / groups;
+  T* dst = y + pixel * y_pixel + c0;
+  const long long dst_step = pixel_step * y_pixel;
+  const long long also_pixel = channels - also_from;
+  T* dst2 = also != nullptr && c0 >= also_from ? also + pixel * also_pixel + (c0 - also_from)
+                                               : nullptr;
+  const long long dst2_step = pixel_step * also_pixel;
   float mul[W], mu[W], b[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
@@ -135,7 +154,12 @@ __global__ void __launch_bounds__(kThreads)
   for (long long q = first;;) {
 #pragma unroll
     for (int j = 0; j < W; ++j) p.v[j] = narrow<T>(epilogue(widen(p.v[j]), mu[j], mul[j], b[j], act));
-    out[q] = p;
+    *reinterpret_cast<Pack<T, W>*>(dst) = p;
+    dst += dst_step;
+    if (dst2 != nullptr) {
+      *reinterpret_cast<Pack<T, W>*>(dst2) = p;
+      dst2 += dst2_step;
+    }
     q += stride;
     if (q >= packs) break;
     p = in[q];
@@ -178,26 +202,30 @@ int blocks_for(long long packs, int sms) {
 template <typename T>
 cudaError_t launch(const void* x, void* y, const float* weight, const float* bias,
                    const float* mean, const float* var, float eps, long long n, int channels,
-                   long long hw, bool channels_last, int act, int sms, cudaStream_t stream) {
+                   long long hw, bool channels_last, int act, int sms, cudaStream_t stream,
+                   long long y_pixel, void* also, int also_from) {
   constexpr int V = kPackBytes / static_cast<int>(sizeof(T));
   const T* in = static_cast<const T*>(x);
   T* out = static_cast<T*>(y);
-  const bool aligned = reinterpret_cast<std::uintptr_t>(x) % kPackBytes == 0 &&
-                       reinterpret_cast<std::uintptr_t>(y) % kPackBytes == 0;
+  T* two = static_cast<T*>(also);
+  const auto off_pack = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % kPackBytes != 0;
+  };
+  const bool aligned = !off_pack(x) && !off_pack(y) && !off_pack(also);
   const size_t smem = 3 * sizeof(float) * static_cast<size_t>(channels);
   if (channels_last) {
-    const bool packed = aligned && channels % V == 0;
+    const bool packed = aligned && channels % V == 0 && y_pixel % V == 0 && also_from % V == 0;
     const int groups = packed ? channels / V : channels;
     const long long packs = packed ? n / V : n;
     int blocks = blocks_for(packs, sms);
     const int least = (groups + kThreads - 1) / kThreads;   // every channel owned
     if (blocks < least) blocks = least;
     if (packed)
-      bn_act_nhwc<T, V><<<blocks, kThreads, smem, stream>>>(in, out, weight, bias, mean, var,
-                                                            eps, packs, groups, act);
+      bn_act_nhwc<T, V><<<blocks, kThreads, smem, stream>>>(
+          in, out, weight, bias, mean, var, eps, packs, groups, act, y_pixel, two, also_from);
     else
-      bn_act_nhwc<T, 1><<<blocks, kThreads, smem, stream>>>(in, out, weight, bias, mean, var,
-                                                            eps, packs, groups, act);
+      bn_act_nhwc<T, 1><<<blocks, kThreads, smem, stream>>>(
+          in, out, weight, bias, mean, var, eps, packs, groups, act, y_pixel, two, also_from);
   } else {
     const bool packed = aligned && hw % V == 0;
     const long long packs = packed ? n / V : n;
@@ -212,16 +240,10 @@ cudaError_t launch(const void* x, void* y, const float* weight, const float* bia
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x and y: n = batch * channels * hw elements, channels innermost when
-// channels_last, else contiguous NCHW; bf16 when bf16, else float32. weight,
-// bias, mean and var: `channels` float32 each. Returns 0, a cudaError_t, or
-// -2 when there are more channels than a CTA's shared-memory table holds.
-extern "C" int bn_act_launch(const void* x, void* y, const float* weight, const float* bias,
-                             const float* mean, const float* var, float eps, long long n,
-                             int channels, long long hw, int channels_last, int bf16, int act,
-                             int device, void* stream) {
+int run(const void* x, void* y, const float* weight, const float* bias, const float* mean,
+        const float* var, float eps, long long n, int channels, long long hw,
+        int channels_last, int bf16, int act, int device, void* stream, long long y_pixel,
+        void* also, int also_from) {
   constexpr int kMaxDevices = 64;
   static int sms_of[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
@@ -238,8 +260,41 @@ extern "C" int bn_act_launch(const void* x, void* y, const float* weight, const 
   }
   const auto s = static_cast<cudaStream_t>(stream);
   err = bf16 ? launch<__nv_bfloat16>(x, y, weight, bias, mean, var, eps, n, channels, hw,
-                                     channels_last != 0, act, sms_of[device], s)
+                                     channels_last != 0, act, sms_of[device], s, y_pixel, also,
+                                     also_from)
              : launch<float>(x, y, weight, bias, mean, var, eps, n, channels, hw,
-                             channels_last != 0, act, sms_of[device], s);
+                             channels_last != 0, act, sms_of[device], s, y_pixel, also,
+                             also_from);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// x and y: n = batch * channels * hw elements, channels innermost when
+// channels_last, else contiguous NCHW; bf16 when bf16, else float32. weight,
+// bias, mean and var: `channels` float32 each. Returns 0, a cudaError_t, or
+// -2 when there are more channels than a CTA's shared-memory table holds.
+extern "C" int bn_act_launch(const void* x, void* y, const float* weight, const float* bias,
+                             const float* mean, const float* var, float eps, long long n,
+                             int channels, long long hw, int channels_last, int bf16, int act,
+                             int device, void* stream) {
+  return run(x, y, weight, bias, mean, var, eps, n, channels, hw, channels_last, bf16, act,
+             device, stream, channels, nullptr, 0);
+}
+
+// The same epilogue on channels_last x, stored into a view: pixel p of the
+// result at y + p * y_pixel (y_pixel >= channels: a channel slice of a wider
+// channels_last buffer), and, where `also` is not null, its channels
+// [also_from, channels) at also + p * (channels - also_from) as well. The
+// caller checks that the view fits (ops/cuda_bn_act.py): 16-byte addresses,
+// and y_pixel, channels and also_from multiples of the 16-byte pack.
+extern "C" int bn_act_into_launch(const void* x, void* y, const float* weight,
+                                  const float* bias, const float* mean, const float* var,
+                                  float eps, long long n, int channels, long long hw, int bf16,
+                                  int act, int device, void* stream, long long y_pixel,
+                                  void* also, int also_from) {
+  if (y_pixel < channels || also_from < 0 || also_from >= channels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(x, y, weight, bias, mean, var, eps, n, channels, hw, 1, bf16, act, device, stream,
+             y_pixel, also, also_from);
 }

@@ -77,8 +77,7 @@ def main(argv=None) -> int:
     frame = torch.zeros((*args.frame_hw, 3), dtype=torch.uint8, device=seg.device)
 
     t0 = time.perf_counter()
-    with torch.no_grad():
-        exported = torch.export.export(SegmenterChain(seg).eval(), (frame,))
+    exported = torch.export.export(SegmenterChain(seg).eval(), (frame,))
     path = out / "inference.pt2"
     torch.export.save(exported, str(path))
     save_variables(out / "variables.msgpack", variables)

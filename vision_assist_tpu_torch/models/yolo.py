@@ -25,6 +25,14 @@ size) the convolution takes them as its own ``padding`` and no padded copy is
 made; only the asymmetric ones (the 7 stride-2 convolutions a forward of the
 served models), and every pad in train mode, are still made explicitly,
 counted in ``pad_copies``.
+In eval mode outside autograd, on channels_last activations (the served
+layout), no block concatenates: each allocates its concatenation buffer and
+every piece's producer stores into its channel slice (the epilogue through
+``bn_act_into``, a residual sum through ``torch.add(..., out=)``, the neck's
+2x upsample as one strided copy), with a contiguous copy from the same
+epilogue where a convolution reads the piece too; only SPPF's pooled pieces
+and a residual sum that a convolution also reads are still copied, counted
+in ``cat_copies``. Train mode concatenates with ``torch.cat``.
 Flax's ``ConvTranspose`` does not flip its kernel, PyTorch's does: the bridge
 flips the spatial taps.
 
@@ -46,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act
+from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into
 from vision_assist_tpu_torch.utils import spans
 
 
@@ -98,6 +106,125 @@ pad_copies = 0
 def reset_pad_copies() -> None:
     global pad_copies
     pad_copies = 0
+
+
+# Concatenations and piece copies the blocks made since the last
+# reset_cat_copies(): every torch.cat in train mode; where the pieces are
+# stored in place, each cat still made (SPPF's) and each piece copied into its
+# slice because no epilogue could store it there (a residual sum that a
+# convolution reads as well).
+cat_copies = 0
+
+
+def reset_cat_copies() -> None:
+    global cat_copies
+    cat_copies = 0
+
+
+def _cat(pieces: list[torch.Tensor]) -> torch.Tensor:
+    global cat_copies
+    cat_copies += 1
+    return torch.cat(pieces, dim=1)
+
+
+def _copy_into(out: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``out.copy_(src)`` through aten's operator: the method's Python binding
+    first sets a device guard, which a build without CUDA cannot, so a trace
+    of the card's path on fake CUDA tensors would stop there (slices are
+    ``narrow`` for the same reason: indexing sets one too)."""
+    return torch.ops.aten.copy_.default(out, src)
+
+
+def _copy_piece(out: torch.Tensor, piece: torch.Tensor) -> torch.Tensor:
+    global cat_copies
+    cat_copies += 1
+    return _copy_into(out, piece)
+
+
+def _in_place(block: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``block`` stores its pieces into its concatenation buffer: in
+    eval mode, outside autograd (an ``out=`` store has no gradient), on a
+    channels_last input (the layout ``bn_act_into`` stores into)."""
+    return (not block.training and not torch.is_grad_enabled()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
+def _empty(x: torch.Tensor, c: int) -> torch.Tensor:
+    """A channels_last (B, c, H, W) tensor of ``x``'s batch, size, dtype and
+    device."""
+    b, _, h, w = x.shape
+    return torch.empty((b, c, h, w), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def _store_sum(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor | None,
+               also: torch.Tensor | None) -> torch.Tensor:
+    """``x + y`` as a block's result: into ``out`` where given, and where a
+    convolution reads it too, into ``also`` and copied to ``out``."""
+    if out is None:
+        if also is not None:
+            raise ValueError("_store_sum: also is a store beside out")
+        return x + y
+    if also is None:
+        return torch.add(x, y, out=out)
+    torch.add(x, y, out=also)
+    return _copy_piece(out, also)
+
+
+def _upsample_into(out: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``F.interpolate(z, scale_factor=2, mode="nearest")`` stored into
+    ``out``: one strided copy of ``z`` expanded over a (B, C, H, 2, W, 2)
+    view of it."""
+    b, c, h, w = z.shape
+    _copy_into(out.view(b, c, h, 2, w, 2), z.view(b, c, h, 1, w, 1).expand(b, c, h, 2, w, 2))
+    return out
+
+
+class _Concat:
+    """A concatenation along channels of pieces of the given widths, the same
+    wiring for both ways a block runs. In place (:func:`_in_place`), one
+    channels_last buffer of ``like``'s batch and size, which each piece's
+    producer stores into its slice of; otherwise the pieces, joined by
+    ``torch.cat``."""
+
+    def __init__(self, in_place: bool, like: torch.Tensor, widths: tuple[int, ...]):
+        self.widths = widths
+        self.buf = _empty(like, sum(widths)) if in_place else None
+        self.pieces: list[torch.Tensor | None] = [None] * len(widths)
+
+    def slot(self, i: int, n: int = 1) -> torch.Tensor:
+        """The buffer's slice that pieces ``i`` to ``i + n - 1`` take."""
+        if n == len(self.widths):
+            return self.buf
+        return self.buf.narrow(1, sum(self.widths[:i]), sum(self.widths[i:i + n]))
+
+    def put(self, i: int, m: nn.Module, x: torch.Tensor, keep: bool = False,
+            n: int = 1) -> torch.Tensor:
+        """Pieces ``i`` to ``i + n - 1`` as ``m(x)`` (a Sequential's last
+        layer the one that stores). Returns what the next reader reads: with
+        ``keep`` (a convolution reads the last piece too) that piece, in place
+        a tensor of its own from the same store; else ``m(x)``."""
+        if isinstance(m, nn.Sequential):        # A2C2f's two ABlocks
+            *head, m = m
+            for layer in head:
+                x = layer(x)
+        if self.buf is None:
+            y = m(x)
+            self.pieces[i:i + n] = y.split(self.widths[i:i + n], 1) if n > 1 else [y]
+            return self.pieces[i + n - 1] if keep else y
+        also = _empty(self.buf, self.widths[i + n - 1]) if keep else None
+        y = m(x, out=self.slot(i, n), also=also)
+        return y if also is None else also
+
+    def upsample(self, i: int, z: torch.Tensor) -> None:
+        """Piece ``i`` as ``z`` upsampled 2x, nearest."""
+        if self.buf is None:
+            self.pieces[i] = F.interpolate(z, scale_factor=2, mode="nearest")
+        else:
+            _upsample_into(self.slot(i), z)
+
+    def join(self) -> torch.Tensor:
+        return self.buf if self.buf is not None else _cat(self.pieces)
 
 
 def _same_pads(x: torch.Tensor, k: int, s: int) -> list[int]:
@@ -153,7 +280,9 @@ class ConvBNAct(nn.Module):
     The weight is cast to the compute dtype where it is stored in another.
     In eval mode BatchNorm, SiLU and the cast back are one call of the
     operator ``bn_act`` (``ops/cuda_bn_act.py``): one kernel launch on the
-    card, its plain twin on the CPU."""
+    card, its plain twin on the CPU; with ``out`` (eval mode only), of
+    ``bn_act_into``, stored into that view and the last ``also.shape[1]``
+    channels into ``also`` too."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
                  groups: int = 1, act: bool = True,
@@ -167,25 +296,38 @@ class ConvBNAct(nn.Module):
         # the ranks; None for one process.
         self.global_sum = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        global pad_copies
-        conv, bn = self.conv, self.bn
-        pads = _same_pads(x, self.kernel, self.stride)
+    def pads_with_a_copy(self, x: torch.Tensor) -> bool:
+        """Whether ``forward(x)`` pads ``x`` explicitly, reading it once
+        into a padded copy."""
+        return self._pad_copied(_same_pads(x, self.kernel, self.stride))
+
+    def _pad_copied(self, pads: list[int]) -> bool:
+        """Wherever there are pads in train mode (where the convolution pads
+        itself, oneDNN's float32 backward sums the input's gradient in
+        another order), where they are asymmetric in eval mode."""
         w0, w1, h0, h1 = pads
-        # Train mode keeps the explicit pad: where the convolution pads itself,
-        # oneDNN's float32 backward sums the input's gradient in another order.
-        if not self.training and w0 == w1 and h0 == h1:
-            padding = (h0, w0)
-        else:
+        return any(pads) and (self.training or w0 != w1 or h0 != h1)
+
+    def forward(self, x: torch.Tensor, out: torch.Tensor | None = None,
+                also: torch.Tensor | None = None) -> torch.Tensor:
+        global pad_copies
+        if (out is not None or also is not None) and (self.training or out is None):
+            raise ValueError("ConvBNAct: out is a store of eval mode, also one beside out")
+        conv, bn = self.conv, self.bn
+        w0, _, h0, _ = pads = _same_pads(x, self.kernel, self.stride)
+        padding = (h0, w0)
+        if self._pad_copied(pads):
+            x = F.pad(x, pads)
+            pad_copies += 1
             padding = 0
-            if any(pads):
-                x = F.pad(x, pads)
-                pad_copies += 1
         y = F.conv2d(x, conv.weight.to(self.dtype), None, conv.stride, padding,
                      1, conv.groups)
         if not self.training:
-            return bn_act(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                          bn.eps, self.act)
+            stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
+                     self.act)
+            if out is not None:
+                return bn_act_into(y, *stats, out, also)
+            return bn_act(y, *stats)
         y = _flax_batch_norm_train(y.float(), bn, self.global_sum)
         return (F.silu(y) if self.act else y).to(self.dtype)
 
@@ -200,9 +342,13 @@ class Bottleneck(nn.Module):
         self.cv2 = ConvBNAct(hidden, features, kernels[1], dtype=dtype)
         self.add = shortcut and c_in == features
 
-    def forward(self, x):
-        y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+    def forward(self, x, out=None, also=None):
+        """``out`` and ``also``: where the result is stored (a slice of the
+        caller's concatenation buffer, a tensor for the next unit), eval mode
+        only."""
+        if not self.add:
+            return self.cv2(self.cv1(x), out=out, also=also)
+        return _store_sum(x, self.cv2(self.cv1(x)), out, also)
 
 
 class C2f(nn.Module):
@@ -218,12 +364,21 @@ class C2f(nn.Module):
             Bottleneck(hidden, hidden, shortcut, 1.0, (3, 3), dtype=dtype)
             for _ in range(n))
         self.cv2 = ConvBNAct((2 + n) * hidden, features, 1, dtype=dtype)
+        self.hidden = hidden
 
-    def forward(self, x):
-        outs = list(torch.chunk(self.cv1(x), 2, dim=1))
-        for m in self.m:
-            outs.append(m(outs[-1]))
-        return self.cv2(torch.cat(outs, dim=1))
+    def forward(self, x, out=None, also=None):
+        return _split_forward(self, x, out, also)
+
+
+def _split_forward(block, x, out, also):
+    """C2f and C3k2: ``cv2(cat([a, b, m1(b), m2(m1(b)), ...]))``, ``a`` and
+    ``b`` the halves of ``cv1(x)``."""
+    c, n = block.hidden, len(block.m)
+    cat = _Concat(_in_place(block, x), x, (c,) * (2 + n))
+    y = cat.put(0, block.cv1, x, keep=True, n=2)
+    for i, m in enumerate(block.m):
+        y = cat.put(2 + i, m, y, keep=i + 1 < n)
+    return block.cv2(cat.join(), out=out, also=also)
 
 
 class C3(nn.Module):
@@ -239,12 +394,18 @@ class C3(nn.Module):
             for _ in range(n))
         self.cv2 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
         self.cv3 = ConvBNAct(2 * hidden, features, 1, dtype=dtype)
+        self.hidden = hidden
 
-    def forward(self, x):
+    def forward(self, x, out=None, also=None):
+        c = self.hidden
+        cat = _Concat(_in_place(self, x), x, (c, c))
         a = self.cv1(x)
-        for m in self.m:
+        *head, last = self.m
+        for m in head:
             a = m(a)
-        return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+        cat.put(0, last, a)
+        cat.put(1, self.cv2, x)
+        return self.cv3(cat.join(), out=out, also=also)
 
 
 class C3k2(nn.Module):
@@ -261,12 +422,10 @@ class C3k2(nn.Module):
             else Bottleneck(hidden, hidden, shortcut, 0.5, (3, 3), dtype=dtype)
             for _ in range(n))
         self.cv2 = ConvBNAct((2 + n) * hidden, features, 1, dtype=dtype)
+        self.hidden = hidden
 
-    def forward(self, x):
-        outs = list(torch.chunk(self.cv1(x), 2, dim=1))
-        for m in self.m:
-            outs.append(m(outs[-1]))
-        return self.cv2(torch.cat(outs, dim=1))
+    def forward(self, x, out=None, also=None):
+        return _split_forward(self, x, out, also)
 
 
 class SPPF(nn.Module):
@@ -278,13 +437,13 @@ class SPPF(nn.Module):
         self.cv1 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
         self.cv2 = ConvBNAct(4 * hidden, features, 1, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, out=None, also=None):
         y = self.cv1(x)
         p = self.pool
         ys = [y]
         for _ in range(3):
             ys.append(F.max_pool2d(ys[-1], p, stride=1, padding=p // 2))
-        return self.cv2(torch.cat(ys, dim=1))
+        return self.cv2(_cat(ys), out=out, also=also)
 
 
 class Attention(nn.Module):
@@ -324,9 +483,9 @@ class PSABlock(nn.Module):
         self.ffn1 = ConvBNAct(dim, dim * 2, 1, dtype=dtype)
         self.ffn2 = ConvBNAct(dim * 2, dim, 1, act=legacy, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, out=None, also=None):
         x = x + self.attn(x)
-        return x + self.ffn2(self.ffn1(x))
+        return _store_sum(x, self.ffn2(self.ffn1(x)), out, also)
 
 
 class C2PSA(nn.Module):
@@ -339,12 +498,17 @@ class C2PSA(nn.Module):
             PSABlock(hidden, max(1, hidden // 64), legacy=legacy, dtype=dtype)
             for _ in range(n))
         self.cv2 = ConvBNAct(2 * hidden, features, 1, dtype=dtype)
+        self.hidden = hidden
 
-    def forward(self, x):
-        a, b = torch.chunk(self.cv1(x), 2, dim=1)
-        for m in self.m:
+    def forward(self, x, out=None, also=None):
+        c = self.hidden
+        cat = _Concat(_in_place(self, x), x, (c, c))
+        b = cat.put(0, self.cv1, x, keep=True, n=2)
+        *head, last = self.m
+        for m in head:
             b = m(b)
-        return self.cv2(torch.cat([a, b], dim=1))
+        cat.put(1, last, b)          # over cv1's second half
+        return self.cv2(cat.join(), out=out, also=also)
 
 
 def _sdpa_backend(q: torch.Tensor):
@@ -406,9 +570,9 @@ class ABlock(nn.Module):
         self.mlp = nn.Sequential(ConvBNAct(dim, hidden, 1, dtype=dtype),
                                  ConvBNAct(hidden, dim, 1, act=False, dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, out=None, also=None):
         x = x + self.attn(x)
-        return x + self.mlp(x)
+        return _store_sum(x, self.mlp(x), out, also)
 
 
 class A2C2f(nn.Module):
@@ -435,15 +599,18 @@ class A2C2f(nn.Module):
         self.cv2 = ConvBNAct((1 + n) * hidden, features, 1, dtype=dtype)
         self.gamma = (nn.Parameter(torch.full((features,), 0.01, dtype=dtype))
                       if a2 and residual else None)
+        self.hidden = hidden
 
-    def forward(self, x):
-        ys = [self.cv1(x)]
-        for m in self.m:
-            ys.append(m(ys[-1]))
-        y = self.cv2(torch.cat(ys, dim=1))
+    def forward(self, x, out=None, also=None):
+        c, n = self.hidden, len(self.m)
+        cat = _Concat(_in_place(self, x), x, (c,) * (1 + n))
+        y = cat.put(0, self.cv1, x, keep=True)
+        for i, m in enumerate(self.m):
+            y = cat.put(1 + i, m, y, keep=i + 1 < n)
         if self.gamma is None:
-            return y
-        return x + self.gamma.to(y.dtype).view(1, -1, 1, 1) * y
+            return self.cv2(cat.join(), out=out, also=also)
+        y = self.cv2(cat.join())
+        return _store_sum(x, self.gamma.to(y.dtype).view(1, -1, 1, 1) * y, out, also)
 
 
 class Proto(nn.Module):
@@ -574,6 +741,7 @@ class YoloSeg(nn.Module):
             neck_n = 3
         c_p5 = ch(1024)
         self._p3_at, self._p4_at = 4, 6
+        self._widths = (c_p3, c_p4, c_p5, ch(256), ch(512))
 
         # PAN neck, registered in the reference's creation order.
         self.h1 = block(c_p5 + c_p4, ch(512), neck_n, False)
@@ -634,21 +802,33 @@ class YoloSeg(nn.Module):
 
     def forward(self, images: torch.Tensor) -> YoloSegOutputs:
         x = images.to(self.dtype)
+        in_place = _in_place(self, x)
+        c3, c4, c5, c_n3, c_h1 = self._widths
+        # The PAN neck's four concatenations, [up(p5), p4] into h1, [up(h1),
+        # p3] into n3, [d1(n3), h1] into n4 and [d2(n4), p5] into n5, each
+        # made at the backbone level of its size, from that level's input,
+        # before any piece: each level's block keeps its input's size.
         for i, layer in enumerate(self.backbone):
-            x = layer(x)
             if i == self._p3_at:
-                p3 = x
+                to_n3 = _Concat(in_place, x, (c_h1, c3))
+                x = self._level(to_n3, i, x)
             elif i == self._p4_at:
-                p4 = x
-        p5 = x
-
-        def up(z):
-            return F.interpolate(z, scale_factor=2, mode="nearest")
-
-        h1 = self.h1(torch.cat([up(p5), p4], dim=1))
-        n3 = self.n3(torch.cat([up(h1), p3], dim=1))
-        n4 = self.n4(torch.cat([self.d1(n3), h1], dim=1))
-        n5 = self.n5(torch.cat([self.d2(n4), p5], dim=1))
+                to_h1 = _Concat(in_place, x, (c5, c4))
+                to_n4 = _Concat(in_place, x, (c_n3, c_h1))
+                x = self._level(to_h1, i, x)
+            elif i == len(self.backbone) - 1:
+                to_n5 = _Concat(in_place, x, (c_h1, c5))
+                p5 = to_n5.put(1, layer, x)
+            else:
+                x = layer(x)
+        to_h1.upsample(0, p5)
+        h1 = to_n4.put(1, self.h1, to_h1.join())
+        to_n3.upsample(0, h1)
+        n3 = self.n3(to_n3.join())
+        to_n4.put(0, self.d1, n3)
+        n4 = self.n4(to_n4.join())
+        to_n5.put(0, self.d2, n4)
+        n5 = self.n5(to_n5.join())
 
         branches: list[list[torch.Tensor]] = [[], [], []]
         for f, head in zip([n3, n4, n5], self.heads):
@@ -660,6 +840,15 @@ class YoloSeg(nn.Module):
         return YoloSegOutputs(
             box_logits=branches[0], cls_logits=branches[1], coeffs=branches[2],
             protos=self.proto(n3).float(), strides=(8, 16, 32))
+
+    def _level(self, cat: _Concat, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Backbone level ``i`` (P3 or P4) as the last piece of ``cat``, the
+        neck's concatenation that takes it. Returns what the next backbone
+        convolution reads: in place, the slice itself where that convolution
+        pads the level's output with a copy (the copy reads it once), else a
+        tensor of its own from the same store."""
+        keep = cat.buf is not None and not self.backbone[i + 1].pads_with_a_copy(cat.slot(1))
+        return cat.put(1, self.backbone[i], x, keep=keep)
 
 
 # --- Flax weight bridge ------------------------------------------------------------

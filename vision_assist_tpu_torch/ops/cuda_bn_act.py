@@ -21,6 +21,14 @@ call is the operator ``vision_assist_tpu_torch::bn_act`` on every device, so
 port holds it; import this module before loading one). On CPU tensors the
 operator runs the plain twin, ``bn_act_plain``; on CUDA tensors it launches
 the kernel or raises — it never falls back.
+
+``bn_act_into`` is the same epilogue stored where its readers want it: into
+``out``, a channels_last view of the input's shape (a channel slice of a
+wider channels_last buffer, the concatenation a block feeds its next
+convolution), and, where ``also`` is given, channels ``[also_from, C)`` into
+that contiguous channels_last tensor as well, from the same registers in the
+same launch. It raises on a view the kernel's 16-byte stores do not fit; it
+never computes elsewhere and copies.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ MAX_CHANNELS = 4096   # kMaxTableChannels in csrc/bn_act.cu: a CTA's table
 # Kernel launches since the last reset_launches(); one per operator call on
 # CUDA tensors.
 launches = 0
+# Calls of bn_act_into since the last reset_launches(): kernel launches that
+# stored into a view on the card, the twin and its copies on the CPU.
+view_stores = 0
 
 _lib = None
 build_log = ""
@@ -50,8 +61,8 @@ compiled = False       # False when build() reused an earlier build's library
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, view_stores
+    launches = view_stores = 0
 
 
 def build() -> ctypes.CDLL:
@@ -67,6 +78,11 @@ def build() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.bn_act_launch.restype = ctypes.c_int
+    lib.bn_act_into_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_int]
+    lib.bn_act_into_launch.restype = ctypes.c_int
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
@@ -113,6 +129,15 @@ def _check(x, weight, bias, mean, var) -> bool:
     return channels_last
 
 
+def _stream(dev: torch.device) -> tuple[int, int]:
+    """The card's index and the raw handle of its current stream, read
+    through torch's C binding without building a Stream object: the
+    segmenter launches the epilogue 90 to 214 times a forward, and the host
+    issuing them sets the served cells' pace."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
 def _impl(x, weight, bias, mean, var, eps, act):
     global launches
     channels_last = _check(x, weight, bias, mean, var)
@@ -122,19 +147,89 @@ def _impl(x, weight, bias, mean, var, eps, act):
     if x.numel() == 0:
         return out
     lib = build()
-    dev = x.device
     _, c, h, w = x.shape
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index, stream = _stream(x.device)
     err = lib.bn_act_launch(x.data_ptr(), out.data_ptr(), weight.data_ptr(),
                             bias.data_ptr(), mean.data_ptr(), var.data_ptr(), eps,
                             x.numel(), c, h * w, int(channels_last),
-                            int(x.dtype == torch.bfloat16), int(act), index,
-                            torch.cuda.current_stream(dev).cuda_stream)
+                            int(x.dtype == torch.bfloat16), int(act), index, stream)
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: error {err} (shape "
                            f"{tuple(x.shape)}, {x.dtype})")
     launches += 1
     return out
+
+
+PACK_BYTES = 16       # kPackBytes in csrc/bn_act.cu: a thread's load and store
+
+
+def _check_into(x, weight, bias, mean, var, out, also, also_from) -> int:
+    """Raises unless ``x`` is channels_last and ``out`` a channels_last view
+    of its shape and dtype that the kernel's 16-byte stores fit (channel
+    stride 1, a pixel stride of a whole number of packs, at a 16-byte
+    offset), and ``also`` None or a channels_last tensor of ``x``'s channels
+    from ``also_from`` on, a whole number of packs; returns the pixel stride
+    of ``out``. The same on every device, so the CPU holds a model to what
+    the card takes."""
+    channels_last = _check(x, weight, bias, mean, var)
+    n, c, h, w = x.shape
+    pack = PACK_BYTES // x.element_size()
+    if not channels_last:
+        raise ValueError(f"bn_act_into: x must be channels_last, not strides {x.stride()}")
+    if c % pack:
+        raise ValueError(f"bn_act_into: {c} channels are not a whole number of "
+                         f"{pack}-element packs")
+    if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"bn_act_into: out {tuple(out.shape)} {out.dtype} on {out.device} "
+                         f"for x {tuple(x.shape)} {x.dtype} on {x.device}")
+    pixel = out.stride(3)
+    if out.stride() != (h * w * pixel, 1, w * pixel, pixel) or pixel < c:
+        raise ValueError(f"bn_act_into: out strides {out.stride()} are not a channels_last "
+                         f"view of shape {tuple(out.shape)}")
+    if pixel % pack or out.storage_offset() % pack:
+        raise ValueError(f"bn_act_into: out at offset {out.storage_offset()} with pixel "
+                         f"stride {pixel} is off the {PACK_BYTES}-byte pack")
+    if also is not None:
+        if not 0 <= also_from < c or also_from % pack:
+            raise ValueError(f"bn_act_into: also from channel {also_from} of {c} is off "
+                             f"the {PACK_BYTES}-byte pack")
+        if (also.shape != (n, c - also_from, h, w) or also.dtype != x.dtype
+                or also.device != x.device or also.storage_offset() % pack
+                or not also.is_contiguous(memory_format=torch.channels_last)):
+            raise ValueError(f"bn_act_into: also {tuple(also.shape)} {also.dtype}, strides "
+                             f"{also.stride()}, is not channels [{also_from}, {c}) of x "
+                             "in channels_last")
+    return pixel
+
+
+def _impl_into(x, weight, bias, mean, var, eps, act, out, also, also_from):
+    global launches, view_stores
+    pixel = _check_into(x, weight, bias, mean, var, out, also, also_from)
+    if x.device.type == "cpu":
+        y = bn_act_plain(x, weight, bias, mean, var, eps, act)
+        out.copy_(y)
+        if also is not None:
+            also.copy_(y[:, also_from:])
+        view_stores += 1
+        return
+    if x.numel() == 0:
+        return
+    src, dst = x.data_ptr(), out.data_ptr()
+    also_ptr = also.data_ptr() if also is not None else 0
+    if (src | dst | also_ptr) % PACK_BYTES:
+        raise ValueError("bn_act_into: an address off the 16-byte pack")
+    lib = build()
+    _, c, h, w = x.shape
+    index, stream = _stream(x.device)
+    err = lib.bn_act_into_launch(
+        src, dst, weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), var.data_ptr(), eps,
+        x.numel(), c, h * w, int(x.dtype == torch.bfloat16), int(act), index, stream, pixel,
+        also_ptr or None, also_from if also is not None else 0)
+    if err != 0:
+        raise RuntimeError(f"bn_act_into kernel launch failed: error {err} (shape "
+                           f"{tuple(x.shape)}, {x.dtype}, pixel stride {pixel})")
+    launches += 1
+    view_stores += 1
 
 
 # A plain operator definition: its dispatch costs a few microseconds a call,
@@ -146,12 +241,21 @@ _LIB.define("bn_act(Tensor x, Tensor weight, Tensor bias, Tensor mean, Tensor va
             "float eps, bool act) -> Tensor")
 _LIB.impl("bn_act", _impl, "CPU")
 _LIB.impl("bn_act", _impl, "CUDA")
+_LIB.define("bn_act_into(Tensor x, Tensor weight, Tensor bias, Tensor mean, Tensor var, "
+            "float eps, bool act, Tensor(a!) out, Tensor(b!)? also, int also_from) -> ()")
+_LIB.impl("bn_act_into", _impl_into, "CPU")
+_LIB.impl("bn_act_into", _impl_into, "CUDA")
 
 
 @torch.library.register_fake("vision_assist_tpu_torch::bn_act")
 def _(x, weight, bias, mean, var, eps, act):
     _check(x, weight, bias, mean, var)
     return torch.empty_like(x)
+
+
+@torch.library.register_fake("vision_assist_tpu_torch::bn_act_into")
+def _(x, weight, bias, mean, var, eps, act, out, also, also_from):
+    _check_into(x, weight, bias, mean, var, out, also, also_from)
 
 
 def bn_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -165,3 +269,19 @@ def bn_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     dtype."""
     return torch.ops.vision_assist_tpu_torch.bn_act(x, weight, bias, mean, var,
                                                     float(eps), bool(act))
+
+
+def bn_act_into(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                mean: torch.Tensor, var: torch.Tensor, eps: float, act: bool,
+                out: torch.Tensor, also: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`bn_act` of channels_last ``x`` stored into ``out``, a
+    channels_last view of ``x``'s shape (a channel slice of a wider
+    channels_last buffer), and, where ``also`` is given, its last
+    ``also.shape[1]`` channels into ``also`` too (a contiguous channels_last
+    tensor): one launch on the card. Every channel count, the slice's offset
+    and its buffer's width must be whole 16-byte packs (8 bf16, 4 float32).
+    Returns ``out``."""
+    also_from = x.shape[1] - also.shape[1] if also is not None else 0
+    torch.ops.vision_assist_tpu_torch.bn_act_into(x, weight, bias, mean, var, float(eps),
+                                                  bool(act), out, also, also_from)
+    return out
