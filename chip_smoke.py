@@ -267,6 +267,17 @@ result line:
              reads it too), bit-equal to the twin, and each into a tensor
              of its own, both steps and the view-storing launches alone
              timed.
+26. cbfuse   YOLOv9's fused CBFuse kernel (csrc/cb_fuse.cu): one step of
+             8 streams of 1280x720 walkway frames served by
+             ModelConfig(arch="yolov9e-seg", imgsz=640) through
+             BatchedStreamingServer (depth 2, engine exact_device), its
+             launches read off the kernel's counter (5 a step); then the
+             five fusions of a forward of that served module on the step's
+             8 letterboxed frames, pieces read in place from their CBLinear
+             outputs, each bit-equal to its twin
+             (ops/cuda_cb_fuse.py:cb_fuse_plain) in bf16 and float32, one
+             launch; a step timed beside its bound by bytes, the twin and
+             the plain chain (interpolate, stack, sum).
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -1586,6 +1597,22 @@ def nms_phase(torch, dev, frames, seg, rec, variables, cuda_nms) -> dict:
     return {"timed": timed, "err": err, "share": (step_ms, nms_ms), "served_call": served_ms}
 
 
+def kernels_ms(fn, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` as the sum of its kernels' durations in a
+    torch.profiler record of the card: the gaps between launches left out,
+    as the benchmark's card time leaves out the card's idle time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+
+
 def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
     """Phase 25: the ConvBNAct epilogue kernel alone at the served shapes:
     the convolution outputs of every ConvBNAct of ``seg``'s model on the
@@ -1649,20 +1676,6 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
         torch.cuda.synchronize()
         return ms
 
-    def kernels_ms(fn, reps: int = 5) -> float:
-        """Device ms a call of ``fn`` as the sum of its kernels' durations in
-        a torch.profiler record of the card: the gaps between launches left
-        out, as the benchmark's card time leaves out the card's idle time."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
-
     # A step is 90 launches and the chain's 356: reps x launches stays under
     # the card's queue of about a thousand (cuda_ms).
     ms = cuda_ms(kernel_step, reps=4, queued=True)
@@ -1688,6 +1701,129 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
     return {"served_views": served_views, "views": views, "ms": ms, "kernels_ms": sums["kernel"], "plain_ms": plain_ms,
             "library_ms": chain_ms, "library_queued_ms": chain_queued_ms, "bound_ms": bound_ms,
             "launches": launches, "err": err, "issue_ms": issue, "largest_ms": largest_ms}
+
+
+def cbfuse_phase(torch, dev, cuda_cb_fuse) -> dict:
+    """Phase 26: YOLOv9's fused CBFuse kernel on the served path, then alone
+    at the served shapes. One step of 8 streams of 1280x720 walkway frames
+    through ``BatchedStreamingServer`` (depth 2, engine ``exact_device``)
+    with ``ModelConfig(arch="yolov9e-seg", imgsz=640)`` (random weights),
+    its launches read off ``cuda_cb_fuse.launches`` after a warm step: 5, one
+    a fusion. Then the five fusions of one forward of that served module on
+    the step's frames letterboxed to 640 (channels_last), their pieces and
+    targets kept as the forward hands them (each piece a channel slice of
+    its CBLinear output). Each, bf16 and float32, bit-equal to the twin
+    (``cb_fuse_plain``) on the card, one launch; a step of five timed
+    (queued CUDA events, and the sum of its kernels' durations) beside its
+    bound by bytes (each piece and the target read once, the result written
+    once), the twin and the plain chain (Ultralytics' CBFuse: each piece
+    through ``F.interpolate`` to the target's size, a stack and a sum, in
+    bf16)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vision_assist_tpu_torch.config import ModelConfig, PathFinderConfig, PipelineConfig
+    from vision_assist_tpu_torch.io.synthetic import walkway_frames
+    from vision_assist_tpu_torch.models import yolo
+    from vision_assist_tpu_torch.models.inference import Segmenter
+    from vision_assist_tpu_torch.ops.cuda_cb_fuse import cb_fuse, cb_fuse_plain
+    from vision_assist_tpu_torch.ops.letterbox import letterbox
+    from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
+    from vision_assist_tpu_torch.pipeline.server import BatchedStreamingServer
+    from vision_assist_tpu_torch.utils.build import ptxas_entries
+
+    h, w = 1280, 720
+    seg = Segmenter(ModelConfig(arch="yolov9e-seg", imgsz=640),
+                    generator=torch.Generator().manual_seed(25), example_hw=(h, w), device=dev)
+    cfg = PipelineConfig(frame_height=h, frame_width=w, transfer_format="i420",
+                         num_streams=N_FRAMES,
+                         pathfinder=PathFinderConfig(engine="exact_device"))
+    step = np.stack(walkway_frames(N_FRAMES, h, w, seed=0))
+    server = BatchedStreamingServer(MultiStreamProcessor(cfg, segmenter=seg, device=dev),
+                                    depth=2)
+    served = len(server.feed(step, now_ms=0)) + len(server.drain())   # warm: builds, cuDNN
+    cuda_cb_fuse.reset_launches()
+    served += len(server.feed(step, now_ms=33)) + len(server.drain())
+    torch.cuda.synchronize()
+    launches = cuda_cb_fuse.launches
+    server.msp.close()
+    if served != 2 or launches != 5:
+        raise AssertionError(f"cbfuse: {launches} launches in a served step of "
+                             f"{N_FRAMES} streams, not 5 ({served} steps answered)")
+    log(f"phase cbfuse served: one step of {N_FRAMES} streams of {h}x{w} through "
+        f"BatchedStreamingServer with yolov9e-seg@640, {launches} cb_fuse launches "
+        "(cuda_cb_fuse.launches)")
+    log("phase cbfuse kernels (registers, stack frame B, spill stores/loads B): " + ", ".join(
+        f"{e['name']} {e['registers']} {e['stack']} {e['spill_stores']}/{e['spill_loads']}"
+        for e in ptxas_entries(cuda_cb_fuse.build_log)))
+
+    images = letterbox(torch.from_numpy(step).to(dev), dst=640).permute(0, 3, 1, 2)
+    calls, plain = [], yolo.cb_fuse
+
+    def keep(pieces, target):
+        calls.append((pieces, target))
+        return plain(pieces, target)
+
+    yolo.cb_fuse = keep
+    try:
+        with torch.no_grad():
+            seg.model(images)
+    finally:
+        yolo.cb_fuse = plain
+    torch.cuda.synchronize()
+    if len(calls) != 5:
+        raise AssertionError(f"cbfuse: {len(calls)} fusions in a forward, not 5")
+
+    def as_float32(p):
+        """A piece in float32, still a channel slice of its CBLinear output."""
+        base = p._base if p._base is not None else p
+        return base.float().narrow(1, p.storage_offset() - base.storage_offset(), p.shape[1])
+
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for pieces, target in calls:
+            if dtype == torch.float32:
+                pieces, target = [as_float32(p) for p in pieces], target.float()
+            cuda_cb_fuse.reset_launches()
+            got = cb_fuse(pieces, target)
+            torch.cuda.synchronize()
+            twin = cb_fuse_plain(pieces, target)
+            err = max(err, float((got.float() - twin.float()).abs().max()))
+            if cuda_cb_fuse.launches != 1 or not torch.equal(got, twin):
+                raise AssertionError(f"cb_fuse differs from its twin at target "
+                                     f"{tuple(target.shape)} {dtype}, pieces "
+                                     f"{[tuple(p.shape) for p in pieces]}")
+    n_bytes = sum((sum(p.numel() for p in pieces) + 2 * t.numel()) * t.element_size()
+                  for pieces, t in calls)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+
+    def kernel_step():
+        return [cb_fuse(p, t) for p, t in calls]
+
+    def twin_step():
+        return [cb_fuse_plain(p, t) for p, t in calls]
+
+    def chain_step():
+        return [torch.stack([F.interpolate(q, size=t.shape[2:], mode="nearest") for q in p]
+                            + [t]).sum(0) for p, t in calls]
+
+    ms = cuda_ms(kernel_step, reps=20, queued=True)
+    chain_queued_ms = cuda_ms(chain_step, reps=5, queued=True)
+    sums = {name: kernels_ms(fn) for name, fn in
+            (("kernel", kernel_step), ("twin", twin_step), ("chain", chain_step))}
+    each = [cuda_ms(lambda p=p, t=t: cb_fuse(p, t), reps=50, queued=True) for p, t in calls]
+    log(f"phase cbfuse: the 5 fusions of a yolov9e-seg@640 step on {N_FRAMES} frames "
+        f"({n_bytes} B), bit-equal to the twin on the card in bf16 and float32, one launch "
+        "each; targets " + ", ".join(f"{tuple(t.shape[1:])}" for _, t in calls))
+    log(f"phase cbfuse step of 5 launches, device ms: kernel {ms:.5f} queued, "
+        f"{sums['kernel']:.5f} in its kernels; bound by bytes {bound_ms:.5f} "
+        f"({100 * bound_ms / sums['kernel']:.1f} % of it); the twin {sums['twin']:.5f} in its "
+        f"kernels; the plain chain (interpolate, stack, sum) {chain_queued_ms:.5f} queued, "
+        f"{sums['chain']:.5f} in its kernels; each fusion queued: "
+        + ", ".join(f"{m:.5f}" for m in each))
+    return {"ms": ms, "kernels_ms": sums["kernel"], "plain_ms": sums["twin"],
+            "library_ms": sums["chain"], "library_queued_ms": chain_queued_ms,
+            "bound_ms": bound_ms, "each_ms": each, "launches": launches, "err": err}
 
 
 def epilogue_inputs(torch, model, run) -> list:
@@ -2503,7 +2639,7 @@ def main() -> int:
         if not (args.relax_only or args.astar_only):
             from vision_assist_tpu_torch.io import png
             from vision_assist_tpu_torch.models.yolo import ConvBNAct
-            from vision_assist_tpu_torch.ops import cuda_bn_act, cuda_nms, cuda_sweep
+            from vision_assist_tpu_torch.ops import cuda_bn_act, cuda_cb_fuse, cuda_nms, cuda_sweep
             from vision_assist_tpu_torch.pipeline.multi_stream import (
                 MultiStreamProcessor,
             )
@@ -3423,7 +3559,12 @@ def main() -> int:
 
     # -- 25. bn_act ----------------------------------------------------------------
     bn_run = bn_act_phase(torch, dev, frames, seg, cuda_bn_act)
-    log(f"phase bn_act took {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    log(f"phase bn_act took {t10 - t9:.1f} s")
+
+    # -- 26. cbfuse ----------------------------------------------------------------
+    cb_run = cbfuse_phase(torch, dev, cuda_cb_fuse)
+    log(f"phase cbfuse took {time.perf_counter() - t10:.1f} s")
 
     # -- 24. large -----------------------------------------------------------------
     large_run = large_phase(torch, dev, turn, cuda_wavefront, cuda_sweep, cuda_astar)
@@ -3518,6 +3659,21 @@ def main() -> int:
         "ms_in_kernels": bn_run["kernels_ms"],
         "library_queued_ms": bn_run["library_queued_ms"],
         "ms_largest_launch": bn_run["largest_ms"],
+    }, {
+        # YOLOv9's CBFuse; replaces no JAX code (the JAX package has no YOLOv9).
+        "name": "cb_fuse",
+        "route": "cuda",
+        "source": "vision_assist_tpu_torch/csrc/cb_fuse.cu",
+        "replaces": None,
+        "launches_phase": cb_run["launches"],
+        "max_abs_err": cb_run["err"],
+        "ms": cb_run["ms"],
+        "plain_ms": cb_run["plain_ms"],
+        "bound_ms": cb_run["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": cb_run["library_ms"],
+        "ms_in_kernels": cb_run["kernels_ms"],
+        "library_queued_ms": cb_run["library_queued_ms"],
     }, {
         # Replaces the compiled JAX loop relax_sweep (lax.while_loop over
         # passes of associative scans), not a Pallas kernel.

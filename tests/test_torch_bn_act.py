@@ -150,6 +150,23 @@ def test_eval_convbnact_is_the_convolution_then_the_twin(act):
         assert torch.equal(block(x), want)
 
 
+def test_eval_convbnact_stores_a_contiguous_convolution_output_into_a_slice():
+    """A convolution whose output is contiguous NCHW (what the card's layout
+    rule can answer inside a program that torch.export traces) still stores
+    into its slice of a channels_last buffer: the slice equals the block's
+    own result, the buffer's other channels untouched."""
+    torch.manual_seed(4)
+    block = yolo.ConvBNAct(8, 16, 3).eval()
+    with torch.no_grad():
+        block.bn.running_mean.uniform_(-1, 1)
+        block.bn.running_var.uniform_(0.5, 2)
+        x = torch.rand(2, 8, 9, 9).bfloat16()       # NCHW: so is the convolution's output
+        out, buf = _wide((2, 16, 9, 9), 8, 32, torch.bfloat16)
+        block(x, out=out)
+        assert torch.equal(out, block(x))
+        assert bool(torch.cat([buf[:, :8], buf[:, 24:]], dim=1).isnan().all())
+
+
 def test_wrapper_raises_on_what_it_cannot_take():
     x = _activations((2, 16, 4, 6), 0, channels_last=False)
     stats = _stats(16, 0)
@@ -284,12 +301,17 @@ def test_wrapper_raises_on_a_cuda_tensor_the_kernel_cannot_take():
 
 def _cudnn_memory_format(x, weight, backend):
     """cuDNN's choice of a convolution's output layout: channels_last where
-    the input or the weight is. A build without CUDA has no cuDNN backend to
-    select, and its fake convolutions on CUDA tensors answer contiguous NCHW
-    whatever the input, which the card never does."""
-    cl = torch.channels_last
-    return cl if x.is_contiguous(memory_format=cl) or weight.is_contiguous(memory_format=cl) \
-        else torch.contiguous_format
+    the input's or the weight's strides suggest it (a channel slice of a
+    channels_last tensor among them, as cuDNN's own rule reads them). A
+    build without CUDA has no cuDNN backend to select, and its fake
+    convolutions on CUDA tensors answer contiguous NCHW whatever the input,
+    which the card never does."""
+    def suggests(t):
+        n, c, h, w = t.stride()
+        return t.is_contiguous(memory_format=torch.channels_last) or (
+            c == 1 and n >= h >= w >= t.shape[1])
+
+    return torch.channels_last if suggests(x) or suggests(weight) else torch.contiguous_format
 
 
 def _card_graph(arch: str, imgsz: int, batch: int, train: bool):

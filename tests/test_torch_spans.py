@@ -264,3 +264,29 @@ def test_area_attention_spans_one_a_block_a_step(frames, arch, blocks):
         _close(proc)
     assert sorted(s.step for s in got) == [1] * blocks + [2] * blocks
     assert {s.parent for s in got} == {"program.segment"}
+
+
+def test_yolov9_spans_five_fusions_and_one_aux_a_step(frames):
+    """YOLOv9e-seg served in steps of 2 streams at imgsz 64: under the
+    profiler each step records five ``program.segment.cbfuse`` spans (layers
+    16, 18, 21, 24 and 27) and one ``program.segment.aux`` (the first
+    backbone and the CBLinears), inside ``program.segment`` and carrying the
+    step's id; without a profiler, none."""
+    seg = Segmenter(config.ModelConfig(arch="yolov9e-seg", imgsz=64, dtype="float32"),
+                    example_hw=(H, W), device="cpu")
+    proc = MultiStreamProcessor(_cfg("exact_device", STREAMS), segmenter=seg, device="cpu")
+    names = ("program.segment.cbfuse", "program.segment.aux")
+    try:
+        spans.clear()
+        _step(proc, frames, 0)
+        assert spans.recorded() == []
+        with profile(activities=[ProfilerActivity.CPU]):
+            _step(proc, frames, 1)
+            _step(proc, frames, 2)
+        got = [s for s in spans.recorded() if s.name in names]
+    finally:
+        _close(proc)
+    for name, per_step in zip(names, (5, 1)):
+        steps = sorted(s.step for s in got if s.name == name)
+        assert steps == [1] * per_step + [2] * per_step, name
+    assert {s.parent for s in got} == {"program.segment"}

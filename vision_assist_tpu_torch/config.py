@@ -189,7 +189,7 @@ class ModelConfig:
 
     arch: Literal["yolov8n-seg", "yolo11n-seg", "yolo11n-seg-legacy",
                   "yolo12n-seg", "yolo12s-seg", "yolo12m-seg", "yolo12l-seg",
-                  "yolo12x-seg"] = "yolov8n-seg"
+                  "yolo12x-seg", "yolov9e-seg"] = "yolov8n-seg"
     num_classes: int = 1                      # model/data.yaml:6
     imgsz: int = 640
     conf_threshold: float = 0.5               # FrameProcessor.py:322

@@ -1,4 +1,5 @@
-"""PyTorch YOLO-seg model family (YOLOv8-seg, YOLO11-seg, YOLO12-seg), NCHW.
+"""PyTorch YOLO-seg model family (YOLOv8-seg, YOLO11-seg, YOLO12-seg,
+YOLOv9e-seg), NCHW; ``ARCHS`` maps each name to its family and scale.
 
 Counterpart of ``vision_assist_tpu/models/yolo.py``: the same blocks, the
 same channel and depth scaling, and the same arithmetic (bf16 convolutions
@@ -15,7 +16,13 @@ the JAX package does not have: YOLO12-seg (``yolo12{n,s,m,l,x}-seg``,
 arXiv:2502.12524, ``ultralytics/cfg/models/12/yolo12-seg.yaml``), area
 attention (:class:`AAttn`) in :class:`ABlock` units of :class:`A2C2f`, and
 the YOLO11 head. Its Flax names follow the same rule; the A2C2f's residual
-scale is the leaf ``A2C2f_k/gamma``.
+scale is the leaf ``A2C2f_k/gamma``. And YOLOv9e-seg (arXiv:2402.13616,
+``ultralytics/cfg/models/v9/yolov9e-seg.yaml``), the one graph that is not a
+backbone and a PAN neck: two GELAN backbones (:class:`RepNCSPELAN4`,
+:class:`ADown`, :class:`SPPELAN`), five :class:`CBLinear` convolutions on
+the first one's levels, and five CBFuse sums into the second's stages, each
+one ``cb_fuse`` operator (``ops/cuda_cb_fuse.py``); its :class:`RepConv`
+runs folded in eval mode; the YOLOv8 head on widths 256, 512 and 512.
 
 Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution at an
 even size, where ``nn.Conv2d(padding=1)`` would pad (1, 1). ``ConvBNAct`` works
@@ -55,6 +62,7 @@ from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into
+from vision_assist_tpu_torch.ops.cuda_cb_fuse import cb_fuse, cb_fuse_plain
 from vision_assist_tpu_torch.utils import spans
 
 
@@ -87,6 +95,47 @@ SCALES_12 = {
 C3K_SCALES = "mlx"
 RESIDUAL_SCALES = "lx"
 
+
+@dataclasses.dataclass(frozen=True)
+class Arch:
+    """What an architecture's name stands for: its family, which picks the
+    graph ("v8", "v11", "v12": one backbone and a PAN neck; "v9": two GELAN
+    backbones joined by CBLinear/CBFuse), and its scale's letter."""
+    family: str
+    letter: str
+    legacy: bool = False            # yolo11n-seg-legacy
+
+    @property
+    def scale(self) -> YoloScale | None:
+        """The family's scale of this letter; None for YOLOv9e, whose yaml
+        has no scales (every width and depth as written)."""
+        return {"v8": SCALES, "v11": SCALES_11, "v12": SCALES_12}.get(self.family, {}).get(
+            self.letter)
+
+
+ARCHS = {
+    **{f"yolov8{s}-seg": Arch("v8", s) for s in SCALES},
+    **{f"yolo11{s}-seg": Arch("v11", s) for s in SCALES_11},
+    "yolo11n-seg-legacy": Arch("v11", "n", legacy=True),
+    **{f"yolo12{s}-seg": Arch("v12", s) for s in SCALES_12},
+    "yolov9e-seg": Arch("v9", "e"),
+}
+
+
+def arch_of(name: str) -> Arch:
+    """The table's entry for an architecture's name; raises on a name the
+    port does not build."""
+    if name not in ARCHS:
+        raise ValueError(f"YoloSeg: no architecture {name!r}; one of {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+# YOLOv9e (``yolov9e-seg.yaml``): (c2, c3, c4) of each GELAN backbone's four
+# RepNCSPELAN4, layers 3, 5, 7 and 9 (19, 22, 25 and 28), each but the first
+# after an ADown to its input's width; and CBLinear 14's pieces, of which
+# CBLinear i (on layer 1, 3, 5, 7, 9) makes the first i + 1.
+GELAN_LEVELS = ((256, 128, 64), (512, 256, 128), (1024, 512, 256), (1024, 512, 256))
+CB_WIDTHS = (64, 128, 256, 512, 1024)
 
 # Flax's BatchNorm keeps 0.97 of the running statistics a step.
 FLAX_BN_MOMENTUM = 0.97
@@ -183,13 +232,16 @@ def _upsample_into(out: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 class _Concat:
     """A concatenation along channels of pieces of the given widths, the same
     wiring for both ways a block runs. In place (:func:`_in_place`), one
-    channels_last buffer of ``like``'s batch and size, which each piece's
-    producer stores into its slice of; otherwise the pieces, joined by
-    ``torch.cat``."""
+    channels_last buffer of ``like``'s batch and size (or ``buf``, a slice of
+    the caller's), which each piece's producer stores into its slice of;
+    otherwise the pieces, joined by ``torch.cat``."""
 
-    def __init__(self, in_place: bool, like: torch.Tensor, widths: tuple[int, ...]):
+    def __init__(self, in_place: bool, like: torch.Tensor, widths: tuple[int, ...],
+                 buf: torch.Tensor | None = None):
         self.widths = widths
-        self.buf = _empty(like, sum(widths)) if in_place else None
+        if buf is None and in_place:
+            buf = _empty(like, sum(widths))
+        self.buf = buf
         self.pieces: list[torch.Tensor | None] = [None] * len(widths)
 
     def slot(self, i: int, n: int = 1) -> torch.Tensor:
@@ -326,6 +378,10 @@ class ConvBNAct(nn.Module):
             stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
                      self.act)
             if out is not None:
+                # torch.export's trace on the card lays some convolution
+                # outputs out as contiguous NCHW where the card answers
+                # channels_last; eagerly this returns y itself.
+                y = y.contiguous(memory_format=torch.channels_last)
                 return bn_act_into(y, *stats, out, also)
             return bn_act(y, *stats)
         y = _flax_batch_norm_train(y.float(), bn, self.global_sum)
@@ -613,6 +669,161 @@ class A2C2f(nn.Module):
         return _store_sum(x, self.gamma.to(y.dtype).view(1, -1, 1, 1) * y, out, also)
 
 
+class RepConv(nn.Module):
+    """YOLOv9's re-parameterisable 3x3 convolution: a 3x3 and a 1x1
+    ConvBNAct (no SiLU), summed, then SiLU, in train mode.
+
+    In eval mode it is the deployed form (Ultralytics' ``RepConv.fuse_convs``):
+    one 3x3 convolution whose weight and bias fold both branches and both
+    BatchNorms, in float32, then the epilogue with SiLU (``bn_act`` with the
+    identity's statistics and the folded bias). The fold is made when the
+    module enters eval mode and when a state dict is loaded into it there;
+    the branches' weights are kept in float32 for it, and the folded weight
+    is cast once to the compute dtype."""
+
+    def __init__(self, c_in: int, c_out: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = ConvBNAct(c_in, c_out, 3, act=False, dtype=dtype)
+        self.conv2 = ConvBNAct(c_in, c_out, 1, act=False, dtype=dtype)
+        for branch in (self.conv1, self.conv2):
+            branch.conv.to(torch.float32)
+        self.register_buffer("fused_weight", torch.zeros(c_out, c_in, 3, 3, dtype=dtype),
+                             persistent=False)
+        self.register_buffer("fused_bias", torch.zeros(c_out), persistent=False)
+        self.register_buffer("_ones", torch.ones(c_out), persistent=False)
+        self.register_buffer("_zeros", torch.zeros(c_out), persistent=False)
+        self.register_load_state_dict_post_hook(lambda m, _: m._fold() if not m.training
+                                                else None)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if not mode:
+            self._fold()
+        return self
+
+    @staticmethod
+    def _folded(branch: ConvBNAct) -> tuple[torch.Tensor, torch.Tensor]:
+        bn = branch.bn
+        std = (bn.running_var + bn.eps).sqrt()
+        t = (bn.weight / std).reshape(-1, 1, 1, 1)
+        return branch.conv.weight.float() * t, bn.bias - bn.running_mean * bn.weight / std
+
+    @torch.no_grad()
+    def _fold(self) -> None:
+        k3, b3 = self._folded(self.conv1)
+        k1, b1 = self._folded(self.conv2)
+        self.fused_weight.copy_(k3 + F.pad(k1, [1, 1, 1, 1]))
+        self.fused_bias.copy_(b3 + b1)
+
+    def forward(self, x):
+        if self.training:
+            return F.silu(self.conv1(x) + self.conv2(x))
+        y = F.conv2d(x, self.fused_weight, None, 1, 1)
+        return bn_act(y, self._ones, self.fused_bias, self._zeros, self._ones, 0.0, True)
+
+
+class RepBottleneck(Bottleneck):
+    """A Bottleneck (expansion 1.0, 3x3 then 3x3, a shortcut) whose first
+    convolution is a RepConv."""
+
+    def __init__(self, c_in: int, features: int, shortcut: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(c_in, features, shortcut, 1.0, (3, 3), dtype=dtype)
+        self.cv1 = RepConv(c_in, features, dtype=dtype)
+
+
+class RepCSP(C3):
+    """A C3 (expansion 0.5) over n RepBottlenecks."""
+
+    def __init__(self, c_in: int, features: int, n: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(c_in, features, n, True, 0.5, dtype=dtype)
+        self.m = nn.ModuleList(RepBottleneck(self.hidden, self.hidden, dtype=dtype)
+                               for _ in range(n))
+
+
+class RepNCSPELAN4(nn.Module):
+    """YOLOv9's GELAN block: ``cv4(cat(a, b, cv2(b), cv3(cv2(b))))``, ``a``
+    and ``b`` the halves of ``cv1(x)``, cv2 and cv3 each a RepCSP of n units
+    then a 3x3 ConvBNAct."""
+
+    def __init__(self, c_in: int, c2: int, c3: int, c4: int, n: int = 2,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cv1 = ConvBNAct(c_in, c3, 1, dtype=dtype)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n, dtype=dtype),
+                                 ConvBNAct(c4, c4, 3, dtype=dtype))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n, dtype=dtype),
+                                 ConvBNAct(c4, c4, 3, dtype=dtype))
+        self.cv4 = ConvBNAct(c3 + 2 * c4, c2, 1, dtype=dtype)
+        self.widths = (c3 // 2, c3 // 2, c4, c4)
+
+    def forward(self, x, out=None, also=None):
+        cat = _Concat(_in_place(self, x), x, self.widths)
+        y = cat.put(0, self.cv1, x, keep=True, n=2)
+        y = cat.put(2, self.cv2, y, keep=True)
+        cat.put(3, self.cv3, y)
+        return self.cv4(cat.join(), out=out, also=also)
+
+
+class ADown(nn.Module):
+    """YOLOv9's downsampling: a 2x2 stride-1 average pool, then the first
+    half of the channels through a 3x3 stride-2 ConvBNAct and the second
+    through a 3x3 stride-2 max pool and a 1x1 ConvBNAct, concatenated."""
+
+    def __init__(self, c_in: int, c_out: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.hidden = c_out // 2
+        self.cv1 = ConvBNAct(c_in // 2, self.hidden, 3, 2, dtype=dtype)
+        self.cv2 = ConvBNAct(c_in // 2, self.hidden, 1, dtype=dtype)
+
+    def forward(self, x, out=None, also=None):
+        if also is not None:
+            raise ValueError("ADown: also is a store of a single piece")
+        in_place = _in_place(self, x)
+        x1, x2 = F.avg_pool2d(x, 2, 1, 0, False, True).chunk(2, 1)
+        x2 = F.max_pool2d(x2, 3, 2, 1)
+        cat = _Concat(in_place, x2, (self.hidden, self.hidden), buf=out)
+        cat.put(0, self.cv1, x1)
+        cat.put(1, self.cv2, x2)
+        return cat.join()
+
+
+class SPPELAN(nn.Module):
+    """A 1x1 ConvBNAct, three chained 5x5 max pools, a 1x1 over the four."""
+
+    def __init__(self, c_in: int, c_out: int, hidden: int, pool: int = 5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.pool = pool
+        self.cv1 = ConvBNAct(c_in, hidden, 1, dtype=dtype)
+        self.cv5 = ConvBNAct(4 * hidden, c_out, 1, dtype=dtype)
+
+    def forward(self, x, out=None, also=None):
+        ys = [self.cv1(x)]
+        p = self.pool
+        for _ in range(3):
+            ys.append(F.max_pool2d(ys[-1], p, stride=1, padding=p // 2))
+        return self.cv5(_cat(ys), out=out, also=also)
+
+
+class CBLinear(nn.Module):
+    """A 1x1 convolution with a bias (no BatchNorm), its output split into
+    the pieces of ``widths`` (views, no copy)."""
+
+    def __init__(self, c_in: int, widths: tuple[int, ...],
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype, self.widths = dtype, tuple(widths)
+        self.conv = nn.Conv2d(c_in, sum(widths), 1, bias=True, dtype=dtype)
+
+    def forward(self, x):
+        c = self.conv
+        return F.conv2d(x, c.weight.to(self.dtype), c.bias.to(self.dtype)).split(
+            self.widths, 1)
+
+
 class Proto(nn.Module):
     """Mask prototype head (from P3): conv, 2x transposed conv, conv, 1x1."""
 
@@ -644,7 +855,8 @@ class YoloSegOutputs:
 
 
 class YoloSeg(nn.Module):
-    """YOLOv8/11/12 segmentation model; images (B, 3, H, W) float in [0, 1].
+    """YOLOv8/9/11/12 segmentation model, the family and scale chosen by the
+    table ``ARCHS``; images (B, 3, H, W) float in [0, 1].
 
     ``dtype`` is the compute dtype of the convolutions; ``param_dtype`` (the
     compute dtype when None) the dtype their weights are stored in. The head's
@@ -657,11 +869,51 @@ class YoloSeg(nn.Module):
         super().__init__()
         self.arch, self.reg_max, self.dtype = arch, reg_max, dtype
         self.param_dtype = dtype if param_dtype is None else param_dtype
-        is_v11, is_v12, legacy = self.is_v11, self.is_v12, self.is_v11_legacy
-        letter = arch.replace("-legacy", "").replace("-seg", "")[-1]
-        s = (SCALES_11 if is_v11 else SCALES_12 if is_v12 else SCALES)[letter]
-        c3k = letter in C3K_SCALES
+        spec = arch_of(arch)
+        self.family = spec.family
+        if spec.family == "v9":
+            feats = self._build_gelan(dtype)
+        else:
+            feats = self._build_pan(spec, dtype)
         dt = dtype
+        c_box = max(16, feats[0] // 4, reg_max * 4)
+        c_cls = max(feats[0], min(num_classes, 100))
+        c_m = max(feats[0] // 4, num_masks)
+        heads = []
+        for f in feats:
+            box = [ConvBNAct(f, c_box, 3, dtype=dt),
+                   ConvBNAct(c_box, c_box, 3, dtype=dt),
+                   nn.Conv2d(c_box, 4 * reg_max, 1)]
+            if self.family in ("v11", "v12"):
+                cls = [ConvBNAct(f, f, 3, groups=f, dtype=dt),
+                       ConvBNAct(f, c_cls, 1, dtype=dt),
+                       ConvBNAct(c_cls, c_cls, 3, groups=c_cls, dtype=dt),
+                       ConvBNAct(c_cls, c_cls, 1, dtype=dt)]
+            else:
+                cls = [ConvBNAct(f, c_cls, 3, dtype=dt),
+                       ConvBNAct(c_cls, c_cls, 3, dtype=dt)]
+            cls.append(nn.Conv2d(c_cls, num_classes, 1))
+            mask = [ConvBNAct(f, c_m, 3, dtype=dt),
+                    ConvBNAct(c_m, c_m, 3, dtype=dt),
+                    nn.Conv2d(c_m, num_masks, 1)]
+            heads.append(nn.ModuleList(
+                [nn.ModuleList(box), nn.ModuleList(cls), nn.ModuleList(mask)]))
+        self.heads = nn.ModuleList(heads)
+        self.proto = Proto(feats[0], feats[0], num_masks, dtype=dt)
+        if self.param_dtype != dtype:
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+                        and m.weight.dtype == dtype:
+                    m.to(self.param_dtype)
+                elif isinstance(m, A2C2f) and m.gamma is not None:
+                    m.gamma.data = m.gamma.data.to(self.param_dtype)
+
+    def _build_pan(self, spec: Arch, dt: torch.dtype) -> list[int]:
+        """One backbone and the PAN neck (YOLOv8, YOLO11, YOLO12); returns
+        the head's widths."""
+        is_v11, is_v12, legacy = spec.family == "v11", spec.family == "v12", spec.legacy
+        letter, s = spec.letter, spec.scale
+        c3k = letter in C3K_SCALES
 
         def ch(c: int) -> int:
             return _round_ch(min(c, s.max_channels) * s.width)
@@ -750,47 +1002,42 @@ class YoloSeg(nn.Module):
         self.n4 = block(ch(256) + ch(512), ch(512), neck_n, False)
         self.d2 = ConvBNAct(ch(512), ch(512), 3, 2, dtype=dt)
         self.n5 = block(ch(512) + c_p5, ch(1024), neck_n, False, last=True)
+        return [ch(256), ch(512), ch(1024)]
 
-        feats = [ch(256), ch(512), ch(1024)]
-        c_box = max(16, feats[0] // 4, reg_max * 4)
-        c_cls = max(feats[0], min(num_classes, 100))
-        c_m = max(feats[0] // 4, num_masks)
-        heads = []
-        for f in feats:
-            box = [ConvBNAct(f, c_box, 3, dtype=dt),
-                   ConvBNAct(c_box, c_box, 3, dtype=dt),
-                   nn.Conv2d(c_box, 4 * reg_max, 1)]
-            if is_v11 or is_v12:
-                cls = [ConvBNAct(f, f, 3, groups=f, dtype=dt),
-                       ConvBNAct(f, c_cls, 1, dtype=dt),
-                       ConvBNAct(c_cls, c_cls, 3, groups=c_cls, dtype=dt),
-                       ConvBNAct(c_cls, c_cls, 1, dtype=dt)]
-            else:
-                cls = [ConvBNAct(f, c_cls, 3, dtype=dt),
-                       ConvBNAct(c_cls, c_cls, 3, dtype=dt)]
-            cls.append(nn.Conv2d(c_cls, num_classes, 1))
-            mask = [ConvBNAct(f, c_m, 3, dtype=dt),
-                    ConvBNAct(c_m, c_m, 3, dtype=dt),
-                    nn.Conv2d(c_m, num_masks, 1)]
-            heads.append(nn.ModuleList(
-                [nn.ModuleList(box), nn.ModuleList(cls), nn.ModuleList(mask)]))
-        self.heads = nn.ModuleList(heads)
-        self.proto = Proto(ch(256), ch(256), num_masks, dtype=dt)
-        if self.param_dtype != dtype:
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
-                        and m.weight.dtype == dtype:
-                    m.to(self.param_dtype)
-                elif isinstance(m, A2C2f) and m.gamma is not None:
-                    m.gamma.data = m.gamma.data.to(self.param_dtype)
+    def _build_gelan(self, dt: torch.dtype) -> list[int]:
+        """YOLOv9e's two GELAN backbones, the five CBLinears between them and
+        its neck, registered in the reference's creation order (the yaml's
+        layers 1-9, 10-14, 15-29, then 30-41); returns the head's widths."""
+        def gelan() -> list[nn.Module]:
+            layers = [ConvBNAct(3, 64, 3, 2, dtype=dt), ConvBNAct(64, 128, 3, 2, dtype=dt)]
+            c = 128
+            for i, (c2, c3, c4) in enumerate(GELAN_LEVELS):
+                if i:
+                    layers.append(ADown(c, c, dtype=dt))
+                layers.append(RepNCSPELAN4(c, c2, c3, c4, 2, dtype=dt))
+                c = c2
+            return layers
+
+        self.backbone = nn.ModuleList(gelan())
+        self.cblinear = nn.ModuleList(
+            CBLinear(c_in, CB_WIDTHS[:i + 1], dtype=dt)
+            for i, c_in in enumerate((64, 256, 512, 1024, 1024)))
+        self.backbone2 = nn.ModuleList(gelan() + [SPPELAN(1024, 512, 256, dtype=dt)])
+        self.h1 = RepNCSPELAN4(512 + 1024, 512, 512, 256, 2, dtype=dt)      # 32
+        self.n3 = RepNCSPELAN4(512 + 512, 256, 256, 128, 2, dtype=dt)       # 35, P3
+        self.d1 = ADown(256, 256, dtype=dt)
+        self.n4 = RepNCSPELAN4(256 + 512, 512, 512, 256, 2, dtype=dt)       # 38, P4
+        self.d2 = ADown(512, 512, dtype=dt)
+        self.n5 = RepNCSPELAN4(512 + 512, 512, 1024, 512, 2, dtype=dt)      # 41, P5
+        return [256, 512, 512]
 
     @property
     def is_v11(self) -> bool:
-        return "11" in self.arch
+        return self.family == "v11"
 
     @property
     def is_v12(self) -> bool:
-        return "12" in self.arch
+        return self.family == "v12"
 
     @property
     def is_v11_legacy(self) -> bool:
@@ -798,10 +1045,24 @@ class YoloSeg(nn.Module):
         checkpoint was trained with (no shortcut in the neck's C3k2, no c3k in
         the P5 neck block, SiLU on the attention's qkv, pe and proj and on the
         FFN's output)."""
-        return self.is_v11 and self.arch.endswith("-legacy")
+        return arch_of(self.arch).legacy
 
     def forward(self, images: torch.Tensor) -> YoloSegOutputs:
         x = images.to(self.dtype)
+        n3, n4, n5 = self._gelan(x) if self.family == "v9" else self._pan(x)
+        branches: list[list[torch.Tensor]] = [[], [], []]
+        for f, head in zip([n3, n4, n5], self.heads):
+            for out, branch in zip(branches, head):
+                y = f
+                for layer in branch[:-1]:
+                    y = layer(y)
+                out.append(branch[-1](y.float()))
+        return YoloSegOutputs(
+            box_logits=branches[0], cls_logits=branches[1], coeffs=branches[2],
+            protos=self.proto(n3).float(), strides=(8, 16, 32))
+
+    def _pan(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The backbone and the PAN neck: (n3, n4, n5)."""
         in_place = _in_place(self, x)
         c3, c4, c5, c_n3, c_h1 = self._widths
         # The PAN neck's four concatenations, [up(p5), p4] into h1, [up(h1),
@@ -829,17 +1090,55 @@ class YoloSeg(nn.Module):
         n4 = self.n4(to_n4.join())
         to_n5.put(0, self.d2, n4)
         n5 = self.n5(to_n5.join())
+        return n3, n4, n5
 
-        branches: list[list[torch.Tensor]] = [[], [], []]
-        for f, head in zip([n3, n4, n5], self.heads):
-            for out, branch in zip(branches, head):
-                y = f
-                for layer in branch[:-1]:
-                    y = layer(y)
-                out.append(branch[-1](y.float()))
-        return YoloSegOutputs(
-            box_logits=branches[0], cls_logits=branches[1], coeffs=branches[2],
-            protos=self.proto(n3).float(), strides=(8, 16, 32))
+    def _gelan(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """YOLOv9's two backbones and its neck: (n3, n4, n5). The first
+        backbone and the CBLinears run in the span ``program.segment.aux``;
+        each of the second backbone's five fusions (layers 16, 18, 21, 24
+        and 27) is one ``cb_fuse`` in a ``program.segment.cbfuse`` span. The
+        neck's four concatenations are made as the PAN neck's are, each at
+        the first tensor of its size: [up(p5), p4] into h1, [up(h1), p3]
+        into n3, [d1(n3), h1] into n4, [d2(n4), p5] into n5; P3 and P4 are
+        stored into them and, for the ADown that reads each, into a tensor
+        of their own from the same store."""
+        in_place = _in_place(self, x)
+        with spans.span("program.segment.aux"):
+            levels, y = [], x
+            for i, layer in enumerate(self.backbone):
+                y = layer(y)
+                if i % 2 == 0:                         # layers 1, 3, 5, 7, 9
+                    levels.append(y)
+            pieces = [cb(z) for cb, z in zip(self.cblinear, levels)]
+
+        def fuse(k: int, target: torch.Tensor) -> torch.Tensor:
+            with spans.span("program.segment.cbfuse"):
+                chosen = [p[k] for p in pieces[k:]]
+                return cb_fuse_plain(chosen, target) if self.training \
+                    else cb_fuse(chosen, target)
+
+        b = self.backbone2
+        c_p3, c_p4 = GELAN_LEVELS[1][0], GELAN_LEVELS[2][0]
+        c_p5 = b[-1].cv5.conv.out_channels
+        c_h1, c_n3 = self.h1.cv4.conv.out_channels, self.n3.cv4.conv.out_channels
+        y = fuse(1, b[1](fuse(0, b[0](x))))            # 15-18
+        y = fuse(2, b[3](b[2](y)))                     # 19-21
+        to_n3 = _Concat(in_place, y, (c_h1, c_p3))
+        y = fuse(3, b[5](to_n3.put(1, b[4], y, keep=True)))      # 22 (P3), 23, 24
+        to_h1 = _Concat(in_place, y, (c_p5, c_p4))
+        to_n4 = _Concat(in_place, y, (c_n3, c_h1))
+        y = fuse(4, b[7](to_h1.put(1, b[6], y, keep=True)))      # 25 (P4), 26, 27
+        to_n5 = _Concat(in_place, y, (c_h1, c_p5))
+        p5 = to_n5.put(1, b[9], b[8](y))               # 28, 29 (P5)
+        to_h1.upsample(0, p5)
+        h1 = to_n4.put(1, self.h1, to_h1.join())       # 30-32
+        to_n3.upsample(0, h1)
+        n3 = self.n3(to_n3.join())                     # 33-35
+        to_n4.put(0, self.d1, n3)
+        n4 = self.n4(to_n4.join())                     # 36-38
+        to_n5.put(0, self.d2, n4)
+        n5 = self.n5(to_n5.join())                     # 39-41
+        return n3, n4, n5
 
     def _level(self, cat: _Concat, i: int, x: torch.Tensor) -> torch.Tensor:
         """Backbone level ``i`` (P3 or P4) as the last piece of ``cat``, the

@@ -12,6 +12,9 @@ program they issue) opens a span at each layer boundary:
         program.payload
           program.segment.aattn   one a YOLO12 area-attention block, inside
                                   program.segment (16 a step at scale x)
+          program.segment.aux     YOLOv9's first backbone and its five
+                                  CBLinears, one a step
+          program.segment.cbfuse  one a YOLOv9 CBFuse, 5 a step
       readback    the payload's copy to pinned memory issued, its event
     retire      the step's host half after the card, with the same id
       wait        the host waiting for the payload's event
