@@ -278,6 +278,15 @@ result line:
              (ops/cuda_cb_fuse.py:cb_fuse_plain) in bf16 and float32, one
              launch; a step timed beside its bound by bytes, the twin and
              the plain chain (interpolate, stack, sum).
+27. adown    YOLOv9's ADown kernel (csrc/adown.cu: the 2x2 average pool,
+             the channel split and the 3x3 stride-2 max pool of the second
+             half in one pass): its launches read off the kernel's counter
+             in the same served step (8 a step); then the inputs of the 8
+             ADowns of a forward of that module on the step's frames, each
+             bit-equal to its twin (ops/cuda_adown.py:adown_pool_plain)
+             and to the ATen chain in bf16 and float32, with and without
+             NaN and infinities, one launch; each launch and a step timed
+             beside its bound by bytes, the twin and the ATen chain.
 
 It then prints the card's name and power limit, a JSON line describing each
 kernel, and last {"ok": true, "device": {...}}.
@@ -1703,34 +1712,21 @@ def bn_act_phase(torch, dev, frames, seg, cuda_bn_act) -> dict:
             "launches": launches, "err": err, "issue_ms": issue, "largest_ms": largest_ms}
 
 
-def cbfuse_phase(torch, dev, cuda_cb_fuse) -> dict:
-    """Phase 26: YOLOv9's fused CBFuse kernel on the served path, then alone
-    at the served shapes. One step of 8 streams of 1280x720 walkway frames
-    through ``BatchedStreamingServer`` (depth 2, engine ``exact_device``)
-    with ``ModelConfig(arch="yolov9e-seg", imgsz=640)`` (random weights),
-    its launches read off ``cuda_cb_fuse.launches`` after a warm step: 5, one
-    a fusion. Then the five fusions of one forward of that served module on
-    the step's frames letterboxed to 640 (channels_last), their pieces and
-    targets kept as the forward hands them (each piece a channel slice of
-    its CBLinear output). Each, bf16 and float32, bit-equal to the twin
-    (``cb_fuse_plain``) on the card, one launch; a step of five timed
-    (queued CUDA events, and the sum of its kernels' durations) beside its
-    bound by bytes (each piece and the target read once, the result written
-    once), the twin and the plain chain (Ultralytics' CBFuse: each piece
-    through ``F.interpolate`` to the target's size, a stack and a sum, in
-    bf16)."""
+def served_v9(torch, dev, counters) -> dict:
+    """One step of 8 streams of 1280x720 walkway frames through
+    ``BatchedStreamingServer`` (depth 2, engine ``exact_device``) with
+    ``ModelConfig(arch="yolov9e-seg", imgsz=640)`` (random weights), after a
+    warm step, each kernel module of ``counters`` reset just before it.
+    Returns the segmenter, the step's frames letterboxed to 640 (NHWC
+    permuted, so channels_last), and each counter's launches in the step."""
     import numpy as np
-    import torch.nn.functional as F
 
     from vision_assist_tpu_torch.config import ModelConfig, PathFinderConfig, PipelineConfig
     from vision_assist_tpu_torch.io.synthetic import walkway_frames
-    from vision_assist_tpu_torch.models import yolo
     from vision_assist_tpu_torch.models.inference import Segmenter
-    from vision_assist_tpu_torch.ops.cuda_cb_fuse import cb_fuse, cb_fuse_plain
     from vision_assist_tpu_torch.ops.letterbox import letterbox
     from vision_assist_tpu_torch.pipeline.multi_stream import MultiStreamProcessor
     from vision_assist_tpu_torch.pipeline.server import BatchedStreamingServer
-    from vision_assist_tpu_torch.utils.build import ptxas_entries
 
     h, w = 1280, 720
     seg = Segmenter(ModelConfig(arch="yolov9e-seg", imgsz=640),
@@ -1742,22 +1738,51 @@ def cbfuse_phase(torch, dev, cuda_cb_fuse) -> dict:
     server = BatchedStreamingServer(MultiStreamProcessor(cfg, segmenter=seg, device=dev),
                                     depth=2)
     served = len(server.feed(step, now_ms=0)) + len(server.drain())   # warm: builds, cuDNN
-    cuda_cb_fuse.reset_launches()
+    for mod in counters:
+        mod.reset_launches()
     served += len(server.feed(step, now_ms=33)) + len(server.drain())
     torch.cuda.synchronize()
-    launches = cuda_cb_fuse.launches
+    launches = {mod.__name__.rsplit(".", 1)[-1]: mod.launches for mod in counters}
     server.msp.close()
-    if served != 2 or launches != 5:
+    if served != 2:
+        raise AssertionError(f"served_v9: {served} steps answered, not 2")
+    log(f"phase v9 served: one step of {N_FRAMES} streams of {h}x{w} through "
+        f"BatchedStreamingServer with yolov9e-seg@640, launches in it: "
+        + ", ".join(f"{name} {n}" for name, n in launches.items()))
+    images = letterbox(torch.from_numpy(step).to(dev), dst=640).permute(0, 3, 1, 2)
+    return {"seg": seg, "images": images, "launches": launches}
+
+
+def cbfuse_phase(torch, dev, cuda_cb_fuse, v9) -> dict:
+    """Phase 26: YOLOv9's fused CBFuse kernel on the served path, then alone
+    at the served shapes. Its launches in the step ``served_v9`` served,
+    read off ``cuda_cb_fuse.launches``: 5, one a fusion. Then the five
+    fusions of one forward of that served module on the step's frames
+    letterboxed to 640 (channels_last), their pieces and targets kept as the
+    forward hands them (each piece a channel slice of its CBLinear output).
+    Each, bf16 and float32, bit-equal to the twin (``cb_fuse_plain``) on the
+    card, one launch; a step of five timed (queued CUDA events, and the sum
+    of its kernels' durations) beside its bound by bytes (each piece and the
+    target read once, the result written once), the twin and the plain chain
+    (Ultralytics' CBFuse: each piece through ``F.interpolate`` to the
+    target's size, a stack and a sum, in bf16)."""
+    import torch.nn.functional as F
+
+    from vision_assist_tpu_torch.models import yolo
+    from vision_assist_tpu_torch.ops.cuda_cb_fuse import cb_fuse, cb_fuse_plain
+    from vision_assist_tpu_torch.utils.build import ptxas_entries
+
+    seg, images = v9["seg"], v9["images"]
+    launches = v9["launches"]["cuda_cb_fuse"]
+    if launches != 5:
         raise AssertionError(f"cbfuse: {launches} launches in a served step of "
-                             f"{N_FRAMES} streams, not 5 ({served} steps answered)")
-    log(f"phase cbfuse served: one step of {N_FRAMES} streams of {h}x{w} through "
-        f"BatchedStreamingServer with yolov9e-seg@640, {launches} cb_fuse launches "
+                             f"{N_FRAMES} streams, not 5")
+    log(f"phase cbfuse served: {launches} cb_fuse launches in the served step "
         "(cuda_cb_fuse.launches)")
     log("phase cbfuse kernels (registers, stack frame B, spill stores/loads B): " + ", ".join(
         f"{e['name']} {e['registers']} {e['stack']} {e['spill_stores']}/{e['spill_loads']}"
         for e in ptxas_entries(cuda_cb_fuse.build_log)))
 
-    images = letterbox(torch.from_numpy(step).to(dev), dst=640).permute(0, 3, 1, 2)
     calls, plain = [], yolo.cb_fuse
 
     def keep(pieces, target):
@@ -1824,6 +1849,135 @@ def cbfuse_phase(torch, dev, cuda_cb_fuse) -> dict:
     return {"ms": ms, "kernels_ms": sums["kernel"], "plain_ms": sums["twin"],
             "library_ms": sums["chain"], "library_queued_ms": chain_queued_ms,
             "bound_ms": bound_ms, "each_ms": each, "launches": launches, "err": err}
+
+
+def adown_phase(torch, dev, v9) -> dict:
+    """Phase 27: YOLOv9's ADown kernel (the 2x2 average pool, the channel
+    split and the 3x3 stride-2 max pool of the second half in one pass) on
+    the served path, then alone at the served shapes. Its launches in the
+    step ``served_v9`` served, read off ``cuda_adown.launches``: 8, one an
+    ADown. Then the inputs of the 8 ADowns of one forward of that served
+    module on the step's 8 letterboxed frames, kept as the forward hands
+    them. At each, in bf16 and float32, and with NaN, infinities and signed
+    zeros written over some of its values, the kernel's two results bit-equal
+    to the twin's (``adown_pool_plain``) and to the ATen chain's (the average
+    pool, its halves as views, the max pool of the second) on the card, one
+    launch; the largest difference is the comparison's own. Each launch
+    timed (queued CUDA events, back to back on the same input, so an input
+    under the 50 MB L2 is read warm) beside its bound by bytes (the input
+    read once, both results written once), the twin's and the chain's; a
+    step of the 8 timed the same way and as the sum of its kernels'
+    durations."""
+    import torch.nn.functional as F
+
+    from vision_assist_tpu_torch.models import yolo
+    from vision_assist_tpu_torch.ops import cuda_adown
+    from vision_assist_tpu_torch.ops.cuda_adown import (
+        adown_pool,
+        adown_pool_plain,
+        pooled_shapes,
+    )
+    from vision_assist_tpu_torch.utils.build import ptxas_entries
+
+    seg, images = v9["seg"], v9["images"]
+    launches = v9["launches"]["cuda_adown"]
+    if launches != 8:
+        raise AssertionError(f"adown: {launches} launches in a served step of "
+                             f"{N_FRAMES} streams, not 8")
+    log(f"phase adown served: {launches} adown_pool launches in the served step "
+        "(cuda_adown.launches)")
+    log("phase adown kernels (registers, stack frame B, spill stores/loads B): " + ", ".join(
+        f"{e['name']} {e['registers']} {e['stack']} {e['spill_stores']}/{e['spill_loads']}"
+        for e in ptxas_entries(cuda_adown.build_log)))
+
+    inputs, plain = [], yolo.adown_pool
+
+    def keep(x):
+        inputs.append(x)
+        return plain(x)
+
+    yolo.adown_pool = keep
+    try:
+        with torch.no_grad():
+            seg.model(images)
+    finally:
+        yolo.adown_pool = plain
+    torch.cuda.synchronize()
+    if len(inputs) != 8:
+        raise AssertionError(f"adown: {len(inputs)} ADowns in a forward, not 8")
+
+    def chain(x):
+        a, b = F.avg_pool2d(x, 2, 1, 0, False, True).chunk(2, 1)
+        return a, F.max_pool2d(b, 3, 2, 1)
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
+
+    def specials(x):
+        """``x`` with NaN, both infinities and signed zeros over about 1 in
+        100 of its values each, at seeded places."""
+        g = torch.Generator(device=x.device).manual_seed(27)
+        pick = torch.randint(0, 100, x.shape, generator=g, device=x.device)
+        y = x.clone()
+        for k, v in enumerate([float("nan"), float("inf"), -float("inf"), -0.0, 0.0]):
+            y[pick == k] = v
+        return y
+
+    err, checked = 0.0, 0
+    for x in inputs:
+        for case in (x, x.float(), specials(x), specials(x.float())):
+            cuda_adown.reset_launches()
+            got = adown_pool(case)
+            torch.cuda.synchronize()
+            if cuda_adown.launches != 1:
+                raise AssertionError(f"adown: {cuda_adown.launches} launches for one call")
+            for name, want in (("twin", adown_pool_plain(case)), ("chain", chain(case))):
+                for g, w in zip(got, want):
+                    if g.shape != w.shape or not torch.equal(bits(g), bits(w)):
+                        raise AssertionError(f"adown_pool differs from the {name} at "
+                                             f"{tuple(case.shape)} {case.dtype}")
+                    finite = w.isfinite()
+                    if finite.any():
+                        err = max(err, float((g.float() - w.float())[finite].abs().max()))
+            checked += 1
+
+    def n_bytes(x):
+        """The input read once, both results written once."""
+        return (x.numel() + sum(math.prod(s) for s in pooled_shapes(x.shape))) \
+            * x.element_size()
+
+    bounds = [n_bytes(x) / HBM_BYTES_PER_S * 1e3 for x in inputs]
+    each = [cuda_ms(lambda x=x: adown_pool(x), reps=50, queued=True) for x in inputs]
+    each_twin = [cuda_ms(lambda x=x: adown_pool_plain(x), reps=20, queued=True) for x in inputs]
+    each_chain = [cuda_ms(lambda x=x: chain(x), reps=20, queued=True) for x in inputs]
+
+    def kernel_step():
+        return [adown_pool(x) for x in inputs]
+
+    def twin_step():
+        return [adown_pool_plain(x) for x in inputs]
+
+    def chain_step():
+        return [chain(x) for x in inputs]
+
+    ms = cuda_ms(kernel_step, reps=20, queued=True)
+    sums = {name: kernels_ms(fn) for name, fn in
+            (("kernel", kernel_step), ("twin", twin_step), ("chain", chain_step))}
+    bound_ms = sum(bounds)
+    log(f"phase adown: the 8 ADowns of a yolov9e-seg@640 step on {N_FRAMES} frames "
+        f"({sum(n_bytes(x) for x in inputs)} B), {checked} inputs (bf16, float32, each with "
+        "and without NaN and infinities) bit-equal to the twin and to the ATen chain, one "
+        f"launch each, largest difference {err}")
+    for x, m, b, t, c in zip(inputs, each, bounds, each_twin, each_chain):
+        log(f"phase adown {tuple(x.shape[1:])}: {m:.5f} ms queued, bound by bytes {b:.5f} "
+            f"({100 * b / m:.1f} %), twin {t:.5f}, ATen chain {c:.5f}")
+    log(f"phase adown step of 8 launches, device ms: kernel {ms:.5f} queued, "
+        f"{sums['kernel']:.5f} in its kernels; bound by bytes {bound_ms:.5f} "
+        f"({100 * bound_ms / sums['kernel']:.1f} % of it); the twin {sums['twin']:.5f} in its "
+        f"kernels; the ATen chain {sums['chain']:.5f} in its kernels")
+    return {"ms": ms, "kernels_ms": sums["kernel"], "plain_ms": sums["twin"],
+            "library_ms": sums["chain"], "bound_ms": bound_ms, "each_ms": each,
+            "launches": launches, "err": err}
 
 
 def epilogue_inputs(torch, model, run) -> list:
@@ -3562,9 +3716,16 @@ def main() -> int:
     t10 = time.perf_counter()
     log(f"phase bn_act took {t10 - t9:.1f} s")
 
-    # -- 26. cbfuse ----------------------------------------------------------------
-    cb_run = cbfuse_phase(torch, dev, cuda_cb_fuse)
-    log(f"phase cbfuse took {time.perf_counter() - t10:.1f} s")
+    # -- 26. cbfuse, 27. adown -----------------------------------------------------
+    from vision_assist_tpu_torch.ops import cuda_adown
+
+    v9 = served_v9(torch, dev, [cuda_cb_fuse, cuda_adown])
+    cb_run = cbfuse_phase(torch, dev, cuda_cb_fuse, v9)
+    t11 = time.perf_counter()
+    log(f"phase cbfuse took {t11 - t10:.1f} s")
+    ad_run = adown_phase(torch, dev, v9)
+    del v9
+    log(f"phase adown took {time.perf_counter() - t11:.1f} s")
 
     # -- 24. large -----------------------------------------------------------------
     large_run = large_phase(torch, dev, turn, cuda_wavefront, cuda_sweep, cuda_astar)
@@ -3674,6 +3835,23 @@ def main() -> int:
         "library_ms": cb_run["library_ms"],
         "ms_in_kernels": cb_run["kernels_ms"],
         "library_queued_ms": cb_run["library_queued_ms"],
+    }, {
+        # YOLOv9's ADown pools; replaces no JAX code (the JAX package has no
+        # YOLOv9); times are a step of the 8 ADowns on 8 frames, the library
+        # call the ATen chain (average pool, split views, max pool).
+        "name": "adown_pool",
+        "route": "cuda",
+        "source": "vision_assist_tpu_torch/csrc/adown.cu",
+        "replaces": None,
+        "launches_phase": ad_run["launches"],
+        "max_abs_err": ad_run["err"],
+        "ms": ad_run["ms"],
+        "plain_ms": ad_run["plain_ms"],
+        "bound_ms": ad_run["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ad_run["library_ms"],
+        "ms_in_kernels": ad_run["kernels_ms"],
+        "each_ms": ad_run["each_ms"],
     }, {
         # Replaces the compiled JAX loop relax_sweep (lax.while_loop over
         # passes of associative scans), not a Pallas kernel.

@@ -21,7 +21,8 @@ scale is the leaf ``A2C2f_k/gamma``. And YOLOv9e-seg (arXiv:2402.13616,
 backbone and a PAN neck: two GELAN backbones (:class:`RepNCSPELAN4`,
 :class:`ADown`, :class:`SPPELAN`), five :class:`CBLinear` convolutions on
 the first one's levels, and five CBFuse sums into the second's stages, each
-one ``cb_fuse`` operator (``ops/cuda_cb_fuse.py``); its :class:`RepConv`
+one ``cb_fuse`` operator (``ops/cuda_cb_fuse.py``); each ADown's pools one
+``adown_pool`` operator (``ops/cuda_adown.py``); its :class:`RepConv`
 runs folded in eval mode; the YOLOv8 head on widths 256, 512 and 512.
 
 Flax's ``padding="SAME"`` pads (0, 1) on a stride-2 3x3 convolution at an
@@ -61,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from vision_assist_tpu_torch.ops.cuda_adown import adown_pool, adown_pool_plain
 from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into
 from vision_assist_tpu_torch.ops.cuda_cb_fuse import cb_fuse, cb_fuse_plain
 from vision_assist_tpu_torch.utils import spans
@@ -770,7 +772,10 @@ class RepNCSPELAN4(nn.Module):
 class ADown(nn.Module):
     """YOLOv9's downsampling: a 2x2 stride-1 average pool, then the first
     half of the channels through a 3x3 stride-2 ConvBNAct and the second
-    through a 3x3 stride-2 max pool and a 1x1 ConvBNAct, concatenated."""
+    through a 3x3 stride-2 max pool and a 1x1 ConvBNAct, concatenated. The
+    pools and the split are one ``adown_pool`` operator in eval mode
+    (``ops/cuda_adown.py``: one kernel launch on the card) and its plain
+    twin in train mode."""
 
     def __init__(self, c_in: int, c_out: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -782,8 +787,7 @@ class ADown(nn.Module):
         if also is not None:
             raise ValueError("ADown: also is a store of a single piece")
         in_place = _in_place(self, x)
-        x1, x2 = F.avg_pool2d(x, 2, 1, 0, False, True).chunk(2, 1)
-        x2 = F.max_pool2d(x2, 3, 2, 1)
+        x1, x2 = adown_pool_plain(x) if self.training else adown_pool(x)
         cat = _Concat(in_place, x2, (self.hidden, self.hidden), buf=out)
         cat.put(0, self.cv1, x1)
         cat.put(1, self.cv2, x2)
