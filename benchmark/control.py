@@ -9,18 +9,19 @@ matmul operand rounded to float8 e4m3 (the configuration states bf16), held
 against the float32 reference on the cell's frame pool: by its detections
 (``conf_gap``, ``occ_share``, ``ndet_gap``) for trained weights, by its head
 outputs (``head_gap``) for seeded ones. For seeded weights the chain after
-the model (decode, NMS, masks, the lattice; float32 in the program) has a
-control of its own, which sets the upper readings of its three numbers
-there: that chain with each stage's results rounded to bfloat16, on the
-float32 reference's head outputs, held against the float32 chain on the
-same outputs. The planner's
-control is the reference planner with its penalty field and path costs
-rounded one step below the engine's precision (float32 for the host
-engine's float64, bfloat16 for the device A*'s float32), held against the
-float64 planner, each stream through its frames in order, from the float32
-reference's lattices. Prints one JSON line a seed; the weights are made
-once a process. The benchmark's own runs never run it; it sets the upper
-readings the limits in ``benchmark/limits/`` are chosen under.
+the model (decode, NMS, masks, the lattice for an instance head; the
+sampled logits and the lattice for a per-pixel one; float32 in the
+program) has a control of its own, which sets the upper readings of its
+three numbers there: that chain with each stage's results rounded to
+bfloat16, on the float32 reference's head outputs, held against the
+float32 chain on the same outputs. The planner's control is the reference
+planner with its penalty field and path costs rounded one step below the
+engine's precision (float32 for the host engine's float64, bfloat16 for
+the device A*'s float32), held against the float64 planner, each stream
+through its frames in order, from the float32 reference's lattices. Prints
+one JSON line a seed; the weights are made once a process. The
+benchmark's own runs never run it; it sets the upper readings the limits
+in ``benchmark/limits/`` are chosen under.
 """
 
 import argparse
@@ -63,6 +64,7 @@ def control_numbers(root, cell, seed: int, device, variables=None) -> dict:
     """The control's numbers on the pool of ``seed``, with the weights
     ``variables`` (the configuration's own where None)."""
     from benchmark.harness.check import (
+        conf_threshold,
         head_gap,
         planner_numbers,
         reference_segmentation,
@@ -96,7 +98,7 @@ def control_numbers(root, cell, seed: int, device, variables=None) -> dict:
                                   p.penalty, p.peaks, p.paths, p.answer))
         return out
 
-    conf = cell.config["conf_threshold"], cell.limits["conf_gap"]
+    conf = conf_threshold(cell.config), cell.limits["conf_gap"]
     if heads:
         numbers = {"head_gap": head_gap([s.heads for s in low], [s.heads for s in ref])}
         low = reference_segmentation(root, cell.config, variables, pool, device,

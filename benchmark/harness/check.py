@@ -3,12 +3,17 @@ held against the plain reference (``benchmark/reference``).
 
 Segmenter: the reference runs its float32 chain on the pool's frames, and
 each served frame's detections, best confidence and occupancy lattice are
-held against its frame's. Whether a frame has a detection at all is a
-threshold on a score, and bf16 moves scores by up to ``conf_gap``'s limit:
-where the reference's highest score lies that close to the threshold and
-the two sides land on either side of it, the frame's segmentation is not
-compared. Everywhere else a frame detected on one side only reads as its
-full confidence gap and its whole lattice differing.
+held against its frame's. The chain after the model is the configuration's
+head kind's (``reference.segment.chain_for``): an instance head (YOLO-seg;
+``"head": "instance"`` or no key) is decoded, suppressed and masked, a
+per-pixel head (``"head": "semantic"``) has its class logits sampled at
+the cell centres. For an instance head, whether a frame has a detection at
+all is a threshold on a score, and bf16 moves scores by up to
+``conf_gap``'s limit: where the reference's highest score lies that close
+to the threshold and the two sides land on either side of it, the frame's
+segmentation is not compared. Everywhere else, and for a per-pixel head,
+which has no threshold, on every frame, a frame detected on one side only
+reads as its full confidence gap and its whole lattice differing.
 
 Planner and answer: the reference follows
 each stream in frame order from the program's own lattice (the lattice is
@@ -21,31 +26,37 @@ equals the reference's own, the frame is checked from the frame to the
 answer; where it differs, ``occ_share`` judges the difference.
 
 A configuration with seeded weights (``harness/weights.py``) has no
-trained detector: its scores crowd the threshold, and a bf16 model and a
-float32 one part on which anchors pass it. So its model is judged before
-the threshold, by ``head_gap``, and what follows the model on the timed
-path (decode, the NMS, masks, the lattice) from the program's own head
-outputs: after the window the served module runs once on each step's
-frames (``serve.served_outputs``), the reference's chain after the model
-(``reference.segment.ReferenceChain``) takes its outputs, and each
-answered frame's detections, best confidence and lattice are held against
-that of its step and stream, by the three numbers a trained configuration
-uses. The planner numbers hold as for a trained one.
+trained detector: its scores crowd the threshold (its class logits crowd
+one another), and a bf16 model and a float32 one part on which anchors
+pass it (which class wins a cell). So its model is judged before the
+threshold, by ``head_gap``, and what follows the model on the timed path
+(decode, the NMS, masks, the lattice; or the sampled logits, the lattice)
+from the program's own head outputs: after the window the served module
+runs once on each step's frames (``serve.served_outputs``), the
+reference's chain after the model (``reference.segment.chain_for``) takes
+its outputs, and each answered frame's detections, best confidence and
+lattice are held against that of its step and stream, by the three
+numbers a trained configuration uses. The planner numbers hold as for a
+trained one.
 
 The numbers, each with its limit from ``benchmark/limits/<cell>.json``:
 
-* ``head_gap`` (seeded weights only): for each of the four head outputs
-  (box logits, class logits, mask coefficients, prototypes) and each pool
-  frame, the largest |program - reference| over the reference's RMS there;
-  the largest of these. The program's side is the served module run after
-  the window on the steps' frames (``serve.served_outputs``);
+* ``head_gap`` (seeded weights only): for each head output (an instance
+  head's box logits, class logits, mask coefficients and prototypes; a
+  per-pixel head's logits) and each pool frame, the largest |program -
+  reference| over the reference's RMS there; the largest of these. The
+  program's side is the served module run after the window on the steps'
+  frames (``serve.served_outputs``);
 * ``conf_gap``: the largest |best confidence - the reference's| (0 where
-  a side has no detection);
+  a side has no detection; for a per-pixel head, the winning walkable
+  class's probability at the most confident occupied cell);
 * ``occ_share``: lattice cells whose occupancy differs, over all compared
   frames, in % of the cells the reference occupies there. A per-frame
   worst case swings: the mask is cropped to its box, so a box edge that
-  moves by a fraction of a pixel flips a cell whatever the precision;
-* ``ndet_gap``: the largest |detections - the reference's|;
+  moves by a fraction of a pixel flips a cell whatever the precision (and
+  two classes whose sampled logits lie close part on any rounding);
+* ``ndet_gap``: the largest |detections - the reference's| (for a
+  per-pixel head 1 where one side occupies a cell and the other none);
 * ``plan_frames``: frames whose walkable or artificial cells, peaks or path
   cells differ from the reference's;
 * ``answer_frames``: frames whose answer differs;
@@ -67,7 +78,7 @@ import numpy as np
 import torch
 
 from benchmark.harness.weights import seeded
-from benchmark.reference.segment import HEADS, ExactFloat32, ReferenceChain
+from benchmark.reference.segment import HEADS, ExactFloat32, chain_for, head_kind
 
 NUMBERS = ("conf_gap", "occ_share", "ndet_gap", "plan_frames", "answer_frames",
            "field_gap", "cost_gap", "state_gap", "missing")
@@ -77,6 +88,11 @@ SEEDED_NUMBERS = ("head_gap",) + NUMBERS
 def numbers_of(config: dict) -> tuple:
     """The numbers that judge a configuration's cells."""
     return SEEDED_NUMBERS if seeded(config) else NUMBERS
+
+
+def conf_threshold(config: dict) -> float | None:
+    """An instance head's confidence threshold; None for a per-pixel head."""
+    return config["conf_threshold"] if head_kind(config) == "instance" else None
 
 
 def reference_segmentation(root, config: dict, variables: dict, pool: np.ndarray, device,
@@ -102,12 +118,15 @@ def served_segmentation(config: dict, frame_hw, served, device) -> tuple[dict, d
     outputs), ``serve.served_outputs``): ({(step, stream): SegOut}, {pool
     index: the program's flat head outputs there, from the first step that
     serves it})."""
-    chain = ReferenceChain(config, frame_hw, device)
+    chain = chain_for(config, frame_hw, device)
     segs, heads = {}, {}
     for step, indices, outs in served:      # the program's pass, outside the block
-        outs = types.SimpleNamespace(
-            strides=outs.strides, protos=outs.protos.float(),
-            **{h: [x.float() for x in getattr(outs, h)] for h in HEADS[:3]})
+        if head_kind(config) == "semantic":
+            outs = types.SimpleNamespace(logits=outs.logits.float())
+        else:
+            outs = types.SimpleNamespace(
+                strides=outs.strides, protos=outs.protos.float(),
+                **{h: [x.float() for x in getattr(outs, h)] for h in HEADS[:3]})
         with ExactFloat32():
             ref = chain.segment(outs, heads=True)
         for stream, (i, seg) in enumerate(zip(indices, ref, strict=True)):
@@ -118,7 +137,8 @@ def served_segmentation(config: dict, frame_hw, served, device) -> tuple[dict, d
 
 def head_gap(program: list, reference: list) -> float:
     """The largest |program - reference| over the reference's RMS, over
-    each frame's four flat head outputs."""
+    each frame's flat head outputs (an instance head's four, a per-pixel
+    head's logits)."""
     gap = 0.0
     for mine, theirs in zip(program, reference, strict=True):
         for p, r in zip(mine, theirs, strict=True):
@@ -127,13 +147,15 @@ def head_gap(program: list, reference: list) -> float:
     return gap
 
 
-def segmenter_numbers(answers, refs, conf_threshold: float, conf_limit: float) -> dict:
+def segmenter_numbers(answers, refs, conf_threshold: float | None,
+                      conf_limit: float) -> dict:
     """Each answer held against its reference SegOut, ``refs`` in the
-    answers' order."""
+    answers' order; ``conf_threshold`` None (a per-pixel head, which has
+    none) skips no frame."""
     conf = 0.0
     ndet = differ = occupied = 0
     for a, r in zip(answers, refs, strict=True):
-        if (a.n_detections > 0) != (r.n_detections > 0) \
+        if conf_threshold is not None and (a.n_detections > 0) != (r.n_detections > 0) \
                 and abs(r.top_score - conf_threshold) <= conf_limit:
             continue
         conf = max(conf, abs(a.best_conf - r.best_conf))
@@ -200,7 +222,7 @@ def check(root, cell, pool, variables, answers, attempted: int, device, state, s
         refs = [by_step[a.seq % len(pool), a.stream] for a in answers]
     else:
         numbers, refs = {}, [seg[a.pool_index] for a in answers]
-    numbers.update(segmenter_numbers(answers, refs, cell.config["conf_threshold"],
+    numbers.update(segmenter_numbers(answers, refs, conf_threshold(cell.config),
                                      cell.limits["conf_gap"]))
     numbers.update(planner_numbers(
         answers, (cell.traffic["frame_height"], cell.traffic["frame_width"]),

@@ -59,18 +59,21 @@ def memory_form(previous: dict) -> dict:
     return {int(ts): [form(i) for i in ins] for ts, ins in previous.items()}
 
 
+def model_config(config: dict):
+    """The port's ``ModelConfig`` of a configuration: each of its keys that
+    names a field of ``ModelConfig``, the field's default for the others."""
+    from vision_assist_tpu_torch.config import ModelConfig
+
+    return ModelConfig(**{f.name: config[f.name] for f in dataclasses.fields(ModelConfig)
+                          if f.name in config})
+
+
 def build_segmenter(config: dict, traffic: dict, variables: dict, device):
     """The port's segmenter with the configuration's weights, the Flax tree
     ``variables`` (``harness.weights.flax_tree``)."""
-    from vision_assist_tpu_torch.config import ModelConfig
     from vision_assist_tpu_torch.models.inference import Segmenter
 
-    mcfg = ModelConfig(
-        arch=config["arch"], num_classes=config["num_classes"], imgsz=config["imgsz"],
-        conf_threshold=config["conf_threshold"], iou_threshold=config["iou_threshold"],
-        max_detections=config["max_detections"], reg_max=config["reg_max"],
-        num_mask_coeffs=config["num_mask_coeffs"], dtype=config["dtype"])
-    return Segmenter(mcfg, variables=variables,
+    return Segmenter(model_config(config), variables=variables,
                      example_hw=(traffic["frame_height"], traffic["frame_width"]),
                      grid_size=config["grid_size"], device=device)
 

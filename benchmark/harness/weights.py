@@ -3,7 +3,10 @@ arrays ({"params", "batch_stats"}) that the port and the plain reference
 both load. A configuration gives either a trained file
 (``"weights": "<path under the checkout>"``) or a seed
 (``"weights": {"seed": <int>}``), for an architecture with no trained
-weights in the repository."""
+weights in the repository. The draw knows convolutions, Linear layers,
+BatchNorms and LayerNorms, so it serves a model of either head kind: an
+instance head's (YOLO-seg) and a per-pixel head's (a transformer encoder
+with an MLP decoder)."""
 
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ def _flax_shape(shape: tuple, layout: str) -> tuple:
         return (shape[2], shape[3], shape[1], shape[0])
     if layout == "conv_transpose":        # (in, out, kh, kw) -> (kh, kw, in, out)
         return (shape[2], shape[3], shape[0], shape[1])
+    if layout == "dense":                 # (out, in) -> (in, out)
+        return (shape[1], shape[0])
     return shape
 
 
@@ -46,11 +51,15 @@ def draw(arch, config: dict, seed: int, device) -> dict:
     from ``seed``: each leaf of ``arch.flax_leaves`` in creation order takes
     the next numbers of one of two streams, made on ``device`` by a
     ``torch.Generator`` seeded with ``seed`` in two calls (the same seed
-    gives the same tree on one kind of device):
+    gives the same tree on one kind of device). A leaf's layout says how
+    its tensor lies in Flax: "conv" (HWIO), "conv_transpose" (kh, kw, in,
+    out), "dense" (a Linear's kernel, (in, out) in Flax and (out, in) in
+    torch), "layer_norm" (a LayerNorm's scale), "same" (one array).
 
     * a kernel ("kernel"): N(0, 1 / fan_in), fan_in the taps a
       convolution's output sums (kh * kw * input channels of its group; a
-      transposed convolution's input channels, its kernel being its stride);
+      transposed convolution's input channels, its kernel being its stride;
+      a Linear's input features);
     * a bias ("bias"): N(0, NORMAL_SD**2);
     * a BatchNorm's scale ("scale"): U(*SCALE);
     * a BatchNorm's running statistics ("mean", "var"): its channel's mean
@@ -58,7 +67,10 @@ def draw(arch, config: dict, seed: int, device) -> dict:
       variance times U(0.5, 1.5), the channel's mean and variance taken on
       ``CALIBRATION_FRAMES`` walkway frames of the model's input size drawn
       from ``seed``, through the model with every BatchNorm before it so set;
-    * any other leaf: U(0.5, 1.5).
+    * any other leaf, a LayerNorm's scale ("scale", layout "layer_norm")
+      among them: U(0.5, 1.5). At a BatchNorm's small scale each residual
+      branch of a pre-norm transformer would shrink to about a tenth, and
+      the model would come close to the identity.
 
     So every BatchNorm is far from the identity and its whole arithmetic
     shows in the output, and yet each scales its channels to a set size, as
@@ -95,7 +107,7 @@ def draw(arch, config: dict, seed: int, device) -> dict:
                 sd = 1.0 / math.sqrt(fan_in)
             value, iz = z[iz:iz + n] * sd, iz + n
         else:
-            lo, hi = SCALE if path[-1] == "scale" else (0.5, 1.5)
+            lo, hi = SCALE if path[-1] == "scale" and layout != "layer_norm" else (0.5, 1.5)
             value, iu = lo + (hi - lo) * u[iu:iu + n], iu + n
         _put(tree, path, value.reshape(shape).astype(np.float32))
     model = model.to_empty(device=device).eval()

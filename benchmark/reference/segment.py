@@ -1,13 +1,22 @@
 """The segmenter's reference chain, plain float32 PyTorch and numpy: camera
-frame -> I420 wire -> letterbox -> YOLO-seg -> DFL decode -> greedy NMS ->
-masks -> the winning mask sampled at every cell centre -> occupancy lattice.
+frame -> I420 wire -> letterbox -> the model -> the chain after the model
+-> occupancy lattice. The chain after the model depends on the
+configuration's head kind (its key ``"head"``):
+
+* ``"instance"`` (or no key), a YOLO-seg head: DFL decode -> greedy NMS ->
+  masks -> the winning mask sampled at every cell centre
+  (``ReferenceChain``);
+* ``"semantic"``, a per-pixel class head whose model returns ``logits`` of
+  shape (S, K, h, w): every class's logit sampled at every cell centre, the
+  cell occupied where the first of the largest is one of the
+  configuration's ``walkable_classes`` (``SemanticChain``).
 
 Frozen copies of the port's ``ops/yuv.py`` (host packer and device unpack),
 ``ops/letterbox.py``, ``models/decode.py`` (the plain NMS) and
 ``models/inference.py``'s chain, in float32 with TF32 off. The NMS is the
-stable sort and the greedy loop, one step a candidate. ``ReferenceChain``
-is the chain after the model, which also takes the program's own head
-outputs.
+stable sort and the greedy loop, one step a candidate. ``chain_for`` gives
+the chain after the model of a configuration, which also takes the
+program's own head outputs.
 """
 
 from __future__ import annotations
@@ -160,28 +169,39 @@ def nms(boxes, cls_logits, coeffs, conf: float, iou: float, max_cand: int, max_d
             kept, valid.sum(-1), best.max(dim=-1).values)
 
 
-HEADS = ("box_logits", "cls_logits", "coeffs", "protos")
+HEADS = ("box_logits", "cls_logits", "coeffs", "protos")     # an instance head's outputs
+LOGITS = ("logits",)                                          # a per-pixel head's
 
 
-def flat_heads(outs) -> list[torch.Tensor]:
-    """The four head outputs of a batch, each (B, N) float32 on the host: the
-    levels of the box logits, class logits and mask coefficients laid end
-    to end, and the prototypes."""
+def head_kind(config: dict) -> str:
+    """A configuration's head kind: ``"instance"`` where it names none."""
+    kind = config.get("head", "instance")
+    if kind not in ("instance", "semantic"):
+        raise ValueError(f"no head kind {kind!r}")
+    return kind
+
+
+def flat_heads(outs, names=HEADS) -> list[torch.Tensor]:
+    """The head outputs ``names`` of a batch, each (B, N) float32 on the
+    host: an output given as levels laid end to end (an instance head's box
+    logits, class logits and mask coefficients), the others flattened."""
     def flat(x):
         xs = x if isinstance(x, (list, tuple)) else [x]
         return torch.cat([t.float().flatten(1) for t in xs], dim=1).cpu()
-    return [flat(getattr(outs, h)) for h in HEADS]
+    return [flat(getattr(outs, h)) for h in names]
 
 
 @dataclasses.dataclass
 class SegOut:
-    """One image's reference segmentation."""
+    """One image's reference segmentation. A per-pixel head detects 1 where
+    any cell is occupied, has no candidates and its ``top_score`` is its
+    ``best_conf``."""
     occupancy: np.ndarray   # (R, C) bool
     n_detections: int
     best_conf: float
     n_candidates: int       # anchors above the confidence threshold, at most K
     top_score: float        # the highest anchor score, above the threshold or not
-    heads: list | None = None   # its four flat head outputs, where asked for
+    heads: list | None = None   # its flat head outputs, where asked for
 
 
 class ExactFloat32:
@@ -197,9 +217,10 @@ class ExactFloat32:
 
 
 class ReferenceChain:
-    """The chain after the model for one configuration and frame size:
-    decode, NMS, masks, the lattice. ``rounding``, where given, rounds each
-    stage's float32 results (the post stages' precision control)."""
+    """The chain after an instance head's model for one configuration and
+    frame size: decode, NMS, masks, the lattice. ``rounding``, where given,
+    rounds each stage's float32 results (the post stages' precision
+    control)."""
 
     def __init__(self, config: dict, frame_hw: tuple[int, int], device: torch.device,
                  rounding=None):
@@ -215,6 +236,22 @@ class ReferenceChain:
         pts = [self.spec.to_dst(float(x), float(y))
                for x, y in zip(cx.reshape(-1), cy.reshape(-1))]
         self.centres = torch.tensor(pts, dtype=torch.float32, device=device)
+
+    def sample(self, maps: torch.Tensor) -> torch.Tensor:
+        """Maps (..., h, w) over the letterboxed image sampled bilinearly at
+        every cell centre (align_corners=False, the source coordinate
+        clamped first) -> (..., cells)."""
+        imgsz = self.cfg["imgsz"]
+        hp, wp = maps.shape[-2:]
+        px = torch.clamp((self.centres[:, 0] + 0.5) * wp / imgsz - 0.5, 0, wp - 1)
+        py = torch.clamp((self.centres[:, 1] + 0.5) * hp / imgsz - 0.5, 0, hp - 1)
+        x0, y0 = torch.floor(px), torch.floor(py)
+        fx, fy = px - x0, py - y0
+        x0i, y0i = x0.long().clamp(0, wp - 1), y0.long().clamp(0, hp - 1)
+        x1i, y1i = (x0i + 1).clamp(max=wp - 1), (y0i + 1).clamp(max=hp - 1)
+        m = maps
+        return (m[..., y0i, x0i] * (1 - fx) * (1 - fy) + m[..., y0i, x1i] * fx * (1 - fy)
+                + m[..., y1i, x0i] * (1 - fx) * fy + m[..., y1i, x1i] * fx * fy)
 
     @torch.no_grad()
     def segment(self, outs, heads: bool = False) -> list[SegOut]:
@@ -240,37 +277,67 @@ class ReferenceChain:
         masks = masks * (inside & kept[..., None, None]).float()
         areas = torch.where(kept, (masks > 0).sum(dim=(-1, -2)), -1)
         winner = torch.argmax(areas, dim=-1)
-        # The winning mask's logits sampled bilinearly at every cell centre
-        # (align_corners=False, the source coordinate clamped first).
-        m = masks[torch.arange(masks.shape[0]), winner]            # (S, hp, wp)
-        px = torch.clamp((self.centres[:, 0] + 0.5) * wp / imgsz - 0.5, 0, wp - 1)
-        py = torch.clamp((self.centres[:, 1] + 0.5) * hp / imgsz - 0.5, 0, hp - 1)
-        x0, y0 = torch.floor(px), torch.floor(py)
-        fx, fy = px - x0, py - y0
-        x0i, y0i = x0.long().clamp(0, wp - 1), y0.long().clamp(0, hp - 1)
-        x1i, y1i = (x0i + 1).clamp(max=wp - 1), (y0i + 1).clamp(max=hp - 1)
-        val = r(m[:, y0i, x0i] * (1 - fx) * (1 - fy) + m[:, y0i, x1i] * fx * (1 - fy)
-                + m[:, y1i, x0i] * (1 - fx) * fy + m[:, y1i, x1i] * fx * fy)
+        # The winning mask's logits at every cell centre.
+        val = r(self.sample(masks[torch.arange(masks.shape[0]), winner]))
         any_det = kept.any(dim=-1)
         occ = (val > 0) & any_det[:, None]
         best = torch.where(any_det, scores.max(dim=-1).values, 0.0)
+        return self._out(occ, kept.sum(-1), best, n_cand, top, flat)
+
+    def _out(self, occ, n_det, best, n_cand, top, flat) -> list[SegOut]:
         occ, n_det, best, n_cand, top = (
-            t.cpu().numpy() for t in (occ, kept.sum(-1), best, n_cand, top))
+            t.cpu().numpy() for t in (occ, n_det, best, n_cand, top))
         return [SegOut(occ[i].reshape(self.rows, self.cols), int(n_det[i]),
                        float(best[i]), int(n_cand[i]), float(top[i]),
                        None if flat is None else [h[i] for h in flat])
                 for i in range(len(occ))]
 
 
-class ReferenceSegmenter(ReferenceChain):
+class SemanticChain(ReferenceChain):
+    """The chain after a per-pixel head's model: each class's logit sampled
+    at every cell centre as the instance chain samples its winning mask,
+    the cell occupied where ``torch.argmax`` over the classes (the first
+    class on a tie) is one of the configuration's ``walkable_classes``.
+    A frame detects 1 where any cell is occupied; its best confidence is
+    the largest softmax probability, over the classes, of the winning class
+    among its occupied cells (0 where none is); it has no candidates, and
+    its top score is its best confidence. ``rounding`` rounds the logits,
+    the sampled logits and the probabilities."""
+
+    @torch.no_grad()
+    def segment(self, outs, heads: bool = False) -> list[SegOut]:
+        """Each image's segmentation from a batch's ``outs.logits``
+        (S, K, h, w) float32; with ``heads``, its flat logits too."""
+        r = self.round
+        flat = flat_heads(outs, LOGITS) if heads else None
+        z = r(self.sample(r(outs.logits)))                           # (S, K, cells)
+        win = torch.argmax(z, dim=1)
+        walkable = torch.tensor(self.cfg["walkable_classes"], device=z.device)
+        occ = torch.isin(win, walkable)
+        p = r(torch.softmax(z, dim=1)).gather(1, win[:, None])[:, 0]
+        best = torch.where(occ, p, 0.0).amax(dim=1)
+        zero = torch.zeros_like(best, dtype=torch.long)
+        return self._out(occ, occ.any(dim=1).long(), best, zero, best, flat)
+
+
+def chain_for(config: dict, frame_hw: tuple[int, int], device: torch.device,
+              rounding=None) -> ReferenceChain:
+    """The chain after the model of the configuration's head kind."""
+    kind = SemanticChain if head_kind(config) == "semantic" else ReferenceChain
+    return kind(config, frame_hw, device, rounding)
+
+
+class ReferenceSegmenter:
     """The float32 chain for one model configuration from the camera frame,
     whose model comes from the reference module ``arch`` (``build_model``,
-    ``load_flax_variables``, ``set_quant``); ``quant`` rounds every
-    convolution and matmul operand (the model's precision control)."""
+    ``load_flax_variables``, ``set_quant``) and whose chain after the model
+    is its head kind's (``chain_for``); ``quant`` rounds every convolution
+    and matmul operand (the model's precision control)."""
 
     def __init__(self, config: dict, arch, variables: dict, frame_hw: tuple[int, int],
                  device: torch.device, quant=None, rounding=None):
-        super().__init__(config, frame_hw, device, rounding)
+        self.cfg, self.device, (self.h, self.w) = config, device, frame_hw
+        self.chain = chain_for(config, frame_hw, device, rounding)
         self.model = arch.build_model(config)
         arch.load_flax_variables(self.model, variables)
         self.model.eval().to(device)
@@ -283,9 +350,11 @@ class ReferenceSegmenter(ReferenceChain):
         planes = np.stack([bgr_to_i420(f) for f in frames])
         return i420_to_bgr(torch.from_numpy(planes).to(self.device), self.h, self.w)
 
+    def images(self, frames: np.ndarray) -> torch.Tensor:
+        """(S, 3, imgsz, imgsz) float32 model inputs of camera frames."""
+        return letterbox(self.wire(frames), self.chain.spec, self.cfg["imgsz"])
+
     @torch.no_grad()
     def __call__(self, frames: np.ndarray, heads: bool = False) -> list[SegOut]:
         """Each frame's segmentation; with ``heads``, its flat head outputs too."""
-        imgsz = self.cfg["imgsz"]
-        return self.segment(self.model(letterbox(self.wire(frames), self.spec, imgsz)),
-                            heads)
+        return self.chain.segment(self.model(self.images(frames)), heads)

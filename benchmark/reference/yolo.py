@@ -6,7 +6,10 @@ of the module: ``build_model(config)``, the float32 model, whose forward
 returns ``Outputs``; ``flax_leaves(model)``, its Flax leaves in creation
 order; ``load_flax_variables(model, variables)``; ``set_quant(model,
 quant)``. A new architecture brings a module of its own with the same four,
-and may import blocks from this one.
+and may import blocks from this one. A per-pixel head's model (a
+configuration with ``"head": "semantic"``) returns an object with a field
+``logits`` instead (``reference/segment.py``), and its ``flax_leaves`` may
+give the layouts ``"dense"`` and ``"layer_norm"`` (``harness/weights.py``).
 
 A frozen copy of the serving forward of the port's ``models/yolo.py``: the
 same blocks, channel and depth scaling and Flax weight layout, but every

@@ -98,9 +98,20 @@ def test_an_altered_answer_is_caught(root, cell):
     assert numbers["answer_frames"] > 0
 
 
+def then_a_pool(fault):
+    """``fault`` planted, then a whole pool's frames (steps) served before the
+    window: the stream carries its state through every scene after the
+    fault, however few frames a loaded CPU answers in the window."""
+    def planted(loop):
+        fault(loop)
+        for _ in range(len(loop.pool)):
+            loop.run(0.0)
+    return planted
+
+
 @pytest.mark.parametrize("cell", ["cpu.sync", "cpu.batch2"])
 def test_state_returned_unchanged_is_caught(root, cell):
-    line, numbers = _run(root, cell, state_unchanged)
+    line, numbers = _run(root, cell, then_a_pool(state_unchanged))
     assert not line["correct"], numbers
     assert numbers["state_gap"] > 0
 
