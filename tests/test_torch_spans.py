@@ -266,6 +266,37 @@ def test_area_attention_spans_one_a_block_a_step(frames, arch, blocks):
     assert {s.parent for s in got} == {"program.segment"}
 
 
+def test_segformer_spans_52_attentions_a_decoder_and_a_lattice_a_step(frames):
+    """SegFormer-B5 served in steps of 2 streams at imgsz 64: under the
+    profiler each step records one ``program.segment.esa`` span an
+    efficient self-attention block (52), one ``program.segment.decoder``
+    and one ``program.segment.classes``, inside ``program.segment`` and
+    carrying the step's id, and ``esa_calls`` counts 52 a forward; without a
+    profiler, no span."""
+    from vision_assist_tpu_torch.models import segformer
+
+    cfg = config.ModelConfig(arch="segformer-b5", num_classes=19,
+                             walkable_classes=(1,), imgsz=64, dtype="float32")
+    seg = Segmenter(cfg, example_hw=(H, W), device="cpu")
+    proc = MultiStreamProcessor(_cfg("exact_device", STREAMS), segmenter=seg, device="cpu")
+    names = ("program.segment.esa", "program.segment.decoder", "program.segment.classes")
+    try:
+        spans.clear()
+        segformer.reset_esa_calls()
+        _step(proc, frames, 0)
+        assert spans.recorded() == [] and segformer.esa_calls == 52
+        with profile(activities=[ProfilerActivity.CPU]):
+            _step(proc, frames, 1)
+            _step(proc, frames, 2)
+        got = [s for s in spans.recorded() if s.name in names]
+    finally:
+        _close(proc)
+    for name, per_step in zip(names, (52, 1, 1)):
+        steps = sorted(s.step for s in got if s.name == name)
+        assert steps == [1] * per_step + [2] * per_step, name
+    assert {s.parent for s in got} == {"program.segment"}
+
+
 def test_yolov9_spans_five_fusions_and_one_aux_a_step(frames):
     """YOLOv9e-seg served in steps of 2 streams at imgsz 64: under the
     profiler each step records five ``program.segment.cbfuse`` spans (layers

@@ -45,6 +45,7 @@ from vision_assist_tpu_torch.models.yolo import (
     flax_leaves,
     to_flax_variables,
 )
+from vision_assist_tpu_torch.ops import attention
 
 torch.set_num_threads(2)
 
@@ -273,9 +274,9 @@ def test_the_attention_kernel_is_pinned():
     def q(device, dtype):
         return types.SimpleNamespace(device=torch.device(device), dtype=dtype)
 
-    assert yolo._sdpa_backend(q("cpu", torch.bfloat16)) == SDPBackend.MATH
-    assert yolo._sdpa_backend(q("cuda", torch.bfloat16)) == SDPBackend.FLASH_ATTENTION
-    assert yolo._sdpa_backend(q("cuda", torch.float32)) == SDPBackend.EFFICIENT_ATTENTION
+    assert attention.sdpa_backend(q("cpu", torch.bfloat16)) == SDPBackend.MATH
+    assert attention.sdpa_backend(q("cuda", torch.bfloat16)) == SDPBackend.FLASH_ATTENTION
+    assert attention.sdpa_backend(q("cuda", torch.float32)) == SDPBackend.EFFICIENT_ATTENTION
 
 
 # -- on the card ---------------------------------------------------------------------------
@@ -300,7 +301,7 @@ def test_flash_attention_equals_the_math_path_on_the_card(cuda, monkeypatch):
     x = x.contiguous(memory_format=torch.channels_last)
     with torch.no_grad():
         got = m(x).float()
-        monkeypatch.setattr(yolo, "_sdpa_backend", lambda q: SDPBackend.MATH)
+        monkeypatch.setattr(yolo, "sdpa_backend", lambda q: SDPBackend.MATH)
         want = m(x).float()
     rms = float(want.pow(2).mean().sqrt())
     assert float((got - want).abs().max()) <= 0.05 * rms

@@ -185,11 +185,19 @@ class AnalyserConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Segmentation model. Reference: main.py:43 (YOLO(...)), model/train.py:12-13."""
+    """Segmentation model. Reference: main.py:43 (YOLO(...)), model/train.py:12-13.
+
+    ``arch`` decides what the model returns and how the lattice is read
+    from it: a YOLO-seg (``yolo*``) returns detections and masks (the
+    reference's); a SegFormer (``segformer-*``) returns per-pixel class
+    logits, a cell occupied where its winning class is one of
+    ``walkable_classes``. The thresholds, ``reg_max`` and
+    ``num_mask_coeffs`` are a YOLO-seg's alone, ``walkable_classes`` a
+    SegFormer's alone."""
 
     arch: Literal["yolov8n-seg", "yolo11n-seg", "yolo11n-seg-legacy",
                   "yolo12n-seg", "yolo12s-seg", "yolo12m-seg", "yolo12l-seg",
-                  "yolo12x-seg", "yolov9e-seg"] = "yolov8n-seg"
+                  "yolo12x-seg", "yolov9e-seg", "segformer-b5"] = "yolov8n-seg"
     num_classes: int = 1                      # model/data.yaml:6
     imgsz: int = 640
     conf_threshold: float = 0.5               # FrameProcessor.py:322
@@ -198,6 +206,10 @@ class ModelConfig:
     reg_max: int = 16                         # DFL bins
     num_mask_coeffs: int = 32
     dtype: str = "bfloat16"
+    walkable_classes: tuple[int, ...] = (1,)   # Cityscapes' train id 1, sidewalk
+
+    def __post_init__(self):
+        object.__setattr__(self, "walkable_classes", tuple(self.walkable_classes))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -60,8 +60,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.nn.attention import sdpa_kernel
 
+from vision_assist_tpu_torch.ops.attention import sdpa_backend
 from vision_assist_tpu_torch.ops.cuda_adown import adown_pool, adown_pool_plain
 from vision_assist_tpu_torch.ops.cuda_bn_act import bn_act, bn_act_into
 from vision_assist_tpu_torch.ops.cuda_cb_fuse import cb_fuse, cb_fuse_plain
@@ -569,19 +570,6 @@ class C2PSA(nn.Module):
         return self.cv2(cat.join(), out=out, also=also)
 
 
-def _sdpa_backend(q: torch.Tensor):
-    """The attention kernel, pinned so that the card runs the same one on
-    every call: FlashAttention for bf16 and fp16 on the card (no score tensor
-    in device memory; float32 softmax inside, P rounded to the input dtype
-    before P.V), the memory-efficient kernel for float32 there, and the math
-    path on the CPU."""
-    if q.device.type != "cuda":
-        return SDPBackend.MATH
-    if q.dtype in (torch.bfloat16, torch.float16):
-        return SDPBackend.FLASH_ATTENTION
-    return SDPBackend.EFFICIENT_ATTENTION
-
-
 class AAttn(nn.Module):
     """YOLO12 area attention: heads of ``dim // num_heads`` channels over the
     tokens of the grid in row-major order, cut into ``area`` consecutive runs
@@ -607,7 +595,7 @@ class AAttn(nn.Module):
             tokens = self.qkv(x).flatten(2).transpose(1, 2)          # (B, N, 3C)
             qkv = tokens.reshape(b * self.area, n // self.area, nh, 3, hd)
             q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
-            with sdpa_kernel(_sdpa_backend(q)):
+            with sdpa_kernel(sdpa_backend(q)):
                 out = F.scaled_dot_product_attention(q, k, v)       # (B', nh, T, hd)
 
             def grid(t):       # (B', nh, T, hd) -> (B, C, H, W)

@@ -1,6 +1,7 @@
 """The per-frame device program and its ONE packed int32 payload.
 
-The device side — I420 -> BGR, letterbox -> YOLO-seg -> NMS -> masks ->
+The device side — I420 -> BGR, letterbox -> the segmenter (YOLO-seg's
+NMS and masks, or a per-pixel head's class logits at the cell centres) ->
 occupancy -> artificial cells -> penalty -> peaks (-> paths) -> blur metric —
 ends in one int32 vector, so a frame costs one device->host copy. The layout
 is the reference's, word for word, so the JAX package's ``unpack`` reads this
@@ -129,10 +130,8 @@ def make_frame_program(cfg: PipelineConfig, segmenter,
                 [pr.peaks.centre_x, pr.peaks.centre_y, pr.peaks.left_x,
                  pr.peaks.right_x, pr.peaks.orientation,
                  pr.peaks.valid.to(i32)], dim=-1).to(i32)
-            n_det = seg.detections.valid.sum(dim=-1).to(i32)
-            best_conf = torch.where(seg.any_detection,
-                                    seg.detections.scores.max(dim=-1).values, 0.0)
-            meta = torch.stack([_bits(blur), n_det, _bits(best_conf)], dim=-1)
+            meta = torch.stack([_bits(blur), seg.n_detections(),
+                                _bits(seg.best_conf())], dim=-1)
             parts = [flags.flatten(1), peaks.flatten(1), meta]
             if include_paths:
                 parts += [

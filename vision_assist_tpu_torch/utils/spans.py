@@ -15,6 +15,12 @@ program they issue) opens a span at each layer boundary:
           program.segment.aux     YOLOv9's first backbone and its five
                                   CBLinears, one a step
           program.segment.cbfuse  one a YOLOv9 CBFuse, 5 a step
+          program.segment.esa     one a SegFormer efficient self-attention
+                                  block, 52 a step at segformer-b5
+          program.segment.decoder SegFormer's All-MLP decoder, one a step
+          program.segment.classes a per-pixel head's class logits sampled
+                                  at the cell centres and the lattice, one
+                                  a step
       readback    the payload's copy to pinned memory issued, its event
     retire      the step's host half after the card, with the same id
       wait        the host waiting for the payload's event
